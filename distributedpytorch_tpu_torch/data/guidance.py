@@ -1,0 +1,132 @@
+"""Click-derived guidance channels: n-ellipse, gaussian point heatmaps and
+their combination, in crop coordinates.
+
+Copies of the click families of ``distributedpytorch_tpu/data/guidance.py``
+(its numpy paths; the native rasterizer is not carried over), kept here so
+the port never imports the JAX package.  The tests pin them to the
+originals.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..utils.helpers import make_gt
+
+
+def _sum_of_distances(x_range, y_range, points) -> np.ndarray:
+    """d[i, j] = sum_k || (x_j, y_i) - p_k || over the focal points."""
+    xx = np.asarray(x_range, dtype=np.float32)
+    yy = np.asarray(y_range, dtype=np.float32)
+    X, Y = np.meshgrid(xx, yy)
+    d = np.zeros_like(X)
+    for px, py in np.asarray(points, dtype=np.float32):
+        d += np.sqrt((X - px) ** 2 + (Y - py) ** 2)
+    return d
+
+
+def compute_nellipse(x_range, y_range, points,
+                     softness: float = 0.05) -> np.ndarray:
+    """Soft indicator in [0, 1] of the n-ellipse with foci at ``points``,
+    whose boundary passes through the outermost point; the edge decays
+    with relative width ``softness``."""
+    points = np.asarray(points, dtype=np.float32)
+    if points.size == 0:
+        raise ValueError("compute_nellipse requires at least one focal point")
+    d = _sum_of_distances(x_range, y_range, points)
+    per_point = [
+        sum(np.hypot(px - qx, py - qy) for qx, qy in points) for px, py in points
+    ]
+    c = float(max(per_point))
+    if c <= 0:  # degenerate: all points coincide
+        z = np.zeros_like(d)
+        z[d == 0] = 1.0
+        return z
+    tau = softness * c
+    z = 1.0 / (1.0 + np.exp(np.clip((d - c) / tau, -50.0, 50.0)))
+    return z.astype(np.float32)
+
+
+def compute_nellipse_gaussian_hm(x_range, y_range, points, sigma: float = 10.0,
+                                 softness: float = 0.05
+                                 ) -> tuple[np.ndarray, np.ndarray]:
+    """(n-ellipse indicator, gaussian point heatmap), both in [0, 1]."""
+    z1 = compute_nellipse(x_range, y_range, points, softness=softness)
+    size = (len(y_range), len(x_range))
+    z2 = make_gt(np.zeros(size, np.float32), points, sigma=sigma)
+    return z1, z2
+
+
+def nellipse_map(shape_hw: tuple[int, int], points) -> np.ndarray:
+    """The n-ellipse guidance channel, float32 in [0, 255]."""
+    h, w = shape_hw
+    z = compute_nellipse(np.arange(w), np.arange(h),
+                         np.asarray(points, np.float64))
+    return (z * 255.0).astype(np.float32)
+
+
+def extreme_points_map(shape_hw: tuple[int, int], points,
+                       sigma: float = 10.0) -> np.ndarray:
+    """The gaussian extreme-point heatmap channel, float32 in [0, 1]."""
+    return make_gt(np.zeros(shape_hw, np.float32), points, sigma=sigma)
+
+
+def nellipse_gaussians_map(shape_hw: tuple[int, int], points,
+                           alpha: float = 0.6,
+                           sigma: float = 10.0) -> np.ndarray:
+    """The served guidance channel: ``z1 + alpha * z2`` rescaled to peak at
+    exactly 255, float32 in [0, 255]."""
+    h, w = shape_hw
+    z1, z2 = compute_nellipse_gaussian_hm(
+        np.arange(w), np.arange(h), np.asarray(points, np.float64),
+        sigma=sigma)
+    z = z1 * 255.0 + z2 * 255.0 * alpha
+    z *= 255.0 / z.max()
+    return np.clip(z, 0.0, 255.0).astype(np.float32)
+
+
+#: guidance families computable from the 4 clicks alone
+POINT_GUIDANCE = {
+    "nellipse_gaussians":
+        lambda shape, pts, alpha: nellipse_gaussians_map(shape, pts, alpha=alpha),
+    "nellipse":
+        lambda shape, pts, alpha: nellipse_map(shape, pts),
+    "extreme_points":
+        lambda shape, pts, alpha: extreme_points_map(shape, pts),
+}
+
+
+def guidance_from_points(shape_hw: tuple[int, int], points: np.ndarray,
+                         alpha: float = 0.6,
+                         family: str = "nellipse_gaussians") -> np.ndarray:
+    """Crop-space guidance map of one of :data:`POINT_GUIDANCE`, float32."""
+    points = np.asarray(points, np.float64)
+    try:
+        build = POINT_GUIDANCE[family]
+    except KeyError:
+        raise ValueError(
+            f"unknown guidance family: {family!r} "
+            f"({' | '.join(POINT_GUIDANCE)})") from None
+    return build(shape_hw, points, alpha)
+
+
+def scale_points_to_crop(points: np.ndarray, bbox: tuple[int, int, int, int],
+                         resolution: tuple[int, int]) -> np.ndarray:
+    """Full-image xy points into resized-crop coordinates, clipped to it."""
+    points = np.asarray(points, np.float64)
+    res_h, res_w = resolution
+    scale = np.array([res_w / (bbox[2] - bbox[0] + 1),
+                      res_h / (bbox[3] - bbox[1] + 1)])
+    crop_pts = (points - np.array([bbox[0], bbox[1]])) * scale
+    return np.clip(crop_pts, 0, [res_w - 1, res_h - 1])
+
+
+def crop_point_guidance(points: np.ndarray, bbox: tuple[int, int, int, int],
+                        resolution: tuple[int, int], alpha: float = 0.6,
+                        family: str = "nellipse_gaussians") -> np.ndarray:
+    """Full-image clicks + crop bbox -> the crop-space guidance channel at
+    ``resolution``: :func:`scale_points_to_crop` then
+    :func:`guidance_from_points`."""
+    crop_pts = scale_points_to_crop(points, bbox, resolution)
+    return guidance_from_points(resolution, crop_pts, alpha=alpha,
+                                family=family)

@@ -1,0 +1,182 @@
+"""Dilated ResNet backbones (NCHW), the counterpart of
+``distributedpytorch_tpu/models/resnet.py``.
+
+Submodules carry flax's auto-numbered names (``Conv_0``, ``BatchNorm_0``,
+``BottleneckBlock_7``, ...), so a JAX parameter tree maps onto this
+module's ``state_dict`` one leaf to one key (``utils/weights.py``).
+
+flax's ``padding="SAME"`` is not torch's ``padding=k//2``: on a stride-2
+layer with an even input it pads one pixel more on the bottom and right
+than on the top and left.  :func:`same_pad` computes flax's split, and the
+layers pad explicitly where the split is uneven (the 7x7 stem, stride-2
+3x3s and the max-pool, which pads with -inf).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+#: block counts per stage
+RESNET_DEPTHS = {
+    18: (2, 2, 2, 2),
+    34: (3, 4, 6, 3),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+#: depths that use the 3-conv bottleneck block (4x channel expansion)
+BOTTLENECK_DEPTHS = (50, 101, 152)
+
+
+def same_pad(size: int, kernel: int, stride: int, dilation: int = 1
+             ) -> tuple[int, int]:
+    """flax/XLA ``SAME`` padding of one spatial axis: (before, after)."""
+    eff = (kernel - 1) * dilation + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + eff - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's ``SAME`` padding (asymmetric when needed)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
+        top, bottom = same_pad(x.shape[-2], kh, sh, dh)
+        left, right = same_pad(x.shape[-1], kw, sw, dw)
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, self.stride, (top, left),
+                            self.dilation)
+        x = F.pad(x, (left, right, top, bottom))
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation)
+
+
+def conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
+         bias: bool = False) -> nn.Conv2d:
+    """flax ``nn.Conv`` (default ``SAME`` padding) as a torch layer; a 1x1
+    conv never pads, so it is a plain ``nn.Conv2d``."""
+    if kernel == 1:
+        return nn.Conv2d(cin, cout, 1, stride=stride, bias=bias)
+    return SameConv2d(cin, cout, kernel, stride=stride, dilation=dilation,
+                      bias=bias)
+
+
+def norm(channels: int) -> nn.BatchNorm2d:
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` as a torch layer."""
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
+    """flax ``nn.max_pool(..., padding="SAME")``: -inf padding, flax's split."""
+    top, bottom = same_pad(x.shape[-2], kernel, stride)
+    left, right = same_pad(x.shape[-1], kernel, stride)
+    x = F.pad(x, (left, right, top, bottom), value=-torch.inf)
+    return F.max_pool2d(x, kernel, stride)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs + identity shortcut (ResNet-18/34)."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        self.Conv_0 = conv(cin, filters, 3, stride, dilation)
+        self.BatchNorm_0 = norm(filters)
+        self.Conv_1 = conv(filters, filters, 3, 1, dilation)
+        self.BatchNorm_1 = norm(filters)
+        self.project = cin != filters or stride != 1
+        if self.project:
+            self.Conv_2 = conv(cin, filters, 1, stride)
+            self.BatchNorm_2 = norm(filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_1(self.Conv_1(y))
+        residual = self.BatchNorm_2(self.Conv_2(x)) if self.project else x
+        return F.relu(y + residual)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 reduce -> 3x3 (carries stride and dilation) -> 1x1 expand x4."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        out = filters * self.expansion
+        self.Conv_0 = conv(cin, filters, 1)
+        self.BatchNorm_0 = norm(filters)
+        self.Conv_1 = conv(filters, filters, 3, stride, dilation)
+        self.BatchNorm_1 = norm(filters)
+        self.Conv_2 = conv(filters, out, 1)
+        self.BatchNorm_2 = norm(out)
+        self.project = cin != out or stride != 1
+        if self.project:
+            self.Conv_3 = conv(cin, out, 1, stride)
+            self.BatchNorm_3 = norm(out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
+        y = self.BatchNorm_2(self.Conv_2(y))
+        residual = self.BatchNorm_3(self.Conv_3(x)) if self.project else x
+        return F.relu(y + residual)
+
+
+def _stage_plan(output_stride: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(strides, dilations) of stages 1-4 for the target output stride."""
+    if output_stride == 32:
+        return (1, 2, 2, 2), (1, 1, 1, 1)
+    if output_stride == 16:
+        return (1, 2, 2, 1), (1, 1, 1, 2)
+    if output_stride == 8:
+        return (1, 2, 1, 1), (1, 1, 2, 4)
+    raise ValueError(f"output_stride must be 8, 16 or 32, got {output_stride}")
+
+
+class ResNet(nn.Module):
+    """Dilated ResNet feature extractor with a single 7x7 stem.
+
+    ``forward(x)`` (B, in_channels, H, W) -> dict of stage outputs
+    ``{'c1', 'c2', 'c3', 'c4'}``; ``c4`` is at H / output_stride."""
+
+    def __init__(self, depth: int = 50, output_stride: int = 16,
+                 in_channels: int = 4, width: int = 64):
+        super().__init__()
+        if depth not in RESNET_DEPTHS:
+            raise ValueError(f"unsupported ResNet depth {depth} "
+                             f"({sorted(RESNET_DEPTHS)})")
+        block_cls = BottleneckBlock if depth in BOTTLENECK_DEPTHS else BasicBlock
+        strides, dilations = _stage_plan(output_stride)
+        self.Conv_0 = conv(in_channels, width, 7, 2)
+        self.BatchNorm_0 = norm(width)
+        self.stage_ends: list[int] = []
+        cin, filters, idx = width, width, 0
+        for stage, n_blocks in enumerate(RESNET_DEPTHS[depth]):
+            for i in range(n_blocks):
+                block = block_cls(cin, filters,
+                                  stride=strides[stage] if i == 0 else 1,
+                                  dilation=dilations[stage])
+                self.add_module(f"{block_cls.__name__}_{idx}", block)
+                cin = filters * block_cls.expansion
+                idx += 1
+            self.stage_ends.append(idx)
+            filters *= 2
+        self.out_channels = cin
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        x = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        x = max_pool_same(x)
+        blocks = [m for name, m in self.named_children() if "Block_" in name]
+        feats, start = {}, 0
+        for stage, end in enumerate(self.stage_ends):
+            for block in blocks[start:end]:
+                x = block(x)
+            feats[f"c{stage + 1}"] = x
+            start = end
+        return feats

@@ -1,0 +1,194 @@
+"""DANet attention on the hand-written Hopper kernels (``csrc/attention.cu``).
+
+Counterpart of ``distributedpytorch_tpu/ops/pallas_attention.py``, with its
+public names and shapes:
+
+* :func:`flash_position_attention` — ``q``/``k`` (B, N, Ck), ``v``
+  (B, N, Cv) -> (B, N, Cv), one kernel (``pam_forward``);
+* :func:`flash_channel_attention` — (B, N, C) -> (B, N, C), the composition
+  of :func:`cam_energy` (Gram + ``rowmax - E`` softmax, two launches that
+  together port the TPU's one energy kernel) and :func:`cam_apply`.
+
+Each wrapper launches its kernel for a CUDA tensor — or raises — and runs
+the plain form of :mod:`.attention` only for a tensor on the CPU.  It counts
+its launches in :data:`launches` (one per call that reached the kernel), so
+a run can show that its main path went through the kernels.  Inputs are
+float32 or bfloat16 and must be contiguous; outputs are allocated here with
+``torch.empty`` on the caller's current stream, and nothing synchronises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .attention import (
+    blocked_position_attention,
+    channel_apply,
+    channel_energy,
+)
+
+#: launches per kernel wrapper since the last :func:`reset_launches`
+launches: dict[str, int] = {"position_attention": 0, "cam_energy": 0,
+                            "cam_apply": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "dptpu_pam_forward": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
+                          _I, _P),
+    "dptpu_cam_energy": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dptpu_cam_apply": (_P, _P, _P, _I, _I, _I, _I, _P),
+}
+#: the largest Ck whose Q/K tiles fit one block's shared memory beside the
+#: value tile (227 KB per block on Hopper)
+MAX_CK = 256
+#: Gram partial sums over N: enough (tile x split) blocks to cover the card
+_GRAM_TILE = 128
+_GRAM_MIN_BLOCKS = 128
+_GRAM_MAX_SPLITS = 8
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("attention")
+    if not getattr(lib, "_dptpu_typed", False):
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib._dptpu_typed = True
+    return lib
+
+
+def build() -> None:
+    """Compile and load the kernels now (they otherwise build at first use)."""
+    _lib()
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (take the plain form); False
+    when all lie on one CUDA device (launch the kernel); raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on different devices: {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}: CUDA or CPU tensors only")
+    for t in tensors:
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    return False
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel failed to launch: CUDA error {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_position_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, block_q: int = 256,
+                             block_k: int = 256,
+                             scale: float | None = None) -> torch.Tensor:
+    """Position attention, (B, N, Ck)·(B, N, Ck)ᵀ -> softmax -> ·(B, N, Cv).
+
+    Energies are unscaled unless ``scale`` is given; the output takes
+    ``v.dtype``.  ``block_q``/``block_k`` are the TPU kernel's VMEM tiling:
+    the Hopper kernel has its own fixed tiles, and on the CPU ``block_k``
+    sets the key block of the plain online-softmax form."""
+    if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 \
+            or v.shape[:2] != q.shape[:2]:
+        raise ValueError(f"expected q, k (B, N, Ck) and v (B, N, Cv); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if _on_cpu(q, k, v):
+        return blocked_position_attention(q, k, v, block_size=block_k,
+                                          scale=scale)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    b, n, ck = q.shape
+    cv = v.shape[-1]
+    if not 1 <= ck <= MAX_CK:
+        raise ValueError(f"Ck={ck} outside the kernel's 1..{MAX_CK}")
+    out = torch.empty((b, n, cv), dtype=v.dtype, device=v.device)
+    if n == 0 or b == 0:
+        return out
+    err = _lib().dptpu_pam_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, ck, cv,
+        0.0 if scale is None else float(scale), int(scale is not None),
+        _DTYPES[v.dtype], _stream(v))
+    _check(err, "position-attention")
+    launches["position_attention"] += 1
+    return out
+
+
+def gram_splits(batch: int, channels: int, tokens: int) -> int:
+    """How many slices of N the Gram kernel sums separately: enough that
+    (output tiles x batch x splits) blocks cover the card, at most 8, and
+    never a slice shorter than 256 tokens."""
+    tiles = (-(-channels // _GRAM_TILE)) ** 2
+    want = -(-_GRAM_MIN_BLOCKS // (tiles * batch))
+    return max(1, min(want, _GRAM_MAX_SPLITS, tokens // 256))
+
+
+def cam_energy(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) -> the (B, C, C) float32 channel-attention map."""
+    if x.dim() != 3:
+        raise ValueError(f"expected x (B, N, C), got {tuple(x.shape)}")
+    if _on_cpu(x):
+        return channel_energy(x)
+    b, n, c = x.shape
+    splits = gram_splits(b, c, n)
+    partial = torch.empty((b, splits, c, c), dtype=torch.float32, device=x.device)
+    attn = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
+    if b == 0 or c == 0:
+        return attn
+    err = _lib().dptpu_cam_energy(
+        x.data_ptr(), partial.data_ptr(), attn.data_ptr(), b, n, c, splits,
+        _DTYPES[x.dtype], _stream(x))
+    _check(err, "channel-energy")
+    launches["cam_energy"] += 1
+    return attn
+
+
+def cam_apply(attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out[n, i] = sum_j attn[i, j] * x[n, j]``: (B, C, C) float32 map and
+    (B, N, C) tokens -> (B, N, C) in ``x.dtype``."""
+    if x.dim() != 3 or attn.shape != (x.shape[0], x.shape[2], x.shape[2]):
+        raise ValueError(f"expected attn (B, C, C) and x (B, N, C); got "
+                         f"{tuple(attn.shape)}, {tuple(x.shape)}")
+    if _on_cpu(attn, x):
+        return channel_apply(attn, x)
+    if attn.dtype != torch.float32:
+        raise TypeError(f"the attention map must be float32, got {attn.dtype}")
+    b, n, c = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    err = _lib().dptpu_cam_apply(attn.data_ptr(), x.data_ptr(), out.data_ptr(),
+                                 b, n, c, _DTYPES[x.dtype], _stream(x))
+    _check(err, "channel-apply")
+    launches["cam_apply"] += 1
+    return out
+
+
+def flash_channel_attention(x: torch.Tensor,
+                            block_n: int = 256) -> torch.Tensor:
+    """Channel attention, (B, N, C) -> (B, N, C): :func:`cam_energy` then
+    :func:`cam_apply`.  ``block_n`` is the TPU kernel's row tiling and has
+    no effect here."""
+    del block_n
+    return cam_apply(cam_energy(x), x)
