@@ -10,9 +10,20 @@ it), printing no result.  The phases, each raising on failure:
              the serving shapes (B = 1 and 8, N = 4096 tokens, Ck = 64,
              Cv = C = 512), at a ragged N (65² = 4225) and at DANet-R18's
              narrow head (Ck = 16, Cv = C = 128), in float32 (max |diff| <=
-             1e-4 x max |plain|: summation order only) and in bfloat16
-             inputs (<= 2e-2 x max |plain|, output dtype kept); then time
-             kernel, plain form and a library yardstick with CUDA events.
+             1e-4 x max |plain|: summation order, and the channel kernels'
+             3xTF32 products) and in bfloat16
+             inputs (<= 2e-2 x max |plain|, output dtype kept), plus two
+             odd widths (C = 100 and 67); each channel kernel launched twice
+             on one input must give the same bits; the channel kernels
+             against float64 at a feature scale where a single-pass TF32
+             product fails the same bound, and with NaN inputs; then
+             time kernel, plain form and a library yardstick with CUDA
+             events, taking turns, both for a single launch and per call
+             in runs of 20 back to back, and the host's microseconds per
+             call at B = 1,
+             each against its bound: for float32 work the least time of a
+             float32-accurate route, 3xTF32 on the tensor cores (a third of
+             the TF32 rate) or the bytes at the memory rate.
 3. predictor — DANet-R101 at 512² with every weight drawn from seed 0
              (gammas and last-BN scales included), ``predict_batch`` on a
              synthetic 480x640 image with 4 click sets, compared with the
@@ -41,12 +52,13 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-#: dense peak rates (float32 FLOP/s on CUDA cores, bf16 FLOP/s on tensor
-#: cores, memory bytes/s) from NVIDIA's data sheets, by card variant
+#: dense peak rates (float32 FLOP/s on CUDA cores, bf16 FLOP/s and TF32
+#: FLOP/s on tensor cores, memory bytes/s) from NVIDIA's data sheets, by
+#: card variant
 PEAKS = {
-    "H100 SXM": (67e12, 989e12, 3.35e12),
-    "H100 PCIe": (51e12, 756e12, 2.0e12),
-    "H100 NVL": (60e12, 835e12, 3.9e12),
+    "H100 SXM": (67e12, 989e12, 495e12, 3.35e12),
+    "H100 PCIe": (51e12, 756e12, 378e12, 2.0e12),
+    "H100 NVL": (60e12, 835e12, 417.5e12, 3.9e12),
 }
 REPO = Path(__file__).resolve().parent
 TPU_KERNELS = {
@@ -61,29 +73,73 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_peaks(name: str) -> tuple[str, tuple[float, float, float]]:
+def card_peaks(name: str) -> tuple[str, tuple[float, float, float, float]]:
     for key in ("PCIe", "NVL"):
         if key in name:
             return f"H100 {key}", PEAKS[f"H100 {key}"]
     return "H100 SXM", PEAKS["H100 SXM"]
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` over ``reps`` event-timed launches."""
+#: calls per CUDA-event pair of the back-to-back timing
+RUN = 20
+
+
+def median_ms(fns, inner: int = 1, reps: int = 21, warmup: int = 3) -> list[float]:
+    """Milliseconds per call of each of ``fns``: the median over ``reps``
+    rounds, each round timing every function in turn with one CUDA-event
+    pair around ``inner`` calls back to back, so that a slow spell of the
+    card or of the host falls on all of them alike.  With ``inner = 1`` (a
+    single launch) the device waits for whatever part of the host's launch
+    cost comes before its first kernel; runs of ``RUN`` calls hide that
+    cost wherever the device is the slower of the two."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, acc in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            end.synchronize()
+            acc.append(start.elapsed_time(end) / inner)
+    return [statistics.median(t) for t in times]
+
+
+def both_ms(*fns) -> tuple[list[float], list[float]]:
+    """Single-launch ms and ms per call in runs of ``RUN`` of each of
+    ``fns``, timed together."""
+    return median_ms(fns), median_ms(fns, inner=RUN)
+
+
+def host_us(fn, calls: int = 50, reps: int = 5) -> float:
+    """Host microseconds per ``fn()`` while the device's queue has room:
+    the Python wrapper's own cost, its launches included (median of
+    ``reps`` loops of ``calls`` calls, the device drained before each)."""
+    import torch
+
+    fn()
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float, rate: float, bw: float) -> tuple[float, str]:
+    """The least time (ms) for ``flops`` at ``rate`` and ``nbytes`` at ``bw``,
+    and which of the two sets it."""
+    by_ops, by_bytes = flops / rate, nbytes / bw
+    return max(by_ops, by_bytes) * 1e3, "operations" if by_ops >= by_bytes else "bytes"
 
 
 def phase_kernels(torch, ca, att, peaks) -> dict:
@@ -97,7 +153,8 @@ def phase_kernels(torch, ca, att, peaks) -> dict:
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
     # Scales keep the softmaxes soft enough that float32 summation-order
-    # noise in the scores is not amplified past the stated bound.
+    # noise in the scores is not amplified past the stated bound;
+    # check_precision holds the channel kernels to float64 at a larger one.
     def pam_inputs(b, n, ck, cv, dtype):
         return (randn(b, n, ck, scale=0.5, dtype=dtype),
                 randn(b, n, ck, scale=0.5, dtype=dtype),
@@ -116,9 +173,11 @@ def phase_kernels(torch, ca, att, peaks) -> dict:
         "cam_energy": (ca.cam_energy, att.channel_energy, cam_inputs),
         "cam_apply": (ca.cam_apply, att.channel_apply, apply_inputs),
     }
-    # (B, N, Ck, C): serving shapes at B = 1 and 8, ragged N, narrow head
+    # (B, N, Ck, C): serving shapes at B = 1 and 8, ragged N, narrow head,
+    # and two odd widths (C = 100: 16-byte rows in float32 but not in
+    # bfloat16; C = 67: no 16-byte rows at all)
     shapes = [(1, 4096, 64, 512), (8, 4096, 64, 512), (2, 4225, 64, 512),
-              (2, 65, 16, 128)]
+              (2, 65, 16, 128), (2, 4225, 16, 100), (1, 257, 8, 67)]
     errors = {name: 0.0 for name in kernels}
     for name, (kernel, plain, make) in kernels.items():
         for b, n, ck, c in shapes:
@@ -134,70 +193,214 @@ def phase_kernels(torch, ca, att, peaks) -> dict:
                         f"{name} {dtype}: got {out.dtype} {tuple(out.shape)}, "
                         f"plain gives {ref.dtype} {tuple(ref.shape)}")
                 err = (out.float() - ref.float()).abs().max().item()
-                bound = tol * ref.float().abs().max().item()
-                if not err <= bound:
+                limit = tol * ref.float().abs().max().item()
+                if not err <= limit:
                     raise AssertionError(
                         f"{name} B={b} N={n} C={c} {dtype}: max |diff| {err:.3e}"
-                        f" > {bound:.3e}")
+                        f" > {limit:.3e}")
                 if dtype == torch.float32 and n == 4096 and c == 512:
                     errors[name] = max(errors[name], err)
+                same = ""
+                if name != "position_attention":  # no atomics: the same bits
+                    again = kernel(*args)
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"{name} B={b} N={n} C={c} {dtype}: "
+                                             f"two launches differ")
+                    same = "; a second launch is bitwise equal"
                 log(f"check {name} B={b} N={n} C={c} {str(dtype)[6:]}: "
-                    f"max|diff| {err:.3e} <= {bound:.3e}")
+                    f"max|diff| {err:.3e} <= {limit:.3e}{same}")
 
-    f32, bf16, bw = peaks
+    check_precision(torch, ca, att, randn)
+    check_nan(torch, ca, att, randn)
+
+    f32, bf16, tf32, bw = peaks
+    # float32 work at float32 accuracy: 3xTF32 on the tensor cores, three
+    # TF32 products per product, beats the CUDA cores' float32 rate
+    f32_exact = max(tf32 / 3, f32)
     n, ck, c = 4096, 64, 512
     records = {}
     for b in (1, 8):
         q, k, v = pam_inputs(b, n, ck, c, torch.float32)
         x, = cam_inputs(b, n, c, torch.float32)
         attn = att.channel_energy(x)
+        # E is symmetric: the function needs its c(c + 1) / 2 distinct entries
+        gram_flops = 2.0 * b * n * c * (c + 1) / 2
         work = {
-            # (kernel, plain, library, flops, bytes, peak flop/s)
+            # (kernel, plain, library, flops, bytes)
             "position_attention": (
                 lambda: ca.flash_position_attention(q, k, v),
                 lambda: att.position_attention(q, k, v),
                 lambda: F.scaled_dot_product_attention(
                     q[:, None], k[:, None], v[:, None], scale=1.0),
-                2.0 * b * n * n * (ck + c), 4.0 * b * n * (2 * ck + 2 * c), f32),
+                2.0 * b * n * n * (ck + c), 4.0 * b * n * (2 * ck + 2 * c)),
             "cam_energy": (
                 lambda: ca.cam_energy(x),
                 lambda: att.channel_energy(x),
                 lambda: torch.softmax(_rowmax_minus(torch.bmm(x.transpose(1, 2), x)), -1),
-                2.0 * b * n * c * c, 4.0 * b * (n * c + c * c), f32),
+                gram_flops, 4.0 * b * (n * c + c * c)),
             "cam_apply": (
                 lambda: ca.cam_apply(attn, x),
                 lambda: att.channel_apply(attn, x),
                 lambda: torch.bmm(x, attn.transpose(1, 2)),
-                2.0 * b * n * c * c, 4.0 * b * (2 * n * c + c * c), f32),
+                2.0 * b * n * c * c, 4.0 * b * (2 * n * c + c * c)),
         }
-        for name, (kern, plain, lib, flops, nbytes, peak) in work.items():
-            ms = median_ms(kern)
-            plain_ms = median_ms(plain)
-            lib_ms = median_ms(lib)
-            bound_ms = max(flops / peak, nbytes / bw) * 1e3
-            bound_by = "operations" if flops / peak >= nbytes / bw else "bytes"
-            log(f"time {name} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-                f" library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        for name, (kern, plain, lib, flops, nbytes) in work.items():
+            (ms, plain_ms, lib_ms), (ms_run, plain_run, lib_run) = both_ms(
+                kern, plain, lib)
+            bound_ms, bound_by = bound(flops, nbytes, f32_exact, bw)
+            cuda_core_ms, _ = bound(flops, nbytes, f32, bw)
+            log(f"time {name} B={b}: kernel {ms:.4f} ms single launch, {ms_run:.4f} "
+                f"ms in runs of {RUN}; plain {plain_ms:.4f} / {plain_run:.4f} ms; "
+                f"library {lib_ms:.4f} / {lib_run:.4f} ms; bound {bound_ms:.4f} ms "
+                f"({bound_by}, 3xTF32), {bound_ms / ms:.1%} of it single, "
+                f"{bound_ms / ms_run:.1%} in runs; CUDA-core f32 bound "
+                f"{cuda_core_ms:.4f} ms")
+            if min(ms, ms_run) < bound_ms:
+                raise AssertionError(f"{name} B={b}: {min(ms, ms_run):.4f} ms is below "
+                                     f"its bound {bound_ms:.4f} ms: the work is miscounted")
+            if name == "cam_energy":
+                computed = gram_tile_entries(c, ca._GRAM_TILE)
+                tiles_ms, _ = bound(2.0 * b * n * computed, nbytes, f32_exact, bw)
+                log(f"time cam_energy B={b}: the Gram computes {computed} entries "
+                    f"(its whole tiles on and above the diagonal) of the "
+                    f"{c * (c + 1) // 2} it needs; bound at the computed count "
+                    f"{tiles_ms:.4f} ms")
             if b == 1:
-                records[name] = {"ms": ms, "plain_ms": plain_ms,
-                                 "library_ms": lib_ms, "bound_ms": bound_ms,
-                                 "bound_by": bound_by}
-        x, = cam_inputs(b, n, c, torch.float32)
-        composite = median_ms(lambda: torch.bmm(
-            torch.softmax(_rowmax_minus(torch.bmm(x.transpose(1, 2), x)), -1),
-            x.transpose(1, 2)))
-        ours = median_ms(lambda: ca.flash_channel_attention(x))
-        log(f"time channel_attention B={b}: kernels {ours:.4f} ms, library "
-            f"composite bmm+softmax+bmm {composite:.4f} ms")
+                records[name] = {
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "ms_run20": ms_run, "plain_ms_run20": plain_run,
+                    "library_ms_run20": lib_run,
+                    "host_us": host_us(kern), "library_host_us": host_us(lib)}
+                log(f"time {name} B=1: host {records[name]['host_us']:.1f} us per "
+                    f"call of the wrapper, {records[name]['library_host_us']:.1f} us "
+                    f"of the library call")
+        # the energy kernel's two launches, each alone
+        partial, energy = ca._gram_buffers(x)
+        splits = partial.shape[1]
+        (gram_ms, softmax_ms), (gram_run, softmax_run) = both_ms(
+            lambda: ca._launch_gram(x, partial),
+            lambda: ca._launch_softmax(partial, energy))
+        gram_bound, gram_by = bound(gram_flops, 4.0 * b * (n * c + splits * c * c),
+                                    f32_exact, bw)
+        softmax_bound, softmax_by = bound(0.0, 4.0 * b * (splits + 1) * c * c,
+                                          f32_exact, bw)
+        log(f"time cam_energy B={b} launches: Gram ({splits} slices of N) "
+            f"{gram_ms:.4f} ms single, {gram_run:.4f} ms in runs, bound "
+            f"{gram_bound:.4f} ms ({gram_by}); softmax {softmax_ms:.4f} ms single, "
+            f"{softmax_run:.4f} ms in runs, bound {softmax_bound:.4f} ms "
+            f"({softmax_by})")
+        (ours, composite), (ours_run, composite_run) = both_ms(
+            lambda: ca.flash_channel_attention(x),
+            lambda: torch.bmm(
+                torch.softmax(_rowmax_minus(torch.bmm(x.transpose(1, 2), x)), -1),
+                x.transpose(1, 2)))
+        log(f"time channel_attention B={b}: kernels {ours:.4f} ms single, "
+            f"{ours_run:.4f} ms in runs; library composite bmm+softmax+bmm "
+            f"{composite:.4f} ms single, {composite_run:.4f} ms in runs")
     # bf16-input bounds at B = 1: the position kernel's inputs are bf16
     q, k, v = pam_inputs(1, n, ck, c, torch.bfloat16)
-    ms = median_ms(lambda: ca.flash_position_attention(q, k, v))
+    (ms,), (ms_run,) = both_ms(lambda: ca.flash_position_attention(q, k, v))
     flops, nbytes = 2.0 * n * n * (ck + c), 2.0 * n * (2 * ck + 2 * c)
-    log(f"time position_attention B=1 bf16: kernel {ms:.4f} ms, bound "
-        f"{max(flops / bf16, nbytes / bw) * 1e3:.4f} ms")
+    log(f"time position_attention B=1 bf16: kernel {ms:.4f} ms single, "
+        f"{ms_run:.4f} ms in runs, bound {bound(flops, nbytes, bf16, bw)[0]:.4f} ms")
     for name in records:
         records[name]["max_abs_err"] = errors[name]
     return records
+
+
+#: the scale of X at which check_precision holds the channel kernels to
+#: float64 and requires a single-pass TF32 product to fail
+PRECISION_SCALE = 0.25
+
+
+def check_precision(torch, ca, att, randn) -> None:
+    """Float32 accuracy of the channel kernels at B = 1, N = 4096, C = 512,
+    against their plain forms taken in float64, with the bound of the other
+    checks, 1e-4 x max |exact|.  The float32 plain form (cuBLAS) and the
+    same form with single-pass TF32 products (``allow_tf32``) are held to
+    it beside the kernel.  At ``PRECISION_SCALE`` the kernel must pass and
+    the single-pass TF32 form must miss, or the check could not tell a
+    single-pass TF32 kernel from a float32-exact one; the other scales are
+    printed only: at unit scale the float32 function itself sits at the
+    bound (``rowmax - E`` rounds to the ulp of the diagonal, ~|x|^2 N)."""
+    failures = []
+    for scale in (1.0, PRECISION_SCALE, 0.05):
+        x = randn(1, 4096, 512, scale=scale)
+        xd = x.double()
+        gram = xd.transpose(1, 2) @ xd
+        exact = torch.softmax(_rowmax_minus(gram), -1)
+        attn = exact.float()
+        cases = {
+            "cam_energy": (lambda: ca.cam_energy(x), lambda: att.channel_energy(x),
+                           exact),
+            "cam_apply": (lambda: ca.cam_apply(attn, x),
+                          lambda: att.channel_apply(attn, x),
+                          xd @ attn.double().transpose(1, 2)),
+        }
+        for name, (kernel, plain, ref) in cases.items():
+            limit = 1e-4 * ref.abs().max().item()
+            err = {}
+            for what, fn, tf32 in (("kernel", kernel, False),
+                                   ("float32 plain", plain, False),
+                                   ("single-pass TF32 plain", plain, True)):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                try:
+                    got = fn()
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                err[what] = (got.double() - ref).abs().max().item()
+            log(f"check {name} precision, x at scale {scale} vs float64: limit "
+                f"{limit:.3e}; " + ", ".join(
+                    f"{what} {e:.3e} ({e / limit:.3g}x the limit)"
+                    for what, e in err.items()))
+            if scale != PRECISION_SCALE:
+                continue
+            if not err["kernel"] <= limit:
+                failures.append(f"{name} at scale {scale}: {err['kernel']:.3e} > "
+                                f"{limit:.3e} against float64")
+            if not err["single-pass TF32 plain"] > limit:
+                failures.append(f"{name}: single-pass TF32 passes the check at "
+                                f"scale {scale}, so it cannot see TF32 rounding")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def check_nan(torch, ca, att, randn) -> None:
+    """NaN in gives NaN out exactly where the plain form has it: X carries
+    two float32 NaN payloads (every mantissa bit set, as the device's own
+    NaN; only the lowest bit set) in batch entries 0 and 1, and the map one
+    in entry 2; float32 and bfloat16 inputs."""
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        x = randn(3, 300, 128, scale=0.05)
+        attn = att.channel_energy(x)
+        x.view(torch.int32)[0, 5, 7] = 0x7fffffff
+        x.view(torch.int32)[1, 10, 20] = 0x7f800001
+        attn.view(torch.int32)[2, 3, 9] = 0x7fffffff
+        x = x.to(dtype)
+        for name, kernel, plain, args in (
+                ("cam_energy", ca.cam_energy, att.channel_energy, (x,)),
+                ("cam_apply", ca.cam_apply, att.channel_apply, (attn, x))):
+            out, ref = kernel(*args).float(), plain(*args).float()
+            nan = ref.isnan()
+            if not nan.any() or not torch.equal(out.isnan(), nan):
+                raise AssertionError(f"{name} {dtype}: NaN at {int(out.isnan().sum())} "
+                                     f"entries, the plain form at {int(nan.sum())}")
+            err = (out - ref)[~nan].abs().max().item()
+            limit = tol * ref[~nan].abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"{name} {dtype} with NaN inputs: finite max "
+                                     f"|diff| {err:.3e} > {limit:.3e}")
+            log(f"check {name} NaN inputs {str(dtype)[6:]}: NaN at the plain form's "
+                f"{int(nan.sum())} entries and no others; finite max|diff| "
+                f"{err:.3e} <= {limit:.3e}")
+
+
+def gram_tile_entries(c: int, tile: int) -> int:
+    """Entries of E that the Gram kernel computes: its whole tiles on and
+    above the diagonal (the rest are their mirror images)."""
+    sides = [min(tile, c - i) for i in range(0, c, tile)]
+    return sum(a * b for i, a in enumerate(sides) for b in sides[i:])
 
 
 def _rowmax_minus(energy):
@@ -413,8 +616,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     variant, peaks = card_peaks(name)
     log(f"device: {name}, peaks of {variant}: {peaks[0] / 1e12:g} TFLOP/s "
-        f"f32, {peaks[1] / 1e12:g} TFLOP/s bf16, {peaks[2] / 1e12:g} TB/s; "
-        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+        f"f32, {peaks[1] / 1e12:g} TFLOP/s bf16, {peaks[2] / 1e12:g} TFLOP/s "
+        f"TF32, {peaks[3] / 1e12:g} TB/s; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
     ca.build()
@@ -433,10 +637,7 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
-         "replaces": TPU_KERNELS[k], "launches": launches[k],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "replaces": TPU_KERNELS[k], "launches": launches[k], **r}
         for k, r in records.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

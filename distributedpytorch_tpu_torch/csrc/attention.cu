@@ -8,22 +8,25 @@
 // * pam_forward   <- _flash_kernel (:50), launched by _flash_forward (:92).
 // * cam_gram +
 //   cam_softmax   <- _cam_energy_kernel (:167), launched by _cam_forward
-//                    (:205).  Two launches together are the one TPU kernel.
+//                    (:205).  Two launches together are the one TPU kernel
+//                    (entry points dptpu_cam_gram, dptpu_cam_softmax).
 // * cam_apply     <- _cam_apply_kernel (:195), launched by _cam_forward.
 //
 // Numerics shared by all of them: inputs are float32 or bfloat16, every
-// product and sum is taken in float32 on the CUDA cores with IEEE fma (no
-// TF32, no fast-math exp), outputs take the TPU kernel's dtype.
+// sum is float32 (no fast-math exp), outputs take the TPU kernel's dtype.
+// pam_forward multiplies on the CUDA cores with IEEE fma; the channel
+// kernels multiply on the tensor cores in 3xTF32, which keeps float32's
+// accuracy (see the channel-branch note below).  No kernel uses atomics:
+// repeated launches on the same input give the same bits.
 //
 // What bounds them on an H100: at the serving shapes (N = 4096 tokens,
-// Ck = 64, Cv = C = 512) all three do >= 2 GFLOP on <= 20 MB, so they are
-// bound by float32 operations (67 TFLOP/s), not by the 3.35 TB/s memory.
-// A CUDA-core kernel then lives or dies by how many shared-memory loads it
-// spends per fma; each design note below says what it does about that.
-// None of them uses wgmma or TMA yet: those belong to the kernels' later,
-// faster versions.
+// Ck = 64, Cv = C = 512) all three do >= 1.3 GFLOP on <= 20 MB, so they are
+// bound by operations, not by the 3.35 TB/s memory.  For float32 that
+// means 67 TFLOP/s on the CUDA cores, or 495 / 3 = 165 TFLOP/s of float32
+// work through 3xTF32 on the tensor cores.  Each design note below says
+// what its kernel does about it.
 //
-// Every entry point returns cudaGetLastError() (0 = launched) and never
+// Every entry point returns the launch's error code (0 = launched) and never
 // synchronises; buffers are allocated by the caller.
 
 #include <cuda_bf16.h>
@@ -216,113 +219,411 @@ pam_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Shared 128 x 128 float32 tile product for the channel branch.
+// Channel branch on the tensor cores, float32-exact (3xTF32).
 //
-// 256 threads, each owning an 8 x 8 accumulator tile (rows ty*4+{0..3} and
-// 64+ty*4+{0..3}, columns likewise from tx), fed from 8-deep slices of the
-// two operands in shared memory: 16 floats loaded per 64 fma.  The caller
-// fills `as[kk][m]` (row operand) and `bs[kk][n]` (column operand).
+// Both CAM products are matrix products with K >= 512, so they are bound by
+// operations.  The CUDA cores cap float32 at 67 TFLOP/s; the tensor cores
+// run TF32 (10-bit mantissa) at 495.  One TF32 pass would round X to 10 bits,
+// and the unscaled Gram feeds `rowmax - E` into an exponential, so instead
+// each float32 operand is split x = big + small (big = tf32(x) rounded to
+// nearest, ties away; small = x - big, exact in float32, of which the tensor
+// core reads the top 19 bits) and a·b is taken as
+// small_a·big_b + big_a·small_b + big_a·big_b, the two small terms first,
+// all with float32 accumulation: float32 accuracy at three TF32 products
+// per product (165 TFLOP/s of float32 work).  A bfloat16 value is exact in
+// TF32 (small = 0), so a bfloat16 Gram takes one pass and a bfloat16 apply
+// two (x·small_attn, x·big_attn).
+//
+// The products are `mma.sync.m16n8k8.tf32` with fragments loaded by hand from
+// shared memory.  That instruction reads any shared-memory layout, which
+// the Gram needs: both of its operands are X read along N (MN-major), a
+// layout `wgmma.tf32` cannot take from shared memory.  Tiles are staged by
+// 16-byte `cp.async` into a ring of stages (one __syncthreads per stage, the
+// next stages' copies in flight under the current stage's products).  A
+// block has eight warps, two per scheduler; each warp owns a 64 x 32 output
+// tile (4 x 4 accumulators of m16n8), so every loaded and split operand
+// value feeds 4 products.  The split is done in registers right after the
+// fragment loads, which are 8- or 16-byte vector loads laid out free of
+// bank conflicts (each kernel's note says how).
+//
+// What bounds them now, measured on an H100: not the tensor cores.  With
+// the products removed the kernels keep most of their time; the staging
+// path (copies into shared memory, fragment loads, splits) is the limit,
+// and it is what a later version moves to TMA and wgmma, which read the
+// operands from shared memory without the registers.
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 128;
-constexpr int kDepth = 8;
-constexpr int kGemmThreads = 256;
-
-__device__ __forceinline__ void tile_fma(float (*as)[kTile],
-                                         float (*bs)[kTile],
-                                         float acc[8][8], int ty, int tx) {
-#pragma unroll
-  for (int kk = 0; kk < kDepth; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
+// The big part of x: TF32 rounded to nearest with ties away from zero, the
+// bits that cvt.rna.tf32.f32 gives for every finite input, in two integer
+// operations (the cvt instruction runs at a fraction of the integer rate:
+// with it, the kernels ran no faster with their tensor-core products
+// removed).  The small part x - big is exact in float32 and goes to the
+// tensor core as it is: an m16n8k8.tf32 operand is read from its top 19
+// bits, so small is taken toward zero, within 2^-21 |x| (CUTLASS's 3xTF32
+// does the same), at no instruction.  That also keeps NaN: for a NaN x the
+// rounding may carry a NaN into a zero or mask it into an infinity, but
+// x - big is a NaN whose top bits stay a NaN, so every product with it is
+// NaN.  An infinite x gives a NaN small part (inf - inf), and an x within
+// 2^-12 of the float32 limit a big part of inf and a small one of -inf, so
+// such inputs come out as NaN, where a float32 product may give an
+// infinity (or, for the map's x, a finite value).
+__device__ __forceinline__ uint32_t tf32_big(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ int tile_row(int ty, int i) {
-  return (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// ---------------------------------------------------------------------------
-// CAM energy, first launch: partial Gram matrices XᵀX.
-//
-// Replaces the accumulation half of _cam_energy_kernel.  The TPU kept the
-// whole C x C sum (1 MiB at C = 512) in VMEM across a sequential sweep over
-// N; that is more than one SM's shared memory, so here each block owns one
-// 128 x 128 output tile and one contiguous slice of N, and writes its
-// partial sum to partial[b][split].  Splitting N puts >= 128 blocks on the
-// card even at B = 1 (16 tiles x 8 splits), and summing the partials in a
-// fixed order in the row pass keeps the result deterministic (no atomics).
-// Rows past N are simply not read, which is what zero padding did.
-// ---------------------------------------------------------------------------
-
+// True for float32 operands, which take the big/small split; bfloat16 ones
+// are exact in TF32.
 template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-cam_gram_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                int n_tok, int c, int splits) {
-  __shared__ __align__(16) float as[kDepth][kTile];
-  __shared__ __align__(16) float bs[kDepth][kTile];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int j0 = blockIdx.x * kTile;  // output columns
-  const int i0 = blockIdx.y * kTile;  // output rows
-  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
-  const int chunk = (n_tok + splits - 1) / splits;
-  const int n_begin = split * chunk;
-  const int n_end = min(n_tok, n_begin + chunk);
-  const T* xb = x + static_cast<size_t>(b) * n_tok * c;
+constexpr bool kSplit = sizeof(T) == 4;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+constexpr int kMi = 4;  // m16 tiles per warp (64 rows)
+constexpr int kNi = 4;  // n8 tiles per warp (32 columns)
 
-  const int kk = tid >> 5;         // row of the slice this thread loads
-  const int m = (tid & 31) * 4;    // first of its 4 columns
-  for (int n0 = n_begin; n0 < n_end; n0 += kDepth) {
-    const int n = n0 + kk;
-    const T* row = xb + static_cast<size_t>(n) * c;
+// acc += A·B for one 8-deep step of a warp's 64 x 32 tile, given the raw
+// fragment values of m16n8k8.tf32 (g = lane / 4, t = lane % 4):
+// a[mi] = A(g, t), A(g+8, t), A(g, t+4), A(g+8, t+4) of m16 tile mi and
+// b[ni] = B(t, g), B(t+4, g) of n8 tile ni; acc[mi][ni] holds D(g, 2t),
+// D(g, 2t+1), D(g+8, 2t), D(g+8, 2t+1).  Which rows, columns and depths of
+// the block's tile those letters stand for is the caller's choice.
+template <bool kSplitA, bool kSplitB>
+__device__ __forceinline__ void warp_mma_k8(float (&acc)[kMi][kNi][4],
+                                            const float (&a)[kMi][4],
+                                            const float (&b)[kNi][2]) {
+  uint32_t a_big[kMi][4], a_small[kMi][4], b_big[kNi][2], b_small[kNi][2];
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int ci = i0 + m + e, cj = j0 + m + e;
-      as[kk][m + e] = (n < n_end && ci < c) ? to_f32(row[ci]) : 0.f;
-      bs[kk][m + e] = (n < n_end && cj < c) ? to_f32(row[cj]) : 0.f;
+      if constexpr (kSplitA) {
+        a_big[mi][e] = tf32_big(a[mi][e]);
+        a_small[mi][e] = __float_as_uint(a[mi][e] - __uint_as_float(a_big[mi][e]));
+      } else {
+        a_big[mi][e] = __float_as_uint(a[mi][e]);
+      }
     }
-    __syncthreads();
-    tile_fma(as, bs, acc, ty, tx);
-    __syncthreads();
+#pragma unroll
+  for (int ni = 0; ni < kNi; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if constexpr (kSplitB) {
+        b_big[ni][e] = tf32_big(b[ni][e]);
+        b_small[ni][e] = __float_as_uint(b[ni][e] - __uint_as_float(b_big[ni][e]));
+      } else {
+        b_big[ni][e] = __float_as_uint(b[ni][e]);
+      }
+    }
+  if constexpr (kSplitA) {
+#pragma unroll
+    for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni) mma_tf32(acc[mi][ni], a_small[mi], b_big[ni]);
   }
+  if constexpr (kSplitB) {
+#pragma unroll
+    for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni) mma_tf32(acc[mi][ni], a_big[mi], b_small[ni]);
+  }
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNi; ++ni) mma_tf32(acc[mi][ni], a_big[mi], b_big[ni]);
+}
 
+__device__ __forceinline__ void zero_acc(float (&acc)[kMi][kNi][4]) {
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNi; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Copies rows [r0, r0 + R) x columns [c0, c0 + W) of a row-major matrix with
+// leading dimension ld into shared memory (row stride lds elements), 16-byte
+// chunk q of row r at chunk swizzle(r, q); entries at rows >= r_end or
+// columns >= c_end are zero.  `vec`: every row starts 16-byte aligned and
+// c_end is a multiple of a chunk, so whole chunks go by cp.async
+// (zero-filled past the edge); otherwise element by element through
+// registers (an odd C, or a bfloat16 C of 100).
+template <typename T, int R, int W, int kThreads, typename Swizzle>
+__device__ __forceinline__ void load_tile(T* dst, int lds, Swizzle swizzle,
+                                          const T* src, int ld, int r0,
+                                          int r_end, int c0, int c_end,
+                                          bool vec) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kRowChunks = W / kVec;
+  static_assert(W % kVec == 0 && (R * kRowChunks) % kThreads == 0,
+                "tile must split into whole 16-byte chunks per thread");
+#pragma unroll
+  for (int it = 0; it < R * kRowChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kRowChunks, q = i % kRowChunks;
+    const int gr = r0 + r, gc = c0 + q * kVec;
+    T* d = dst + r * lds + swizzle(r, q) * kVec;
+    const T* s = src + static_cast<size_t>(gr) * ld + gc;
+    if (vec) {
+      const bool in = gr < r_end && gc < c_end;
+      cp_async16(d, in ? s : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        d[e] = (gr < r_end && gc + e < c_end) ? s[e] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// n consecutive values of a staged row as float (n * sizeof(T) = 8 or 16
+// bytes, one vector load).
+template <typename T, int n>
+__device__ __forceinline__ void load_vec(float* v, const T* p) {
+  if constexpr (sizeof(T) == 4 && n == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+  } else if constexpr (sizeof(T) == 4 && n == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x, v[1] = u.y;
+  } else {  // bfloat16: widen by a shift
+    static_assert(sizeof(T) == 2 && (n == 8 || n == 4 || n == 2), "vector width");
+    uint32_t w[n / 2];
+    if constexpr (n == 8) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else if constexpr (n == 4) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x, w[1] = u.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+#pragma unroll
+    for (int e = 0; e < n / 2; ++e) {
+      v[2 * e] = __uint_as_float(w[e] << 16);
+      v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// ---------------------------------------------------------------------------
+// CAM energy, first launch: Gram partials E_s = X_sᵀX_s over slices of N.
+//
+// Replaces the accumulation half of _cam_energy_kernel, which kept the
+// whole C x C sum (1 MiB at C = 512) in VMEM across a sequential sweep over
+// N.  Here a block owns a 128 x 128 output tile and one slice of N.  E is
+// symmetric, so only the tiles on and above the diagonal are computed (10
+// of 16 at C = 512) and each is written twice, as itself and mirrored.
+// The kernel is bound by each SM's rate of products, so what sets its time
+// is the most tokens any SM works through; N is split to even that out
+// (gram_splits in ops/cuda_attention.py: 13 slices at B = 1, 130 blocks;
+// 3 at B = 8, 240 blocks, two to most SMs) and each slice writes its
+// partial (B, S, C, C).  The softmax launch sums the partials in slice
+// order, so the result is the same every run without atomics.  A
+// thread-block cluster of the slices that summed them in distributed shared
+// memory instead (no partials in device memory) was built and measured
+// slower at B = 1 on an H100, likely because a cluster of 8 must sit in one
+// GPC and its blocks were not spread one to an SM.  With one slice the
+// partial is E itself.  Rows past N are zero-filled, which is what zero
+// padding did on the TPU.
+//
+// Eight warps, 2 x 4 of 64 x 32; 16 tokens per stage, four stages.  Both
+// operands are rows of X, [k][channel] in shared memory (MN-major).  A
+// thread reads 8 consecutive channels (A) and 4 (B) of rows t and t + 4
+// with 16-byte loads (8-byte for a bfloat16 B), so the tile's rows and
+// columns are permuted: warp row 8g + 2mi + h is row g + 8h of m16 tile mi
+// and warp column 4g + ni is column g of n8 tile ni; each thread ends up
+// owning an 8 x 8 block of E.  The 16-byte chunks of each staged row are
+// XOR-swizzled by the row index so that a quarter-warp's loads fall on 8
+// distinct bank groups.
+// ---------------------------------------------------------------------------
+
+constexpr int kGramTile = 128;
+constexpr int kGramDepth = 16;
+constexpr int kGramStages = 4;
+constexpr int kGramThreads = 256;
+constexpr int kGramMaxSplits = 16;
+
+// Chunk q of staged row k goes to q ^ swizzle(k).  A quarter-warp reads
+// chunks {2g, 2g + 1} (float32 A), g (bfloat16 A, float32 B) or g / 2
+// (bfloat16 B) of rows t = 0..3 for g in {2p, 2p + 1}.
+template <typename T>
+__device__ __forceinline__ int gram_swizzle_a(int k) {
+  if constexpr (sizeof(T) == 4)
+    return (k & 1) | ((k & 2) << 1);
+  else
+    return (k & 3) << 1;
+}
+
+__device__ __forceinline__ int gram_swizzle_b(int k) { return (k & 3) << 1; }
+
+template <typename T>
+constexpr size_t kGramSmemBytes = sizeof(T) * 2 * kGramStages * kGramDepth * kGramTile;
+
+template <typename T>
+__global__ void __launch_bounds__(kGramThreads)
+cam_gram_kernel(const T* __restrict__ x, float* __restrict__ partial,
+                int n_tok, int c, int splits, int chunk, int vec) {
+  extern __shared__ float4 smem_raw[];
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kStage = kGramDepth * kGramTile;
+  T* sa = reinterpret_cast<T*>(smem_raw);  // [stage][k][channel i0 + ...]
+  T* sb = sa + kGramStages * kStage;       // [stage][k][channel j0 + ...]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  // blockIdx.x enumerates the tiles on and above the diagonal, row by row
+  int ti = 0, tj = blockIdx.x;
+  for (int row_tiles = (c + kGramTile - 1) / kGramTile; tj >= row_tiles - ti;) tj -= row_tiles - ti++;
+  tj += ti;
+  const int i0 = ti * kGramTile, j0 = tj * kGramTile;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int n_begin = split * chunk;
+  const int n_end = min(n_tok, n_begin + chunk);
+  const int steps = n_end > n_begin ? (n_end - n_begin + kGramDepth - 1) / kGramDepth : 0;
+  const T* xb = x + static_cast<size_t>(b) * n_tok * c;
+
+  const auto swizzle_a = [](int r, int q) { return q ^ gram_swizzle_a<T>(r); };
+  const auto swizzle_b = [](int r, int q) { return q ^ gram_swizzle_b(r); };
+  auto load = [&](int stage, int step) {
+    const int n0 = n_begin + step * kGramDepth;
+    load_tile<T, kGramDepth, kGramTile, kGramThreads>(
+        sa + stage * kStage, kGramTile, swizzle_a, xb, c, n0, n_end, i0, c, vec);
+    load_tile<T, kGramDepth, kGramTile, kGramThreads>(
+        sb + stage * kStage, kGramTile, swizzle_b, xb, c, n0, n_end, j0, c, vec);
+  };
+
+  float acc[kMi][kNi][4];
+  zero_acc(acc);
+#pragma unroll
+  for (int s = 0; s < kGramStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  const int col_a = wm * 64 + 8 * g;  // this thread's 8 A channels
+  const int col_b = wn * 32 + 4 * g;  // and 4 B channels
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kGramStages - 2>();
+    __syncthreads();  // stage `step` landed; stage step-1 is free again
+    const int next = step + kGramStages - 1;
+    if (next < steps) load(next % kGramStages, next);
+    cp_async_commit();
+    const T* a_st = sa + (step % kGramStages) * kStage;
+    const T* b_st = sb + (step % kGramStages) * kStage;
+#pragma unroll
+    for (int k8 = 0; k8 < kGramDepth; k8 += 8) {
+      float va[2][8], vb[2][4];  // rows k8 + t and k8 + t + 4
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k8 + t + 4 * h;
+        const T* ra = a_st + k * kGramTile;
+        const T* rb = b_st + k * kGramTile;
+        if constexpr (kVec == 4) {
+          load_vec<T, 4>(va[h], ra + ((col_a / 4) ^ gram_swizzle_a<T>(k)) * 4);
+          load_vec<T, 4>(va[h] + 4, ra + ((col_a / 4 + 1) ^ gram_swizzle_a<T>(k)) * 4);
+        } else {
+          load_vec<T, 8>(va[h], ra + ((col_a / 8) ^ gram_swizzle_a<T>(k)) * 8);
+        }
+        load_vec<T, 4>(vb[h], rb + ((col_b / kVec) ^ gram_swizzle_b(k)) * kVec + col_b % kVec);
+      }
+      float fa[kMi][4], fb[kNi][2];
+#pragma unroll
+      for (int mi = 0; mi < kMi; ++mi) {
+        fa[mi][0] = va[0][2 * mi];
+        fa[mi][1] = va[0][2 * mi + 1];
+        fa[mi][2] = va[1][2 * mi];
+        fa[mi][3] = va[1][2 * mi + 1];
+      }
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni) {
+        fb[ni][0] = vb[0][ni];
+        fb[ni][1] = vb[1][ni];
+      }
+      warp_mma_k8<kSplit<T>, kSplit<T>>(acc, fa, fb);
+    }
+  }
+  cp_async_wait<0>();
+
+  // This thread's rows 8g + 2mi + h and columns 8t + e of the warp tile,
+  // e = 0..7: acc[mi][e % 4][2h + e / 4].  Written as 8-float runs: along
+  // the row for E's tile, along the column for its mirror image below the
+  // diagonal (the same sums, so E stays exactly symmetric).
   float* pb = partial + (static_cast<size_t>(b) * splits + split) * c * c;
+  const bool vec_out = c % 4 == 0;
+  auto store8 = [&](int row, int col, const float (&v)[8]) {
+    if (row >= c) return;
+    float* o = pb + static_cast<size_t>(row) * c + col;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = i0 + tile_row(ty, i);
-    if (row >= c) continue;
+    for (int q = 0; q < 2; ++q) {
+      if (vec_out && col + 4 * q + 3 < c) {
+        *reinterpret_cast<float4*>(o + 4 * q) =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      } else {
+        for (int e = 0; e < 4 && col + 4 * q + e < c; ++e) o[4 * q + e] = v[4 * q + e];
+      }
+    }
+  };
+  const int row0 = i0 + wm * 64 + 8 * g, col0 = j0 + wn * 32 + 8 * t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j0 + tile_row(tx, j);
-      if (col < c) pb[static_cast<size_t>(row) * c + col] = acc[i][j];
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = acc[mi][e % 4][2 * h + e / 4];
+      store8(row0 + 2 * mi + h, col0, v);
+    }
+  if (ti != tj) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float v[8];
+#pragma unroll
+      for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) v[2 * mi + h] = acc[mi][e % 4][2 * h + e / 4];
+      store8(col0 + e, row0, v);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// CAM energy, second launch: one block per row of the C x C map.
+// CAM energy, second launch: sum the partials, then the row softmax.
 //
-// The finalize half of _cam_energy_kernel: E = sum of the partials (fixed
-// order), E' = rowmax(E) - E (DANet attends to the LEAST similar
-// channels), then a max-subtracted softmax.  Memory bound and tiny
-// (C² floats read splits times, written once).
+// The finalize half of _cam_energy_kernel: E = the S partials summed in
+// slice order, E' = rowmax(E) - E (DANet attends to the LEAST similar
+// channels), then a max-subtracted softmax with IEEE expf, all float32.
+// Memory bound (S·C² floats read, C² written).  One block of two warps per
+// row, each thread 4 columns at a time with all S partial loads of them in
+// flight together; block reductions in a fixed order.  With one slice the partial
+// may be the output itself: each row is read whole before it is written.
 // ---------------------------------------------------------------------------
 
-constexpr int kRowThreads = 256;
+constexpr int kSoftmaxThreads = 64;
 
 __device__ float block_reduce(float v, bool is_max, float* scratch) {
 #pragma unroll
@@ -331,52 +632,66 @@ __device__ float block_reduce(float v, bool is_max, float* scratch) {
     v = is_max ? fmaxf(v, o) : v + o;
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // scratch is free again
+  __syncthreads();  // scratch is free again, and row[] is written
   if (lane == 0) scratch[warp] = v;
   __syncthreads();
   v = scratch[0];
-  for (int w = 1; w < kRowThreads / 32; ++w)
+  for (int w = 1; w < kSoftmaxThreads / 32; ++w)
     v = is_max ? fmaxf(v, scratch[w]) : v + scratch[w];
   return v;
 }
 
-__global__ void __launch_bounds__(kRowThreads)
-cam_softmax_kernel(const float* __restrict__ partial, float* __restrict__ attn,
-                   int c, int splits) {
-  extern __shared__ float row[];  // [c]
-  __shared__ float scratch[kRowThreads / 32];
-  const int i = blockIdx.x;
-  const size_t b = blockIdx.y;
+__global__ void __launch_bounds__(kSoftmaxThreads)
+cam_softmax_kernel(const float* partial, float* attn, int c, int splits) {
+  extern __shared__ float4 row_raw[];
+  float* row = reinterpret_cast<float*>(row_raw);  // [c]
+  __shared__ float scratch[kSoftmaxThreads / 32];
   const size_t cc = static_cast<size_t>(c) * c;
+  const int b = blockIdx.x / c, i = blockIdx.x % c;
+  const float* p = partial + static_cast<size_t>(b) * splits * cc + static_cast<size_t>(i) * c;
 
   float local = kNegInf;
-  for (int j = threadIdx.x; j < c; j += kRowThreads) {
-    const float* p = partial + b * splits * cc + static_cast<size_t>(i) * c + j;
-    float e = 0.f;
-    for (int s = 0; s < splits; ++s) e += p[s * cc];
-    row[j] = e;
-    local = fmaxf(local, e);
+  if (c % 4 == 0) {  // 16-byte loads
+    for (int j = 4 * threadIdx.x; j < c; j += 4 * kSoftmaxThreads) {
+      float4 part[kGramMaxSplits];
+#pragma unroll
+      for (int s = 0; s < kGramMaxSplits; ++s)
+        if (s < splits) part[s] = *reinterpret_cast<const float4*>(p + s * cc + j);
+      float4 e = part[0];
+#pragma unroll
+      for (int s = 1; s < kGramMaxSplits; ++s)
+        if (s < splits) {
+          e.x += part[s].x;
+          e.y += part[s].y;
+          e.z += part[s].z;
+          e.w += part[s].w;
+        }
+      *reinterpret_cast<float4*>(row + j) = e;
+      local = fmaxf(local, fmaxf(fmaxf(e.x, e.y), fmaxf(e.z, e.w)));
+    }
+  } else {
+    for (int j = threadIdx.x; j < c; j += kSoftmaxThreads) {
+      float e = p[j];
+      for (int s = 1; s < splits; ++s) e += p[s * cc + j];
+      row[j] = e;
+      local = fmaxf(local, e);
+    }
   }
   const float row_max = block_reduce(local, true, scratch);
-
   local = kNegInf;
-  for (int j = threadIdx.x; j < c; j += kRowThreads) {
-    const float e = row_max - row[j];
-    row[j] = e;
-    local = fmaxf(local, e);
+  for (int j = threadIdx.x; j < c; j += kSoftmaxThreads) {
+    row[j] = row_max - row[j];
+    local = fmaxf(local, row[j]);
   }
   const float m = block_reduce(local, true, scratch);
-
   local = 0.f;
-  for (int j = threadIdx.x; j < c; j += kRowThreads) {
-    const float p = expf(row[j] - m);
-    row[j] = p;
-    local += p;
+  for (int j = threadIdx.x; j < c; j += kSoftmaxThreads) {
+    row[j] = expf(row[j] - m);
+    local += row[j];
   }
   const float sum = block_reduce(local, false, scratch);
-
-  float* out = attn + b * cc + static_cast<size_t>(i) * c;
-  for (int j = threadIdx.x; j < c; j += kRowThreads) out[j] = row[j] / sum;
+  float* o = attn + static_cast<size_t>(blockIdx.x) * c;
+  for (int j = threadIdx.x; j < c; j += kSoftmaxThreads) o[j] = row[j] / sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -384,56 +699,156 @@ cam_softmax_kernel(const float* __restrict__ partial, float* __restrict__ attn,
 //
 // Replaces _cam_apply_kernel, which kept the attention map resident in VMEM
 // and streamed row blocks of X through the MXU.  Here it is a tiled
-// (B·N x C)·(C x C)ᵀ product: each block owns 128 tokens x 128 output
-// channels (128 blocks at B = 1, N = 4096, C = 512) and walks the shared
-// dimension 8 deep, with X upcast to float32 as the TPU kernel does.
+// (B·N x C)·(C x C)ᵀ product in which both operands are K-major: X rows are
+// contiguous in j and so are attn rows.  A block owns 128 tokens x 128
+// output channels (128 blocks at B = 1, N = 4096, C = 512), eight warps of
+// 64 x 32, 16 channels j per stage, four stages.  Within each 8-deep step a
+// thread takes depths 2t and 2t + 1 (one 8-byte load per row) for the
+// fragment's t and t + 4, the same permutation for both operands; rows are
+// padded to 24 words so that those loads are free of bank conflicts.  X is
+// upcast to float32 as the TPU kernel does; a float32 X is split like the
+// map, a bfloat16 X is exact.
 // ---------------------------------------------------------------------------
 
+constexpr int kApplyM = 128;
+constexpr int kApplyN = 128;
+constexpr int kApplyDepth = 16;
+constexpr int kApplyStages = 4;
+constexpr int kApplyThreads = 256;
+constexpr int kApplyLdBytes = 96;  // a staged row's stride: 16 words + 8
+
 template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
+constexpr int kApplyLd = kApplyLdBytes / static_cast<int>(sizeof(T));
+
+constexpr size_t kApplySmemBytes =
+    static_cast<size_t>(kApplyStages) * (kApplyM + kApplyN) * kApplyLdBytes;
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* ob, int row, int col, int n_tok,
+                                           int c, float v0, float v1) {
+  if (row >= n_tok || col >= c) return;
+  T* o = ob + static_cast<size_t>(row) * c + col;
+  if (c % 2 == 0) {  // col is even, so the pair is aligned and in bounds
+    if constexpr (sizeof(T) == 4)
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    o[0] = from_f32<T>(v0);
+    if (col + 1 < c) o[1] = from_f32<T>(v1);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kApplyThreads)
 cam_apply_kernel(const float* __restrict__ attn, const T* __restrict__ x,
-                 T* __restrict__ out, int n_tok, int c) {
-  __shared__ __align__(16) float as[kDepth][kTile];  // X slice, [j][n]
-  __shared__ __align__(16) float bs[kDepth][kTile];  // attn slice, [j][i]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * kTile;  // output rows (tokens)
-  const int i0 = blockIdx.y * kTile;  // output columns (channels)
+                 T* __restrict__ out, int n_tok, int c, int vec_x, int vec_a) {
+  extern __shared__ float4 smem_raw[];
+  constexpr int LDX = kApplyLd<T>, LDA = kApplyLd<float>;
+  constexpr int kStageX = kApplyM * LDX, kStageA = kApplyN * LDA;
+  T* sx = reinterpret_cast<T*>(smem_raw);                             // [stage][n][j]
+  float* sm = reinterpret_cast<float*>(sx + kApplyStages * kStageX);  // [stage][i][j]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int n0 = blockIdx.x * kApplyM;  // output rows (tokens)
+  const int i0 = blockIdx.y * kApplyN;  // output columns (channels)
   const size_t b = blockIdx.z;
   const T* xb = x + b * n_tok * c;
   const float* ab = attn + b * c * c;
   T* ob = out + b * n_tok * c;
+  const int steps = (c + kApplyDepth - 1) / kApplyDepth;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const auto plain = [](int, int q) { return q; };
+  auto load = [&](int stage, int step) {
+    const int k0 = step * kApplyDepth;
+    load_tile<T, kApplyM, kApplyDepth, kApplyThreads>(
+        sx + stage * kStageX, LDX, plain, xb, c, n0, n_tok, k0, c, vec_x);
+    load_tile<float, kApplyN, kApplyDepth, kApplyThreads>(
+        sm + stage * kStageA, LDA, plain, ab, c, i0, c, k0, c, vec_a);
+  };
 
-  const int m = tid >> 1;          // tile row this thread loads
-  const int kq = (tid & 1) * 4;    // first of its 4 shared-dim entries
-  const int n = n0 + m, ir = i0 + m;
-  for (int j0 = 0; j0 < c; j0 += kDepth) {
+  float acc[kMi][kNi][4];
+  zero_acc(acc);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = j0 + kq + e;
-      as[kq + e][m] = (n < n_tok && j < c) ? to_f32(xb[static_cast<size_t>(n) * c + j]) : 0.f;
-      bs[kq + e][m] = (ir < c && j < c) ? ab[static_cast<size_t>(ir) * c + j] : 0.f;
-    }
-    __syncthreads();
-    tile_fma(as, bs, acc, ty, tx);
-    __syncthreads();
+  for (int s = 0; s < kApplyStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
   }
-
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kApplyStages - 2>();
+    __syncthreads();
+    const int next = step + kApplyStages - 1;
+    if (next < steps) load(next % kApplyStages, next);
+    cp_async_commit();
+    const T* xs = sx + (step % kApplyStages) * kStageX + (wm * 64 + g) * LDX + 2 * t;
+    const float* ms = sm + (step % kApplyStages) * kStageA + (wn * 32 + g) * LDA + 2 * t;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = n0 + tile_row(ty, i);
-    if (row >= n_tok) continue;
+    for (int k8 = 0; k8 < kApplyDepth; k8 += 8) {
+      float fa[kMi][4], fb[kNi][2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = i0 + tile_row(tx, j);
-      if (col < c) ob[static_cast<size_t>(row) * c + col] = from_f32<T>(acc[i][j]);
+      for (int mi = 0; mi < kMi; ++mi) {
+        float lo[2], hi[2];  // rows g and g + 8, depths 2t and 2t + 1
+        load_vec<T, 2>(lo, xs + (mi * 16) * LDX + k8);
+        load_vec<T, 2>(hi, xs + (mi * 16 + 8) * LDX + k8);
+        fa[mi][0] = lo[0];
+        fa[mi][1] = hi[0];
+        fa[mi][2] = lo[1];
+        fa[mi][3] = hi[1];
+      }
+#pragma unroll
+      for (int ni = 0; ni < kNi; ++ni) load_vec<float, 2>(fb[ni], ms + (ni * 8) * LDA + k8);
+      warp_mma_k8<kSplit<T>, true>(acc, fa, fb);
     }
   }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNi; ++ni) {
+      const int row = n0 + wm * 64 + mi * 16 + g;
+      const int col = i0 + wn * 32 + ni * 8 + 2 * t;
+      store_pair(ob, row, col, n_tok, c, acc[mi][ni][0], acc[mi][ni][1]);
+      store_pair(ob, row + 8, col, n_tok, c, acc[mi][ni][2], acc[mi][ni][3]);
+    }
+}
+
+template <typename T>
+int launch_gram(const void* x, float* partial, int b, int n_tok, int c,
+                int splits, cudaStream_t stream) {
+  if (splits < 1 || splits > kGramMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = kGramSmemBytes<T>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      cam_gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // tokens per slice, whole stages
+  const int chunk = ((n_tok + splits - 1) / splits + kGramDepth - 1) / kGramDepth * kGramDepth;
+  const int tiles = (c + kGramTile - 1) / kGramTile;
+  const int vec = aligned16(x) && (c * sizeof(T)) % 16 == 0;
+  cam_gram_kernel<T><<<dim3(tiles * (tiles + 1) / 2, 1, b * splits), kGramThreads, smem,
+                        stream>>>(
+      static_cast<const T*>(x), partial, n_tok, c, splits, chunk, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_apply(const float* attn, const void* x, void* out, int b, int n_tok,
+                 int c, cudaStream_t stream) {
+  const size_t smem = kApplySmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      cam_apply_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_tok + kApplyM - 1) / kApplyM, (c + kApplyN - 1) / kApplyN, b);
+  const int vec_x = aligned16(x) && (c * sizeof(T)) % 16 == 0;
+  const int vec_a = aligned16(attn) && c % 4 == 0;
+  cam_apply_kernel<T><<<grid, kApplyThreads, smem, stream>>>(
+      attn, static_cast<const T*>(x), static_cast<T*>(out), n_tok, c, vec_x,
+      vec_a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -469,42 +884,33 @@ int dptpu_pam_forward(const void* q, const void* k, const void* v, void* out,
                                    has_scale, s);
 }
 
-int dptpu_cam_energy(const void* x, float* partial, float* attn, int b,
-                     int n_tok, int c, int splits, int dtype, void* stream) {
+int dptpu_cam_gram(const void* x, float* partial, int b, int n_tok, int c,
+                   int splits, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((c + kTile - 1) / kTile, (c + kTile - 1) / kTile, b * splits);
-  if (dtype == 0)
-    cam_gram_kernel<float><<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const float*>(x), partial, n_tok, c, splits);
-  else
-    cam_gram_kernel<__nv_bfloat16><<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), partial, n_tok, c, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 0) return launch_gram<float>(x, partial, b, n_tok, c, splits, s);
+  return launch_gram<__nv_bfloat16>(x, partial, b, n_tok, c, splits, s);
+}
+
+int dptpu_cam_softmax(const float* partial, float* attn, int rows, int c,
+                      int splits, void* stream) {
+  if (splits < 1 || splits > kGramMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * static_cast<size_t>(c);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(cam_softmax_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        cam_softmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cam_softmax_kernel<<<dim3(c, b), kRowThreads, smem, s>>>(partial, attn, c,
-                                                           splits);
+  cam_softmax_kernel<<<rows, kSoftmaxThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      partial, attn, c, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dptpu_cam_apply(const float* attn, const void* x, void* out, int b,
                     int n_tok, int c, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n_tok + kTile - 1) / kTile, (c + kTile - 1) / kTile, b);
-  if (dtype == 0)
-    cam_apply_kernel<float><<<grid, kGemmThreads, 0, s>>>(
-        attn, static_cast<const float*>(x), static_cast<float*>(out), n_tok, c);
-  else
-    cam_apply_kernel<__nv_bfloat16><<<grid, kGemmThreads, 0, s>>>(
-        attn, static_cast<const __nv_bfloat16*>(x),
-        static_cast<__nv_bfloat16*>(out), n_tok, c);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch_apply<float>(attn, x, out, b, n_tok, c, s);
+  return launch_apply<__nv_bfloat16>(attn, x, out, b, n_tok, c, s);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ public names and shapes:
   (B, N, Cv) -> (B, N, Cv), one kernel (``pam_forward``);
 * :func:`flash_channel_attention` — (B, N, C) -> (B, N, C), the composition
   of :func:`cam_energy` (Gram + ``rowmax - E`` softmax, two launches that
-  together port the TPU's one energy kernel) and :func:`cam_apply`.
+  together port the TPU's one energy kernel) and :func:`cam_apply`, both
+  on the tensor cores in float32-exact 3xTF32.
 
 Each wrapper launches its kernel for a CUDA tensor — or raises — and runs
 the plain form of :mod:`.attention` only for a tensor on the CPU.  It counts
@@ -20,6 +21,7 @@ float32 or bfloat16 and must be contiguous; outputs are allocated here with
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,16 +42,18 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dptpu_pam_forward": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
                           _I, _P),
-    "dptpu_cam_energy": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dptpu_cam_gram": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "dptpu_cam_softmax": (_P, _P, _I, _I, _I, _P),
     "dptpu_cam_apply": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 #: the largest Ck whose Q/K tiles fit one block's shared memory beside the
 #: value tile (227 KB per block on Hopper)
 MAX_CK = 256
-#: Gram partial sums over N: enough (tile x split) blocks to cover the card
+#: the Gram kernel's output tile, and the most slices of N it sums
 _GRAM_TILE = 128
-_GRAM_MIN_BLOCKS = 128
-_GRAM_MAX_SPLITS = 8
+_GRAM_MAX_SPLITS = 16
+#: the shortest slice of N worth a block of its own
+_GRAM_MIN_SLICE = 256
 
 
 def reset_launches() -> None:
@@ -57,14 +61,18 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+_typed_lib: ctypes.CDLL | None = None
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.library("attention")
-    if not getattr(lib, "_dptpu_typed", False):
+    global _typed_lib
+    if _typed_lib is None:
+        lib = _build.library("attention")
         for fn, argtypes in _SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        lib._dptpu_typed = True
-    return lib
+        _typed_lib = lib
+    return _typed_lib
 
 
 def build() -> None:
@@ -135,13 +143,64 @@ def flash_position_attention(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def gram_splits(batch: int, channels: int, tokens: int) -> int:
-    """How many slices of N the Gram kernel sums separately: enough that
-    (output tiles x batch x splits) blocks cover the card, at most 8, and
-    never a slice shorter than 256 tokens."""
-    tiles = (-(-channels // _GRAM_TILE)) ** 2
-    want = -(-_GRAM_MIN_BLOCKS // (tiles * batch))
-    return max(1, min(want, _GRAM_MAX_SPLITS, tokens // 256))
+@functools.lru_cache(maxsize=256)
+def gram_splits(batch: int, channels: int, tokens: int, sms: int) -> int:
+    """How many slices of N the Gram kernel sums separately.
+
+    Its blocks (one per tile on and above the diagonal of E, per batch
+    entry, per slice) are spread over the card's ``sms`` SMs, two resident
+    on an SM at most, and an SM works through its blocks' tokens at one
+    rate however many it holds.  So take the split that gives the busiest
+    SM the fewest tokens, the fewest slices among equals (each slice costs
+    a C x C partial in device memory); at most 16, and no slice shorter
+    than 256 tokens.  Cached per shape: it runs on every call."""
+    side = -(-channels // _GRAM_TILE)
+    blocks = side * (side + 1) // 2 * batch
+    if blocks == 0:
+        return 1
+    most = max(1, min(_GRAM_MAX_SPLITS, 2 * sms // blocks,
+                      tokens // _GRAM_MIN_SLICE))
+
+    def busiest(splits: int) -> int:
+        return -(-blocks * splits // sms) * -(-tokens // splits)
+
+    return min(range(1, most + 1), key=busiest)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_gram(x: torch.Tensor, partial: torch.Tensor) -> None:
+    """The energy kernel's first launch: ``partial`` (B, S, C, C) <- the
+    Gram matrices of S slices of N."""
+    b, n, c = x.shape
+    _check(_lib().dptpu_cam_gram(x.data_ptr(), partial.data_ptr(), b, n, c,
+                                 partial.shape[1], _DTYPES[x.dtype], _stream(x)),
+           "channel-energy Gram")
+
+
+def _launch_softmax(partial: torch.Tensor, attn: torch.Tensor) -> None:
+    """The energy kernel's second launch: ``attn`` <- the row softmax of
+    ``rowmax - E``, E the partials summed in slice order.  ``attn`` may be
+    ``partial`` itself when there is one slice."""
+    b, splits, c, _ = partial.shape
+    _check(_lib().dptpu_cam_softmax(partial.data_ptr(), attn.data_ptr(), b * c,
+                                    c, splits, _stream(attn)),
+           "channel-energy softmax")
+
+
+def _gram_buffers(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (B, S, C, C) partials and the (B, C, C) map for ``x``; one
+    buffer when S = 1."""
+    b, n, c = x.shape
+    splits = gram_splits(b, c, n, _sm_count(x.device))
+    attn = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
+    if splits == 1:
+        return attn.view(b, 1, c, c), attn
+    return torch.empty((b, splits, c, c), dtype=torch.float32,
+                       device=x.device), attn
 
 
 def cam_energy(x: torch.Tensor) -> torch.Tensor:
@@ -150,16 +209,11 @@ def cam_energy(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected x (B, N, C), got {tuple(x.shape)}")
     if _on_cpu(x):
         return channel_energy(x)
-    b, n, c = x.shape
-    splits = gram_splits(b, c, n)
-    partial = torch.empty((b, splits, c, c), dtype=torch.float32, device=x.device)
-    attn = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
-    if b == 0 or c == 0:
+    partial, attn = _gram_buffers(x)
+    if attn.numel() == 0:
         return attn
-    err = _lib().dptpu_cam_energy(
-        x.data_ptr(), partial.data_ptr(), attn.data_ptr(), b, n, c, splits,
-        _DTYPES[x.dtype], _stream(x))
-    _check(err, "channel-energy")
+    _launch_gram(x, partial)
+    _launch_softmax(partial, attn)
     launches["cam_energy"] += 1
     return attn
 

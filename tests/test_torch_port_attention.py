@@ -8,6 +8,8 @@ CPU the kernel wrappers must take the plain forms and count no launch; the
 CUDA kernels themselves are checked on the card by chip_smoke.py.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,15 +126,36 @@ class TestWrapperChecks:
         with pytest.raises(ValueError, match="different devices"):
             ca.flash_position_attention(q, k, v.to("meta"))
 
-    @pytest.mark.parametrize("batch,channels,n_tok,splits", [
-        (1, 512, 4096, 8),    # serving shape at B = 1: 16 tiles x 8
-        (8, 512, 4096, 1),    # 128 blocks already
-        (2, 512, 4225, 4),
-        (1, 128, 4096, 8),
-        (2, 128, 65, 1),      # short N: no slice under 256 tokens
+    @pytest.mark.parametrize("batch,channels,n_tok,sms,splits", [
+        (1, 512, 4096, 132, 13),  # serving shape at B = 1: 10 tiles x 13
+        (8, 512, 4096, 132, 3),   # 80 tiles: 240 blocks, two to most SMs
+        (2, 512, 4225, 132, 13),  # ragged N
+        (1, 128, 4096, 132, 16),  # narrow head: capped at 16 slices
+        (2, 128, 65, 132, 1),     # short N: no slice under 256 tokens
+        (2, 100, 4225, 132, 16),  # odd C: one ragged tile
+        (1, 67, 257, 132, 1),
+        (1, 512, 4096, 114, 11),  # an H100 PCIe: 11 x 10 blocks fit one wave
+        (16, 512, 4096, 132, 1),  # 160 blocks already
+        (0, 512, 4096, 132, 1),   # nothing to launch
     ])
-    def test_gram_splits(self, batch, channels, n_tok, splits):
-        assert ca.gram_splits(batch, channels, n_tok) == splits
+    def test_gram_splits(self, batch, channels, n_tok, sms, splits):
+        got = ca.gram_splits(batch, channels, n_tok, sms)
+        assert got == splits
+        side = -(-channels // 128)
+        tiles = side * (side + 1) // 2  # on and above the diagonal
+        assert got == 1 or tiles * batch * got <= 2 * sms  # all resident
+        assert got == 1 or n_tok // got >= 256
+
+    @pytest.mark.parametrize("batch,channels,n_tok,splits", [
+        (1, 512, 4096, 13), (16, 512, 4096, 1), (2, 100, 4225, 16)])
+    def test_gram_buffers(self, monkeypatch, batch, channels, n_tok, splits):
+        monkeypatch.setattr(ca, "_sm_count", lambda device: 132)
+        partial, attn = ca._gram_buffers(torch.zeros(batch, n_tok, channels))
+        assert attn.shape == (batch, channels, channels)
+        assert partial.shape == (batch, splits, channels, channels)
+        assert partial.dtype == attn.dtype == torch.float32
+        # one slice: the softmax runs in place on the Gram's output
+        assert (partial.data_ptr() == attn.data_ptr()) == (splits == 1)
 
 
 class TestBuild:
@@ -163,8 +186,145 @@ class TestBuild:
 
     def test_sources_present(self):
         src = (_build.CSRC / "attention.cu").read_text()
-        for entry in ("dptpu_pam_forward", "dptpu_cam_energy",
-                      "dptpu_cam_apply"):
+        entries = {"dptpu_pam_forward", "dptpu_cam_gram", "dptpu_cam_softmax",
+                   "dptpu_cam_apply"}
+        for entry in entries:
             assert f"int {entry}(" in src
-        assert set(ca._SIGNATURES) == {"dptpu_pam_forward",
-                                       "dptpu_cam_energy", "dptpu_cam_apply"}
+        assert set(ca._SIGNATURES) == entries
+
+    @pytest.mark.parametrize("cu_name,py_name", [
+        ("kGramTile", "_GRAM_TILE"), ("kGramMaxSplits", "_GRAM_MAX_SPLITS")])
+    def test_constants_agree(self, cu_name, py_name):
+        src = (_build.CSRC / "attention.cu").read_text()
+        (value,) = re.findall(rf"constexpr int {cu_name} = (\d+);", src)
+        assert int(value) == getattr(ca, py_name)
+
+    def test_channel_kernels_use_tensor_cores(self):
+        src = (_build.CSRC / "attention.cu").read_text()
+        assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+        assert "atomicAdd" not in src  # fixed-order sums only
+        assert "tile_fma" not in src  # no CUDA-core tile product left
+
+
+def tf32_rna(a):
+    """numpy twin of the kernels' big part: TF32 rounded to nearest, ties
+    away from zero (the bits of cvt.rna.tf32.f32 for finite inputs), by the
+    same two integer operations, on float32 arrays."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_read(a):
+    """The value a tensor core's m16n8k8.tf32 takes from a float32 bit
+    pattern: its top 19 bits (toward zero)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def mma_product(a, b, passes):
+    """float32 (M, K)·(K, N) the way the kernels take it: over 8-deep steps,
+    each adding its pass products to a float32 accumulator in the given
+    order; ``passes`` maps (a, b) of one step to the list of operand pairs,
+    which the tensor core reads as ``tf32_read`` does."""
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        for pa, pb in passes(a[:, k:k + 8], b[k:k + 8]):
+            term = tf32_read(pa).astype(np.float64) @ tf32_read(pb).astype(np.float64)
+            acc = (acc.astype(np.float64) + term).astype(np.float32)
+    return acc
+
+
+def split(v):
+    """The kernels' split: big rounded to nearest, small = v - big exact in
+    float32 and handed to the tensor core as it is."""
+    big = tf32_rna(v)
+    with np.errstate(invalid="ignore"):
+        return big, (v - big).astype(np.float32)
+
+
+def three_tf32(a, b):
+    (ab, as_), (bb, bs) = split(a), split(b)
+    return [(as_, bb), (ab, bs), (ab, bb)]  # the two small terms first
+
+
+def one_tf32(a, b):
+    return [(tf32_rna(a), tf32_rna(b))]
+
+
+class TestThreeTf32Numerics:
+    """The kernels' split-float products, emulated in numpy, against float64
+    at a reduced serving shape (unit-variance features): inside the
+    1e-4 x max bound the card's checks enforce, where one TF32 pass is not."""
+
+    N, C = 1024, 64
+
+    def features(self, seed=11):
+        return np.random.RandomState(seed).randn(self.N, self.C).astype(np.float32)
+
+    def test_rounding_matches_tf32(self):
+        v = np.array([1.0, 1 + 2 ** -11, 1 + 2 ** -10 + 2 ** -11, -(1 + 2 ** -11),
+                      3.14159265, 0.0], np.float32)
+        r = tf32_rna(v)
+        assert np.all(r.view(np.uint32) & 0x1FFF == 0)
+        # ties go away from zero; other values to nearest
+        np.testing.assert_array_equal(
+            r, np.array([1.0, 1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10),
+                         3.140625, 0.0], np.float32))
+        big, small = split(v)
+        np.testing.assert_array_equal(big.astype(np.float64) + small, v)  # exact
+        # what the tensor core reads of the two parts: within 2^-21 |v|
+        np.testing.assert_allclose(big.astype(np.float64) + tf32_read(small), v,
+                                   rtol=2 ** -21)
+
+    @pytest.mark.parametrize("bits,small_nan", [
+        (0x7FFFFFFF, True),  # the device's NaN: rounding carries it into a zero
+        (0xFFFFFFFF, True),
+        (0x7F800001, True),  # low payload only: rounding masks it into an infinity
+        (0x7FC00000, True),
+        (0x7F800000, True),  # an infinity: inf - inf
+        (0xFF800000, True),
+        (0x7F7FFFFF, False),  # finite, but big rounds to infinity: small is -inf
+    ])
+    def test_split_keeps_nan(self, bits, small_nan):
+        """Whatever the rounding makes of a NaN, the small part the tensor
+        core reads is a NaN, so every product with it is; an infinity (or a
+        value whose big part rounds to one) comes out as NaN too."""
+        v = np.array([bits], np.uint32).view(np.float32)
+        _, small = split(v)
+        assert np.isnan(tf32_read(small)[0]) == small_nan
+        with np.errstate(invalid="ignore"):
+            out = mma_product(np.tile(v, (1, 8)), np.ones((8, 1), np.float32),
+                              three_tf32)
+        assert np.isnan(out[0, 0])
+
+    @staticmethod
+    def energy(gram):
+        e = gram.max(-1, keepdims=True) - gram
+        p = np.exp(e - e.max(-1, keepdims=True))
+        return p / p.sum(-1, keepdims=True)
+
+    def test_gram_and_map(self):
+        x = self.features()
+        ref = x.T.astype(np.float64) @ x
+        got = mma_product(x.T.copy(), x, three_tf32)
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+        attn_ref = self.energy(ref)
+        attn = self.energy(got.astype(np.float64))
+        assert np.abs(attn - attn_ref).max() <= 1e-4 * attn_ref.max()
+        # one TF32 pass misses the bound on the map by far
+        one = self.energy(mma_product(x.T.copy(), x, one_tf32).astype(np.float64))
+        assert np.abs(one - attn_ref).max() > 10 * 1e-4 * attn_ref.max()
+
+    def test_apply(self):
+        x = self.features(seed=12)
+        attn = self.energy(x.T.astype(np.float64) @ x * 0.01).astype(np.float32)
+        ref = x.astype(np.float64) @ attn.T
+        got = mma_product(x, attn.T.copy(), three_tf32)
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+    def test_bf16_inputs_need_fewer_passes(self):
+        x = torch.from_numpy(self.features(seed=13)).to(torch.bfloat16).float().numpy()
+        assert np.array_equal(tf32_rna(x), x)  # exact in TF32: small = 0
+        ref = x.T.astype(np.float64) @ x
+        got = mma_product(x.T.copy(), x, lambda a, b: [(a, b)])
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
