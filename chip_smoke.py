@@ -10,20 +10,21 @@ it), printing no result.  The phases, each raising on failure:
              the serving shapes (B = 1 and 8, N = 4096 tokens, Ck = 64,
              Cv = C = 512), at a ragged N (65² = 4225) and at DANet-R18's
              narrow head (Ck = 16, Cv = C = 128), in float32 (max |diff| <=
-             1e-4 x max |plain|: summation order, and the channel kernels'
-             3xTF32 products) and in bfloat16
+             1e-4 x max |plain|: summation order, and the kernels' 3xTF32
+             products) and in bfloat16
              inputs (<= 2e-2 x max |plain|, output dtype kept), plus two
-             odd widths (C = 100 and 67); each channel kernel launched twice
-             on one input must give the same bits; the channel kernels
-             against float64 at a feature scale where a single-pass TF32
-             product fails the same bound, and with NaN inputs; then
+             odd widths (C = 100 and 67); each kernel launched twice on one
+             input must give the same bits; every kernel against float64
+             at an input scale where a single-pass TF32 product fails the
+             same bound, and with NaN inputs; then
              time kernel, plain form and a library yardstick with CUDA
              events, taking turns, both for a single launch and per call
              in runs of 20 back to back, and the host's microseconds per
              call at B = 1,
              each against its bound: for float32 work the least time of a
              float32-accurate route, 3xTF32 on the tensor cores (a third of
-             the TF32 rate) or the bytes at the memory rate.
+             the TF32 rate) or the bytes at the memory rate; the position
+             kernel on bfloat16 inputs against the bf16 rate and SDPA.
 3. predictor — DANet-R101 at 512² with every weight drawn from seed 0
              (gammas and last-BN scales included), ``predict_batch`` on a
              synthetic 480x640 image with 4 click sets, compared with the
@@ -154,7 +155,7 @@ def phase_kernels(torch, ca, att, peaks) -> dict:
 
     # Scales keep the softmaxes soft enough that float32 summation-order
     # noise in the scores is not amplified past the stated bound;
-    # check_precision holds the channel kernels to float64 at a larger one.
+    # check_precision holds the kernels to float64 at larger ones.
     def pam_inputs(b, n, ck, cv, dtype):
         return (randn(b, n, ck, scale=0.5, dtype=dtype),
                 randn(b, n, ck, scale=0.5, dtype=dtype),
@@ -200,15 +201,13 @@ def phase_kernels(torch, ca, att, peaks) -> dict:
                         f" > {limit:.3e}")
                 if dtype == torch.float32 and n == 4096 and c == 512:
                     errors[name] = max(errors[name], err)
-                same = ""
-                if name != "position_attention":  # no atomics: the same bits
-                    again = kernel(*args)
-                    if not torch.equal(out, again):
-                        raise AssertionError(f"{name} B={b} N={n} C={c} {dtype}: "
-                                             f"two launches differ")
-                    same = "; a second launch is bitwise equal"
+                # no atomics: a second launch gives the same bits
+                if not torch.equal(out, kernel(*args)):
+                    raise AssertionError(f"{name} B={b} N={n} C={c} {dtype}: "
+                                         f"two launches differ")
                 log(f"check {name} B={b} N={n} C={c} {str(dtype)[6:]}: "
-                    f"max|diff| {err:.3e} <= {limit:.3e}{same}")
+                    f"max|diff| {err:.3e} <= {limit:.3e}; a second launch is "
+                    f"bitwise equal")
 
     check_precision(torch, ca, att, randn)
     check_nan(torch, ca, att, randn)
@@ -298,70 +297,85 @@ def phase_kernels(torch, ca, att, peaks) -> dict:
         log(f"time channel_attention B={b}: kernels {ours:.4f} ms single, "
             f"{ours_run:.4f} ms in runs; library composite bmm+softmax+bmm "
             f"{composite:.4f} ms single, {composite_run:.4f} ms in runs")
-    # bf16-input bounds at B = 1: the position kernel's inputs are bf16
-    q, k, v = pam_inputs(1, n, ck, c, torch.bfloat16)
-    (ms,), (ms_run,) = both_ms(lambda: ca.flash_position_attention(q, k, v))
-    flops, nbytes = 2.0 * n * n * (ck + c), 2.0 * n * (2 * ck + 2 * c)
-    log(f"time position_attention B=1 bf16: kernel {ms:.4f} ms single, "
-        f"{ms_run:.4f} ms in runs, bound {bound(flops, nbytes, bf16, bw)[0]:.4f} ms")
+    # bf16 inputs: the position kernel on the bf16 tensor-core rate, against
+    # SDPA on the same bf16 inputs, in turns
+    for b in (1, 8):
+        q, k, v = pam_inputs(b, n, ck, c, torch.bfloat16)
+        (ms, lib_ms), (ms_run, lib_run) = both_ms(
+            lambda: ca.flash_position_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
+                                                   scale=1.0))
+        bf16_ms, bf16_by = bound(2.0 * b * n * n * (ck + c),
+                                 2.0 * b * n * (2 * ck + 2 * c), bf16, bw)
+        log(f"time position_attention B={b} bf16: kernel {ms:.4f} ms single, "
+            f"{ms_run:.4f} ms in runs; SDPA {lib_ms:.4f} / {lib_run:.4f} ms; bf16 "
+            f"bound {bf16_ms:.4f} ms ({bf16_by}), {bf16_ms / ms:.1%} of it single, "
+            f"{bf16_ms / ms_run:.1%} in runs")
     for name in records:
         records[name]["max_abs_err"] = errors[name]
     return records
 
 
-#: the scale of X at which check_precision holds the channel kernels to
-#: float64 and requires a single-pass TF32 product to fail
-PRECISION_SCALE = 0.25
+#: the scale of the inputs at which check_precision holds each kernel to
+#: float64 and requires a single-pass TF32 product to fail: X for the
+#: channel kernels, q and k for the position kernel (v at unit scale)
+PRECISION_SCALE = {"cam_energy": 0.25, "cam_apply": 0.25,
+                   "position_attention": 1.0}
 
 
 def check_precision(torch, ca, att, randn) -> None:
-    """Float32 accuracy of the channel kernels at B = 1, N = 4096, C = 512,
-    against their plain forms taken in float64, with the bound of the other
-    checks, 1e-4 x max |exact|.  The float32 plain form (cuBLAS) and the
-    same form with single-pass TF32 products (``allow_tf32``) are held to
-    it beside the kernel.  At ``PRECISION_SCALE`` the kernel must pass and
-    the single-pass TF32 form must miss, or the check could not tell a
-    single-pass TF32 kernel from a float32-exact one; the other scales are
-    printed only: at unit scale the float32 function itself sits at the
-    bound (``rowmax - E`` rounds to the ulp of the diagonal, ~|x|^2 N)."""
+    """Float32 accuracy of the kernels at B = 1, N = 4096, Ck = 64,
+    C = Cv = 512, against their plain forms taken in float64, with the bound
+    of the other checks, 1e-4 x max |exact|.  The float32 plain form
+    (cuBLAS) and the same form with single-pass TF32 products
+    (``allow_tf32``) are held to it beside the kernel.  At
+    ``PRECISION_SCALE`` the kernel must pass and the single-pass TF32 form
+    must miss, or the check could not tell a single-pass TF32 kernel from a
+    float32-exact one; the other scales are printed only: at unit scale the
+    float32 channel energy itself sits at the bound (``rowmax - E`` rounds
+    to the ulp of the diagonal, ~|x|^2 N)."""
     failures = []
-    for scale in (1.0, PRECISION_SCALE, 0.05):
+
+    def hold(name, scale, kernel, plain, ref):
+        limit = 1e-4 * ref.abs().max().item()
+        err = {}
+        for what, fn, tf32 in (("kernel", kernel, False),
+                               ("float32 plain", plain, False),
+                               ("single-pass TF32 plain", plain, True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                got = fn()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            err[what] = (got.double() - ref).abs().max().item()
+        log(f"check {name} precision, inputs at scale {scale} vs float64: limit "
+            f"{limit:.3e}; " + ", ".join(
+                f"{what} {e:.3e} ({e / limit:.3g}x the limit)"
+                for what, e in err.items()))
+        if scale != PRECISION_SCALE[name]:
+            return
+        if not err["kernel"] <= limit:
+            failures.append(f"{name} at scale {scale}: {err['kernel']:.3e} > "
+                            f"{limit:.3e} against float64")
+        if not err["single-pass TF32 plain"] > limit:
+            failures.append(f"{name}: single-pass TF32 passes the check at "
+                            f"scale {scale}, so it cannot see TF32 rounding")
+
+    for scale in (1.0, 0.25, 0.05):
         x = randn(1, 4096, 512, scale=scale)
         xd = x.double()
-        gram = xd.transpose(1, 2) @ xd
-        exact = torch.softmax(_rowmax_minus(gram), -1)
+        exact = torch.softmax(_rowmax_minus(xd.transpose(1, 2) @ xd), -1)
         attn = exact.float()
-        cases = {
-            "cam_energy": (lambda: ca.cam_energy(x), lambda: att.channel_energy(x),
-                           exact),
-            "cam_apply": (lambda: ca.cam_apply(attn, x),
-                          lambda: att.channel_apply(attn, x),
-                          xd @ attn.double().transpose(1, 2)),
-        }
-        for name, (kernel, plain, ref) in cases.items():
-            limit = 1e-4 * ref.abs().max().item()
-            err = {}
-            for what, fn, tf32 in (("kernel", kernel, False),
-                                   ("float32 plain", plain, False),
-                                   ("single-pass TF32 plain", plain, True)):
-                torch.backends.cuda.matmul.allow_tf32 = tf32
-                try:
-                    got = fn()
-                finally:
-                    torch.backends.cuda.matmul.allow_tf32 = False
-                err[what] = (got.double() - ref).abs().max().item()
-            log(f"check {name} precision, x at scale {scale} vs float64: limit "
-                f"{limit:.3e}; " + ", ".join(
-                    f"{what} {e:.3e} ({e / limit:.3g}x the limit)"
-                    for what, e in err.items()))
-            if scale != PRECISION_SCALE:
-                continue
-            if not err["kernel"] <= limit:
-                failures.append(f"{name} at scale {scale}: {err['kernel']:.3e} > "
-                                f"{limit:.3e} against float64")
-            if not err["single-pass TF32 plain"] > limit:
-                failures.append(f"{name}: single-pass TF32 passes the check at "
-                                f"scale {scale}, so it cannot see TF32 rounding")
+        hold("cam_energy", scale, lambda: ca.cam_energy(x),
+             lambda: att.channel_energy(x), exact)
+        hold("cam_apply", scale, lambda: ca.cam_apply(attn, x),
+             lambda: att.channel_apply(attn, x), xd @ attn.double().transpose(1, 2))
+    for scale in (1.0, 0.5):
+        q, k = randn(1, 4096, 64, scale=scale), randn(1, 4096, 64, scale=scale)
+        v = randn(1, 4096, 512)
+        exact = torch.softmax(q.double() @ k.double().transpose(1, 2), -1) @ v.double()
+        hold("position_attention", scale, lambda: ca.flash_position_attention(q, k, v),
+             lambda: att.position_attention(q, k, v), exact)
     if failures:
         raise AssertionError("; ".join(failures))
 
@@ -370,7 +384,9 @@ def check_nan(torch, ca, att, randn) -> None:
     """NaN in gives NaN out exactly where the plain form has it: X carries
     two float32 NaN payloads (every mantissa bit set, as the device's own
     NaN; only the lowest bit set) in batch entries 0 and 1, and the map one
-    in entry 2; float32 and bfloat16 inputs."""
+    in entry 2; for the position kernel q, k and v carry one each in
+    entries 0, 1 and 2 (a query row, a key, a value channel); float32 and
+    bfloat16 inputs."""
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         x = randn(3, 300, 128, scale=0.05)
         attn = att.channel_energy(x)
@@ -378,9 +394,17 @@ def check_nan(torch, ca, att, randn) -> None:
         x.view(torch.int32)[1, 10, 20] = 0x7f800001
         attn.view(torch.int32)[2, 3, 9] = 0x7fffffff
         x = x.to(dtype)
+        q, k, v = randn(3, 300, 64, scale=0.5), randn(3, 300, 64, scale=0.5), \
+            randn(3, 300, 512)
+        q.view(torch.int32)[0, 5, 7] = 0x7fffffff
+        k.view(torch.int32)[1, 10, 20] = 0x7f800001
+        v.view(torch.int32)[2, 3, 9] = 0x7fffffff
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         for name, kernel, plain, args in (
                 ("cam_energy", ca.cam_energy, att.channel_energy, (x,)),
-                ("cam_apply", ca.cam_apply, att.channel_apply, (attn, x))):
+                ("cam_apply", ca.cam_apply, att.channel_apply, (attn, x)),
+                ("position_attention", ca.flash_position_attention,
+                 att.position_attention, (q, k, v))):
             out, ref = kernel(*args).float(), plain(*args).float()
             nan = ref.isnan()
             if not nan.any() or not torch.equal(out.isnan(), nan):

@@ -14,17 +14,18 @@
 //
 // Numerics shared by all of them: inputs are float32 or bfloat16, every
 // sum is float32 (no fast-math exp), outputs take the TPU kernel's dtype.
-// pam_forward multiplies on the CUDA cores with IEEE fma; the channel
-// kernels multiply on the tensor cores in 3xTF32, which keeps float32's
-// accuracy (see the channel-branch note below).  No kernel uses atomics:
-// repeated launches on the same input give the same bits.
+// Every product runs on the tensor cores with mma.sync: float32 operands
+// in 3xTF32, which keeps float32's accuracy (see the channel-branch note
+// below), bfloat16 operands of the position kernel in one bf16 pass with
+// float32 accumulation.  No kernel uses atomics: repeated launches on the
+// same input give the same bits.
 //
 // What bounds them on an H100: at the serving shapes (N = 4096 tokens,
 // Ck = 64, Cv = C = 512) all three do >= 1.3 GFLOP on <= 20 MB, so they are
 // bound by operations, not by the 3.35 TB/s memory.  For float32 that
 // means 67 TFLOP/s on the CUDA cores, or 495 / 3 = 165 TFLOP/s of float32
-// work through 3xTF32 on the tensor cores.  Each design note below says
-// what its kernel does about it.
+// work through 3xTF32 on the tensor cores; for bfloat16, 989 TFLOP/s.
+// Each design note below says what its kernel does about it.
 //
 // Every entry point returns the launch's error code (0 = launched) and never
 // synchronises; buffers are allocated by the caller.
@@ -38,184 +39,12 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the TPU kernel's key mask value
 
 template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as an astype
-}
-
-// ---------------------------------------------------------------------------
-// Position attention: out = softmax(Q Kᵀ [* scale]) V over all N keys.
-//
-// Replaces _flash_kernel.  On the TPU the key sweep was a sequential grid
-// axis carrying (max, sum, acc) in VMEM from step to step; here one block
-// owns 64 queries and a 256-wide slice of Cv and loops over every 64-key
-// block itself, so nothing carries between blocks.
-//
-// Cv = 512 is the trap: a 64 x 512 float32 accumulator (128 KB) does not fit
-// one block's registers.  The block's Cv slice is 256 wide (gridDim.y =
-// Cv / 256), which keeps the accumulator at 64 registers a thread; the
-// scores are recomputed once per slice, 11% more operations than the
-// minimum at Ck = 64, Cv = 512.  Each thread owns a 4 x 4 tile of the
-// scores and a 4 x 16 tile of the accumulator on the same 4 query rows, so
-// the online-softmax rescale stays in registers and the row reductions are
-// 16-lane shuffles.  The products read 8 floats per 16 fma (scores) and
-// 20 per 64 fma (P·V) from shared memory.  Keys >= N score -1e30, so they
-// get zero weight, as on the TPU.
-// ---------------------------------------------------------------------------
-
-constexpr int kPamBq = 64;        // queries per block
-constexpr int kPamBk = 64;        // keys per step
-constexpr int kPamCv = 256;       // value channels per block
-constexpr int kPamLd = kPamBq + 4;  // padded row of the transposed tiles
-constexpr int kPamThreads = 256;
-
-size_t pam_smem_bytes(int ck) {
-  return sizeof(float) *
-         (static_cast<size_t>(2 * ck) * kPamLd + kPamBk * kPamLd + kPamBk * kPamCv);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kPamThreads, 1)
-pam_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out, int n_tok,
-                   int ck, int cv, float scale, int has_scale) {
-  extern __shared__ float4 smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [ck][kPamLd]  Qᵀ
-  float* ks = qs + ck * kPamLd;                     // [ck][kPamLd]  Kᵀ
-  float* ps = ks + ck * kPamLd;                     // [kPamBk][kPamLd] Pᵀ
-  float* vs = ps + kPamBk * kPamLd;                 // [kPamBk][kPamCv]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // score columns / value columns
-  const int ty = tid >> 4;  // query rows ty*4 .. ty*4+3
-  const int q0 = blockIdx.x * kPamBq;
-  const int c0 = blockIdx.y * kPamCv;
-  const size_t b = blockIdx.z;
-  const T* qb = q + b * n_tok * ck;
-  const T* kb = k + b * n_tok * ck;
-  const T* vb = v + b * n_tok * cv;
-  T* ob = out + b * n_tok * cv;
-
-  for (int e = tid; e < kPamBq * ck; e += kPamThreads) {
-    const int i = e / ck, c = e - i * ck;
-    const int n = q0 + i;
-    qs[c * kPamLd + i] = n < n_tok ? to_f32(qb[static_cast<size_t>(n) * ck + c]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][16];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[r][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < n_tok; k0 += kPamBk) {
-    __syncthreads();  // the previous step is done with ks, vs and ps
-    for (int e = tid; e < kPamBk * ck; e += kPamThreads) {
-      const int j = e / ck, c = e - j * ck;
-      const int n = k0 + j;
-      ks[c * kPamLd + j] = n < n_tok ? to_f32(kb[static_cast<size_t>(n) * ck + c]) : 0.f;
-    }
-    for (int e = tid; e < kPamBk * kPamCv; e += kPamThreads) {
-      const int j = e / kPamCv, c = e - j * kPamCv;
-      const int n = k0 + j, cc = c0 + c;
-      vs[e] = (n < n_tok && cc < cv) ? to_f32(vb[static_cast<size_t>(n) * cv + cc]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-    for (int c = 0; c < ck; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(&qs[c * kPamLd + ty * 4]);
-      const float4 bk = *reinterpret_cast<const float4*>(&ks[c * kPamLd + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[r][j] = fmaf(av[r], bv[j], s[r][j]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float row_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float val = has_scale ? s[r][j] * scale : s[r][j];
-        if (k0 + tx * 4 + j >= n_tok) val = kNegInf;
-        s[r][j] = val;
-        row_max = fmaxf(row_max, val);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      const float m_new = fmaxf(m[r], row_max);
-      const float corr = expf(m[r] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[r][j] - m_new);
-        row_sum += p;
-        // The TPU kernel feeds p.astype(v.dtype) to the P·V product.
-        ps[(tx * 4 + j) * kPamLd + ty * 4 + r] = to_f32(from_f32<T>(p));
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l[r] = l[r] * corr + row_sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[r][j] *= corr;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < kPamBk; ++j) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&ps[j * kPamLd + ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float4 v4 = *reinterpret_cast<const float4*>(&vs[j * kPamCv + g * 64 + tx * 4]);
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[r][g * 4 + c] = fmaf(pv[r], vv[c], acc[r][g * 4 + c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int n = q0 + ty * 4 + r;
-    if (n >= n_tok) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = c0 + g * 64 + tx * 4 + c;
-        if (col < cv)
-          ob[static_cast<size_t>(n) * cv + col] = from_f32<T>(acc[r][g * 4 + c] / den);
-      }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -271,6 +100,12 @@ __device__ __forceinline__ uint32_t tf32_big(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 
+// big and small TF32 parts of v
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_big(v);
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -303,8 +138,7 @@ __device__ __forceinline__ void warp_mma_k8(float (&acc)[kMi][kNi][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if constexpr (kSplitA) {
-        a_big[mi][e] = tf32_big(a[mi][e]);
-        a_small[mi][e] = __float_as_uint(a[mi][e] - __uint_as_float(a_big[mi][e]));
+        split_tf32(a[mi][e], a_big[mi][e], a_small[mi][e]);
       } else {
         a_big[mi][e] = __float_as_uint(a[mi][e]);
       }
@@ -314,8 +148,7 @@ __device__ __forceinline__ void warp_mma_k8(float (&acc)[kMi][kNi][4],
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if constexpr (kSplitB) {
-        b_big[ni][e] = tf32_big(b[ni][e]);
-        b_small[ni][e] = __float_as_uint(b[ni][e] - __uint_as_float(b_big[ni][e]));
+        split_tf32(b[ni][e], b_big[ni][e], b_small[ni][e]);
       } else {
         b_big[ni][e] = __float_as_uint(b[ni][e]);
       }
@@ -366,7 +199,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Copies rows [r0, r0 + R) x columns [c0, c0 + W) of a row-major matrix with
 // leading dimension ld into shared memory (row stride lds elements), 16-byte
-// chunk q of row r at chunk swizzle(r, q); entries at rows >= r_end or
+// chunk q of row r at chunk swizzle(r, q), each thread taking every
+// kThreads-th chunk; entries at rows >= r_end or
 // columns >= c_end are zero.  `vec`: every row starts 16-byte aligned and
 // c_end is a multiple of a chunk, so whole chunks go by cp.async
 // (zero-filled past the edge); otherwise element by element through
@@ -377,12 +211,13 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, Swizzle swizzle,
                                           int r_end, int c0, int c_end,
                                           bool vec) {
   constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = R * (W / kVec);
   constexpr int kRowChunks = W / kVec;
-  static_assert(W % kVec == 0 && (R * kRowChunks) % kThreads == 0,
-                "tile must split into whole 16-byte chunks per thread");
+  static_assert(W % kVec == 0, "tile rows must split into whole 16-byte chunks");
 #pragma unroll
-  for (int it = 0; it < R * kRowChunks / kThreads; ++it) {
+  for (int it = 0; it < (kChunks + kThreads - 1) / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
+    if (kChunks % kThreads != 0 && i >= kChunks) break;
     const int r = i / kRowChunks, q = i % kRowChunks;
     const int gr = r0 + r, gc = c0 + q * kVec;
     T* d = dst + r * lds + swizzle(r, q) * kVec;
@@ -815,6 +650,460 @@ cam_apply_kernel(const float* __restrict__ attn, const T* __restrict__ x,
     }
 }
 
+// ---------------------------------------------------------------------------
+// Position attention: out = softmax(Q Kᵀ [* scale]) V over all N keys, on the
+// tensor cores.
+//
+// Replaces _flash_kernel.  On the TPU the key sweep was a sequential grid
+// axis carrying (max, sum, acc) in VMEM from step to step; here one block
+// owns 64 queries and a 256-wide slice of Cv and sweeps every key itself, 32
+// keys a stage, so nothing carries between blocks and nothing is summed
+// across them (no atomics: repeated launches give the same bits).
+//
+// What bounds it: operations.  At N = 4096, Ck = 64, Cv = 512 the two
+// products are 19.3 GFLOP on 18 MB, 89% of it in P·V.  Both run as
+// mma.sync: float32 inputs in 3xTF32 (the channel branch's split, below:
+// small·big + big·small + big·big, small terms first, float32 accumulation,
+// float32 accuracy, NaN kept), bfloat16 inputs as one
+// m16n8k16.bf16 pass with float32 accumulation, exact for bfloat16 operands.
+//
+// Tiling.  Eight warps, 4 row groups of 16 queries x 2 groups of 128 value
+// channels.  A warp's accumulator is 16 x 128 float32, 64 registers a
+// thread, and the card fills: 128 blocks at B = 1 on 132 SMs, one a SM
+// (184 KB of shared memory at Ck = 64), so no split of the key sweep is
+// needed.
+// The two warps of a row group need the same p.  For float32 they share
+// the work: each scores 16 of a stage's 32 keys (3xTF32, its exps, its half
+// of the row max and sum) and the pair trade their halves' max, sum and p
+// through shared memory, with two 64-thread barriers per stage; both add
+// the halves in key order, so they hold the same bits.  A row's scores are
+// then computed twice, by the 2 blocks of its Cv = 512 (grid.y): +11%
+// operations over the minimum at Ck = 64, Cv = 512 (the score product is
+// 11% of it) and 2x the exponentials.  For bfloat16, whose products are
+// cheap beside that exchange, each warp scores all 32 keys (the shared
+// version ran slower on an H100): 4x the scores, +33% of its operations.
+//
+// Keeping P in registers.  The m16n8 score accumulator of 8 keys holds, in
+// thread (g, t) = (lane / 4, lane % 4), the scores of rows g, g + 8 at keys
+// 2t, 2t + 1.  For the float32 P·V (m16n8k8, whose A fragment wants depths
+// t and t + 4), the depth order inside each 8-key step is permuted so that
+// depth t is key 2t and depth t + 4 is key 2t + 1: the accumulator is the
+// A fragment as it stands, and the thread reads V's rows 2t and 2t + 1; the
+// partner's half arrives in the same layout, each lane reading the slots
+// its twin lane wrote.  For bfloat16 (m16n8k16) two score accumulators
+// side by side are the A fragment in natural order, rounded to bfloat16
+// (p.astype(v.dtype), as on the TPU; the running sum takes the unrounded
+// p).  Row max and row sum are quad shuffles over the 4 lanes that hold a
+// row.
+//
+// Fragment loads, free of bank conflicts.  float32: a thread takes 4
+// consecutive depths (two 8-deep steps) of a Q or K row in one 16-byte load,
+// the same permutation for both operands; rows are padded to 4 mod 8
+// chunks.  For V the warp's 128 channels are permuted in groups of 32 so
+// that a thread loads 4 consecutive channels (one 16-byte load feeds 4 n8
+// tiles); V rows are padded to 260 floats, so the rows 2t of a quarter-warp
+// fall on distinct chunks; the output permutation puts 8 consecutive
+// channels of a row in each thread, written as two 16-byte stores.
+// bfloat16: 8-byte Q and K loads (rows padded to 4 mod 16 eight-byte
+// pairs), V through ldmatrix.trans (rows padded to 528 bytes).
+//
+// Splitting once.  Q is the same for the whole sweep: it is staged once,
+// split once into big and small planes in shared memory (bfloat16: loaded
+// once into registers).  p is split once, in the registers that hold it.
+// K and V are split in registers as their fragments are loaded, by every
+// warp that reads them (a K row by the 4 warps that score its half, V by
+// the 4 of its channel group), 3 integer/float operations per value beside
+// the 1.5 tensor-core products each split value feeds.  Split planes of the
+// staged K and V tiles would double their shared memory, double the
+// fragment loads and add a barrier per stage; the channel kernels' version
+// of them ran no faster on an H100.
+//
+// Staging.  K and V tiles go by 16-byte cp.async (zero-filled past N and
+// Cv) into a ring of three stages (two at Ck = 128, where three do not
+// fit), one __syncthreads per stage, the next stages in flight under the
+// current one's products.  Rows that are not 16-byte aligned (C = 67, a
+// bfloat16 C of 100) go element by element.  Q and K depths past Ck
+// (padded to 16, 32, 64 or 128) are zero-filled.  Keys >= N score -1e30
+// (after the scale), so they get zero weight, as on the TPU; queries >= N
+// and channels >= Cv are computed on zeros and never written.
+//
+// What bounds it now, measured on an H100: the issue rate of mma.sync,
+// about a quarter of the 3xTF32 bound at B = 1 and 8.  Of the variants
+// tried in development, one TF32 pass in place of three (which fails the
+// float32 bound) saved by far the most time, sharing the scores between
+// the warp pair (kept) the next most; the K/V splits and the
+// exponentials, which share the warps' issue slots, come after.  The way
+// on is wgmma for P·V, the larger product: asynchronous, the only way to
+// the full tensor-core rate, P from registers and V from shared memory,
+// which for wgmma.tf32 means V staged transposed (K-major) and split once
+// there.
+// ---------------------------------------------------------------------------
+
+constexpr int kPamBq = 64;       // queries per block
+constexpr int kPamBk = 32;       // keys per stage
+constexpr int kPamCv = 256;      // value channels per block
+constexpr int kPamWarpCv = 128;  // value channels per warp
+constexpr int kPamThreads = 256;
+constexpr int kPamMaxCk = 128;   // Q/K depth, padded to 16, 32, 64 or 128
+// floats a lane passes to its partner warp each stage: its half's row max
+// (2), row sum (2) and p (8)
+constexpr int kPamSlots = 12;
+
+// float32: the two warps of a row group share each stage's scores, 16 keys
+// each, and pass each other p through shared memory; bfloat16, whose
+// products are cheap beside that exchange: each warp scores all 32 keys
+template <typename T>
+constexpr bool kPamShare = kSplit<T>;
+
+// A ring of three stages, two at Ck = 128, where a third does not fit.
+template <int kCk>
+constexpr int kPamStages = kCk > 64 ? 2 : 3;
+
+// Row stride (elements) of a staged Q or K tile of depth w: float32 rows
+// of 4 mod 8 sixteen-byte chunks, bfloat16 rows of 4 mod 16 eight-byte pairs.
+template <typename T, int w>
+constexpr int kPamLd = sizeof(T) == 4 ? (w / 4 + (12 - w / 4 % 8) % 8) * 4
+                                      : (w / 4 + (20 - w / 4 % 16) % 16) * 4;
+
+template <typename T>
+constexpr int kPamLdv = sizeof(T) == 4 ? kPamCv + 4 : kPamCv + 8;
+
+template <typename T, int kCk>
+constexpr size_t pam_smem_bytes() {
+  return sizeof(float) * kPamThreads * (kPamShare<T> ? kPamSlots : 0) +
+         sizeof(T) * ((kSplit<T> ? 2 : 1) * kPamBq * kPamLd<T, kCk> +
+                      kPamStages<kCk> * kPamBk * (kPamLd<T, kCk> + kPamLdv<T>));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4], const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// d += a·b in 3xTF32 from split parts, the two small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big);
+  mma_tf32(d, a_big, b_small);
+  mma_tf32(d, a_big, b_big);
+}
+
+// barrier `id` over the 64 threads of two warps; orders their shared memory
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
+
+template <typename T, int kCk>
+__global__ void __launch_bounds__(kPamThreads, 1)
+pam_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ out, int n_tok,
+                   int ck, int cv, float scale, int has_scale, int vec_qk,
+                   int vec_v) {
+  constexpr bool kF32 = kSplit<T>;
+  constexpr bool kShare = kPamShare<T>;
+  constexpr int kOwn = kShare ? 2 : 4;  // n8 score tiles a warp computes
+  constexpr int kStages = kPamStages<kCk>;
+  constexpr int LDQ = kPamLd<T, kCk>, LDV = kPamLdv<T>;
+  constexpr int kStageK = kPamBk * LDQ, kStageV = kPamBk * LDV;
+  constexpr int kTiles = kPamWarpCv / 8;  // n8 tiles of a warp's accumulator
+  extern __shared__ float4 smem_raw[];
+  float* xch = reinterpret_cast<float*>(smem_raw);  // [warp][slot][lane], shared
+  // [query][depth]: Q, then its big part; float32: Q's small part
+  T* qs = reinterpret_cast<T*>(xch + kPamThreads * (kShare ? kPamSlots : 0));
+  T* qsmall = qs + kPamBq * LDQ;
+  T* ks = qsmall + (kF32 ? kPamBq * LDQ : 0);  // [stage][key][depth]
+  T* vs = ks + kStages * kStageK;              // [stage][key][channel]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = (warp & 3) * 16;  // the warp's rows in the block
+  const int half = warp >> 2;        // its channels and, shared, its keys
+  const int col0 = half * kPamWarpCv;
+  const int pair_barrier = 1 + (warp & 3);  // shared with the partner warp, warp ^ 4
+  float* mine = xch + warp * kPamSlots * 32 + lane;
+  const float* theirs = xch + (warp ^ 4) * kPamSlots * 32 + lane;
+  const int q0 = blockIdx.x * kPamBq, c0 = blockIdx.y * kPamCv;
+  const size_t b = blockIdx.z;
+  const T* kb = k + b * n_tok * ck;
+  const T* vb = v + b * n_tok * cv;
+  T* ob = out + b * n_tok * cv;
+  const int steps = (n_tok + kPamBk - 1) / kPamBk;
+
+  const auto plain = [](int, int c) { return c; };
+  auto load = [&](int stage, int step) {
+    const int k0 = step * kPamBk;
+    load_tile<T, kPamBk, kCk, kPamThreads>(ks + stage * kStageK, LDQ, plain, kb, ck,
+                                           k0, n_tok, 0, ck, vec_qk);
+    load_tile<T, kPamBk, kPamCv, kPamThreads>(vs + stage * kStageV, LDV, plain, vb,
+                                              cv, k0, n_tok, c0, cv, vec_v);
+  };
+  load_tile<T, kPamBq, kCk, kPamThreads>(qs, LDQ, plain, q + b * n_tok * ck, ck, q0,
+                                         n_tok, 0, ck, vec_qk);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();  // Q has landed
+  __syncthreads();
+
+  uint32_t qf[kF32 ? 1 : kCk / 16][4];  // bfloat16: Q's A fragments
+  if constexpr (kF32) {
+    for (int e = threadIdx.x; e < kPamBq * kCk; e += kPamThreads) {
+      const int i = (e / kCk) * LDQ + e % kCk;
+      uint32_t big, small;
+      split_tf32(qs[i], big, small);
+      qs[i] = __uint_as_float(big);
+      qsmall[i] = __uint_as_float(small);
+    }
+  } else {
+    // depths 4t..4t+3 of each 16 stand for the fragment's 2t, 2t+1, 2t+8, 2t+9
+#pragma unroll
+    for (int kk = 0; kk < kCk / 16; ++kk) {
+      const T* p = qs + (row0 + g) * LDQ + 16 * kk + 4 * t;
+      const uint2 lo = *reinterpret_cast<const uint2*>(p);
+      const uint2 hi = *reinterpret_cast<const uint2*>(p + 8 * LDQ);
+      qf[kk][0] = lo.x, qf[kk][1] = hi.x, qf[kk][2] = lo.y, qf[kk][3] = hi.y;
+    }
+  }
+
+  float acc[kTiles][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int ni = 0; ni < kTiles; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage `step` landed (and Q's split); stage step-1 is free
+    const int next = step + kStages - 1;
+    if (next < steps) load(next % kStages, next);
+    cp_async_commit();
+    const int kown = kShare ? 16 * half : 0;  // the first key this warp scores
+    const T* kst = ks + (step % kStages) * kStageK + kown * LDQ;
+    const T* vst = vs + (step % kStages) * kStageV;
+
+    // scores of rows g, g + 8 at keys kown + 8ni + 2t + {0, 1}
+    float s[kOwn][4];
+#pragma unroll
+    for (int ni = 0; ni < kOwn; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
+    if constexpr (kF32) {
+#pragma unroll
+      for (int kc = 0; kc < kCk / 16; ++kc) {
+        float qb[2][4], qsm[2][4], kr[kOwn][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = (row0 + g + 8 * h) * LDQ + 16 * kc + 4 * t;
+          load_vec<float, 4>(qb[h], qs + at);
+          load_vec<float, 4>(qsm[h], qsmall + at);
+        }
+#pragma unroll
+        for (int ni = 0; ni < kOwn; ++ni)
+          load_vec<float, 4>(kr[ni], kst + (8 * ni + g) * LDQ + 16 * kc + 4 * t);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {  // depths 4t + 2u, 4t + 2u + 1 are t, t + 4
+          const uint32_t a_big[4] = {
+              __float_as_uint(qb[0][2 * u]), __float_as_uint(qb[1][2 * u]),
+              __float_as_uint(qb[0][2 * u + 1]), __float_as_uint(qb[1][2 * u + 1])};
+          const uint32_t a_small[4] = {
+              __float_as_uint(qsm[0][2 * u]), __float_as_uint(qsm[1][2 * u]),
+              __float_as_uint(qsm[0][2 * u + 1]), __float_as_uint(qsm[1][2 * u + 1])};
+#pragma unroll
+          for (int ni = 0; ni < kOwn; ++ni) {
+            uint32_t b_big[2], b_small[2];
+            split_tf32(kr[ni][2 * u], b_big[0], b_small[0]);
+            split_tf32(kr[ni][2 * u + 1], b_big[1], b_small[1]);
+            mma_3xtf32(s[ni], a_big, a_small, b_big, b_small);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kCk / 16; ++kk)
+#pragma unroll
+        for (int ni = 0; ni < kOwn; ++ni) {
+          const uint2 kr = *reinterpret_cast<const uint2*>(
+              kst + (8 * ni + g) * LDQ + 16 * kk + 4 * t);
+          const uint32_t bf[2] = {kr.x, kr.y};
+          mma_bf16(s[ni], qf[kk], bf);
+        }
+    }
+
+    // online softmax of rows g (h = 0) and g + 8 (h = 1); shared, the row
+    // max and sum of the stage combine this warp's half with the partner's,
+    // added in key order, so that both warps hold the same bits
+    const int k0 = step * kPamBk + kown;
+    const bool ragged = k0 + 8 * kOwn > n_tok;
+    float mx[2] = {kNegInf, kNegInf}, m_new[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ni = 0; ni < kOwn; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = has_scale ? s[ni][e] * scale : s[ni][e];
+        if (ragged && k0 + 8 * ni + 2 * t + (e & 1) >= n_tok) val = kNegInf;
+        s[ni][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if constexpr (kShare) mine[h * 32] = mx[h];
+    }
+    if constexpr (kShare) pair_sync(pair_barrier);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m[h], kShare ? fmaxf(mx[h], theirs[h * 32]) : mx[h]);
+      corr[h] = expf(m[h] - m_new[h]);
+      m[h] = m_new[h];
+    }
+#pragma unroll
+    for (int ni = 0; ni < kOwn; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[ni][e] = expf(s[ni][e] - m_new[e >> 1]);
+        sum[e >> 1] += s[ni][e];
+        if constexpr (kShare) mine[(4 + 4 * ni + e) * 32] = s[ni][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      if constexpr (kShare) mine[(2 + h) * 32] = sum[h];
+    }
+    // p of the stage's 32 keys (shared: tiles 0, 1 from the half-0 warp,
+    // 2, 3 from the half-1 warp)
+    float p[4][4];
+    if constexpr (kShare) {
+      pair_sync(pair_barrier);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float other = theirs[(4 + 4 * ni + e) * 32];
+          p[ni][e] = half ? other : s[ni][e];
+          p[2 + ni][e] = half ? s[ni][e] : other;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float other = theirs[(2 + h) * 32];
+        sum[h] = half ? other + sum[h] : sum[h] + other;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[j][e] = s[j % kOwn][e];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+#pragma unroll
+    for (int ni = 0; ni < kTiles; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ni][e] *= corr[e >> 1];
+
+    // acc += P·V over the stage's 32 keys
+    if constexpr (kF32) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // keys 8j + 2t (depth t), 8j + 2t + 1 (t + 4)
+        uint32_t p_big[4], p_small[4];
+        split_tf32(p[j][0], p_big[0], p_small[0]);
+        split_tf32(p[j][2], p_big[1], p_small[1]);
+        split_tf32(p[j][1], p_big[2], p_small[2]);
+        split_tf32(p[j][3], p_big[3], p_small[3]);
+        // n8 tile 4c + i, column g is channel 32c + 4g + i of the warp's 128
+        const float* vr = vst + (8 * j + 2 * t) * LDV + col0 + 4 * g;
+#pragma unroll
+        for (int c = 0; c < kTiles / 4; ++c) {
+          float v0[4], v1[4];
+          load_vec<float, 4>(v0, vr + 32 * c);
+          load_vec<float, 4>(v1, vr + LDV + 32 * c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t b_big[2], b_small[2];
+            split_tf32(v0[i], b_big[0], b_small[0]);
+            split_tf32(v1[i], b_big[1], b_small[1]);
+            mma_3xtf32(acc[4 * c + i], p_big, p_small, b_big, b_small);
+          }
+        }
+      }
+    } else {
+      // ldmatrix.trans: lanes 8r..8r+7 address the rows of matrix r = (keys
+      // +8 (r & 1), channels +8 (r >> 1))
+      const T* vr = vst + (((lane >> 3) & 1) * 8 + (lane & 7)) * LDV + col0 +
+                    (lane >> 4) * 8;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {  // keys 16u .. 16u + 15
+        const uint32_t a[4] = {pack_bf16(p[2 * u][0], p[2 * u][1]),
+                               pack_bf16(p[2 * u][2], p[2 * u][3]),
+                               pack_bf16(p[2 * u + 1][0], p[2 * u + 1][1]),
+                               pack_bf16(p[2 * u + 1][2], p[2 * u + 1][3])};
+#pragma unroll
+        for (int np = 0; np < kTiles / 2; ++np) {
+          uint32_t d[4];
+          ldmatrix_x4_trans(d, vr + 16 * u * LDV + 16 * np);
+          const uint32_t b0[2] = {d[0], d[1]}, b1[2] = {d[2], d[3]};
+          mma_bf16(acc[2 * np], a, b0);
+          mma_bf16(acc[2 * np + 1], a, b1);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + g + 8 * h;
+    if (row >= n_tok) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+    if constexpr (kF32) {
+      // this thread's channels 32c + 8t .. 32c + 8t + 7 of the warp's 128
+#pragma unroll
+      for (int c = 0; c < kTiles / 4; ++c) {
+        float o[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i] = acc[4 * c + i][2 * h] / den;
+          o[4 + i] = acc[4 * c + i][2 * h + 1] / den;
+        }
+        const int col = c0 + col0 + 32 * c + 8 * t;
+        float* dst = ob + static_cast<size_t>(row) * cv + col;
+        if (cv % 4 == 0 && col + 8 <= cv) {
+          *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+          *reinterpret_cast<float4*>(dst + 4) = make_float4(o[4], o[5], o[6], o[7]);
+        } else {
+          for (int e = 0; e < 8 && col + e < cv; ++e) dst[e] = o[e];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ni = 0; ni < kTiles; ++ni)
+        store_pair(ob, row, c0 + col0 + 8 * ni + 2 * t, n_tok, cv,
+                   acc[ni][2 * h] / den, acc[ni][2 * h + 1] / den);
+    }
+  }
+}
+
 template <typename T>
 int launch_gram(const void* x, float* partial, int b, int n_tok, int c,
                 int splits, cudaStream_t stream) {
@@ -851,21 +1140,38 @@ int launch_apply(const float* attn, const void* x, void* out, int b, int n_tok,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kCk>
+int launch_pam_ck(const void* q, const void* k, const void* v, void* out, int b,
+                  int n_tok, int ck, int cv, float scale, int has_scale,
+                  cudaStream_t stream) {
+  constexpr size_t smem = pam_smem_bytes<T, kCk>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      pam_forward_kernel<T, kCk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_tok + kPamBq - 1) / kPamBq, (cv + kPamCv - 1) / kPamCv, b);
+  const int vec_qk = aligned16(q) && aligned16(k) && (ck * sizeof(T)) % 16 == 0;
+  const int vec_v = aligned16(v) && (cv * sizeof(T)) % 16 == 0;
+  pam_forward_kernel<T, kCk><<<grid, kPamThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), n_tok, ck, cv, scale,
+      has_scale, vec_qk, vec_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Q and K depth padded with zeros to the next of 16, 32, 64, 128
 template <typename T>
 int launch_pam(const void* q, const void* k, const void* v, void* out, int b,
                int n_tok, int ck, int cv, float scale, int has_scale,
                cudaStream_t stream) {
-  const size_t smem = pam_smem_bytes(ck);
-  cudaError_t err = cudaFuncSetAttribute(
-      pam_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_tok + kPamBq - 1) / kPamBq, (cv + kPamCv - 1) / kPamCv, b);
-  pam_forward_kernel<T><<<grid, kPamThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n_tok, ck, cv, scale,
-      has_scale);
-  return static_cast<int>(cudaGetLastError());
+  if (ck < 1 || ck > kPamMaxCk) return static_cast<int>(cudaErrorInvalidValue);
+  if (ck <= 16)
+    return launch_pam_ck<T, 16>(q, k, v, out, b, n_tok, ck, cv, scale, has_scale, stream);
+  if (ck <= 32)
+    return launch_pam_ck<T, 32>(q, k, v, out, b, n_tok, ck, cv, scale, has_scale, stream);
+  if (ck <= 64)
+    return launch_pam_ck<T, 64>(q, k, v, out, b, n_tok, ck, cv, scale, has_scale, stream);
+  return launch_pam_ck<T, 128>(q, k, v, out, b, n_tok, ck, cv, scale, has_scale, stream);
 }
 
 }  // namespace

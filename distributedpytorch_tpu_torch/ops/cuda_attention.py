@@ -4,7 +4,9 @@ Counterpart of ``distributedpytorch_tpu/ops/pallas_attention.py``, with its
 public names and shapes:
 
 * :func:`flash_position_attention` — ``q``/``k`` (B, N, Ck), ``v``
-  (B, N, Cv) -> (B, N, Cv), one kernel (``pam_forward``);
+  (B, N, Cv) -> (B, N, Cv), one kernel (``pam_forward``) on the tensor
+  cores: float32-exact 3xTF32 for float32 inputs, one bfloat16 pass for
+  bfloat16 ones;
 * :func:`flash_channel_attention` — (B, N, C) -> (B, N, C), the composition
   of :func:`cam_energy` (Gram + ``rowmax - E`` softmax, two launches that
   together port the TPU's one energy kernel) and :func:`cam_apply`, both
@@ -46,9 +48,9 @@ _SIGNATURES = {
     "dptpu_cam_softmax": (_P, _P, _I, _I, _I, _P),
     "dptpu_cam_apply": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
-#: the largest Ck whose Q/K tiles fit one block's shared memory beside the
-#: value tile (227 KB per block on Hopper)
-MAX_CK = 256
+#: the largest Ck whose Q planes and K stages fit one block's shared memory
+#: beside the value stages (227 KB per block on Hopper)
+MAX_CK = 128
 #: the Gram kernel's output tile, and the most slices of N it sums
 _GRAM_TILE = 128
 _GRAM_MAX_SPLITS = 16

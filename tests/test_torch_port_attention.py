@@ -193,7 +193,8 @@ class TestBuild:
         assert set(ca._SIGNATURES) == entries
 
     @pytest.mark.parametrize("cu_name,py_name", [
-        ("kGramTile", "_GRAM_TILE"), ("kGramMaxSplits", "_GRAM_MAX_SPLITS")])
+        ("kGramTile", "_GRAM_TILE"), ("kGramMaxSplits", "_GRAM_MAX_SPLITS"),
+        ("kPamMaxCk", "MAX_CK")])
     def test_constants_agree(self, cu_name, py_name):
         src = (_build.CSRC / "attention.cu").read_text()
         (value,) = re.findall(rf"constexpr int {cu_name} = (\d+);", src)
@@ -204,6 +205,11 @@ class TestBuild:
         assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
         assert "atomicAdd" not in src  # fixed-order sums only
         assert "tile_fma" not in src  # no CUDA-core tile product left
+        # the position kernel too: bf16 inputs on the bf16 tensor-core
+        # instruction, and no scalar fma product anywhere
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+        assert not re.search(r"\bfmaf?\(", src)
+        assert "to_f32(" not in src  # nothing widens bf16 to a float32 loop
 
 
 def tf32_rna(a):
@@ -221,12 +227,14 @@ def tf32_read(a):
     return (u & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def mma_product(a, b, passes):
-    """float32 (M, K)·(K, N) the way the kernels take it: over 8-deep steps,
-    each adding its pass products to a float32 accumulator in the given
-    order; ``passes`` maps (a, b) of one step to the list of operand pairs,
-    which the tensor core reads as ``tf32_read`` does."""
-    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+def mma_product(a, b, passes, acc=None):
+    """float32 ``acc`` + (M, K)·(K, N) the way the kernels take it: over
+    8-deep steps, each adding its pass products to a float32 accumulator
+    (zero unless ``acc`` is given) in the given order; ``passes`` maps
+    (a, b) of one step to the list of operand pairs, which the tensor core
+    reads as ``tf32_read`` does."""
+    if acc is None:
+        acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
     for k in range(0, a.shape[1], 8):
         for pa, pb in passes(a[:, k:k + 8], b[k:k + 8]):
             term = tf32_read(pa).astype(np.float64) @ tf32_read(pb).astype(np.float64)
@@ -328,3 +336,82 @@ class TestThreeTf32Numerics:
         ref = x.T.astype(np.float64) @ x
         got = mma_product(x.T.copy(), x, lambda a, b: [(a, b)])
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def bf16_round(a):
+    """float32 values rounded to bfloat16, nearest even (an astype)."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def pam_kernel_emulated(q, k, v, passes, p_cast=lambda p: p, stage=32):
+    """The position kernel's arithmetic for one batch entry: keys in stages
+    of 32 (the last one zero-padded, its keys past N scored -1e30), each
+    stage's scores an ``mma_product`` with ``passes``, the online softmax
+    in float32 (running max, sum over the unrounded p, rescaled
+    accumulator), then ``p_cast(p)``·V added to the accumulator with the
+    same passes (for 3xTF32, p split in registers), out = acc / max(sum,
+    1e-30)."""
+    n, cv = q.shape[0], v.shape[1]
+    m = np.full((n, 1), -1e30, np.float32)
+    total = np.zeros((n, 1), np.float32)
+    acc = np.zeros((n, cv), np.float32)
+    for k0 in range(0, n, stage):
+        live = min(stage, n - k0)
+        ks = np.zeros((stage, k.shape[1]), np.float32)
+        vs = np.zeros((stage, cv), np.float32)
+        ks[:live], vs[:live] = k[k0:k0 + live], v[k0:k0 + live]
+        s = mma_product(q, ks.T.copy(), passes)
+        s[:, live:] = np.float32(-1e30)
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        corr = np.exp(m - m_new)
+        p = np.exp(s - m_new)
+        total = total * corr + p.sum(-1, keepdims=True, dtype=np.float32)
+        acc = mma_product(p_cast(p), vs, passes, acc * corr)
+        m = m_new
+    return acc / np.maximum(total, np.float32(1e-30))
+
+
+class TestPositionKernelNumerics:
+    """The position kernel's arithmetic, emulated in numpy at a reduced
+    serving shape (Ck = 64, Cv = 64; q and k at unit scale, where the
+    unscaled softmax is sharp and one TF32 pass on the scores shows),
+    against float64: inside the 1e-4 x max bound the card's checks
+    enforce, where one TF32 pass on both products is not."""
+
+    @staticmethod
+    def inputs(n, seed=21):
+        r = np.random.RandomState(seed)
+        return tuple(r.randn(n, 64).astype(np.float32) for _ in range(3))
+
+    @staticmethod
+    def exact(q, k, v):
+        s = q.astype(np.float64) @ k.astype(np.float64).T
+        p = np.exp(s - s.max(-1, keepdims=True))
+        return (p @ v) / p.sum(-1, keepdims=True)
+
+    @pytest.mark.parametrize("n", [512, 500])  # 500: the last stage is ragged
+    def test_three_tf32_inside_bound(self, n):
+        q, k, v = self.inputs(n)
+        ref = self.exact(q, k, v)
+        limit = 1e-4 * np.abs(ref).max()
+        got = pam_kernel_emulated(q, k, v, three_tf32)
+        assert np.abs(got - ref).max() <= 0.1 * limit
+        one = pam_kernel_emulated(q, k, v, one_tf32)
+        assert np.abs(one - ref).max() > 5 * limit
+
+    def test_bf16_one_pass_rounds_p(self):
+        """bfloat16 inputs: one exact pass per product with p rounded to
+        bfloat16 before P·V, as the TPU kernel's ``p.astype(v.dtype)``;
+        against the Pallas kernel in interpret mode on the same inputs,
+        with the same 32-key blocks (so p is rounded against the same
+        running max), within the bfloat16 output's rounding."""
+        q, k, v = (bf16_round(a) for a in self.inputs(300, seed=22))
+        got = pam_kernel_emulated(q, k, v, lambda a, b: [(a, b)], bf16_round)
+        ref = self.exact(q, k, v)
+        assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()
+        jq, jk, jv = (jnp.asarray(a[None], jnp.bfloat16) for a in (q, k, v))
+        tpu = np.asarray(jpallas.flash_position_attention(
+            jq, jk, jv, 128, 32, None, True).astype(jnp.float32))[0]
+        ulp = 2.0 ** -8 * np.abs(tpu).max()
+        assert np.abs(bf16_round(got) - tpu).max() <= ulp
