@@ -35,15 +35,43 @@ it), printing no result.  The phases, each raising on failure:
 4. service — ``InferenceService(max_batch=4)`` under 8 concurrent submits;
              every mask matches ``Predictor.predict`` (<= 1e-4 abs).
 5. http    — the HTTP front on localhost answers 3 predicts and /healthz.
+6. train   — (a) the kernels' autograd functions alone at DANet-R101's
+             attention shapes: every input's gradient within 1e-3 x max |g|
+             of autograd through the plain forms; then one step's gradients
+             of DANet-R101 at 512², B = 2, every weight drawn from seed 0,
+             dropout off, through the kernels, through the plain forms and
+             through the plain forms in float64: every parameter tensor
+             within 1e-3 x its max |g| of the plain path, or, where float32
+             itself is further off, within the plain path's own distance
+             from float64 (a deep random net amplifies the kernels'
+             float32-level differences; the PAM key bias, zero in exact
+             arithmetic, is scaled by the key weight's), the query/key/value
+             gradients nonzero, and each kernel's forward counter up by
+             exactly 1; (b) the default
+             train step (B = 16, SGD 5e-8 / 0.9 / 5e-4, f32) with the
+             kernels and with the plain forms, timed in turns with CUDA
+             events, images/s, peak memory, a profiler table of one step
+             and the device's idle share, and the host pipeline's ms per
+             batch of 16; (c) ``python -m distributedpytorch_tpu_torch
+             --fake-data`` as a subprocess (DANet-R101 at 512², 4 optimizer
+             steps, 2 validations): finite losses, Jaccard in [0, 1], a
+             committed checkpoint whose weights ``Predictor.from_run``
+             serves bit for bit, and the kernels' launches in the fit equal
+             to one per train step and per validation sample.
 
-The launch counters are zeroed just before phase 3 and read after phase 5:
-every kernel must have run on that main path.  The second-to-last line is
-the ``kernels`` JSON record; the last line is the device record.
+The launch counters are zeroed just before phase 3 and read after phase 5
+(the serving path), and zeroed by the trainer when its fit starts and read
+from its ``fit_summary.json`` (the training path): every kernel must have
+run on both.  The second-to-last line is the ``kernels`` JSON record; the
+last line is the device record.  ``--phases train`` (or any comma list of
+``kernels,serve,train``) runs part of the script for development and then
+prints neither record.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -614,9 +642,404 @@ def phase_http(pred, image, clicks, InferenceService, make_server,
         thread.join(timeout=30)
 
 
-def main() -> int:
+#: parameters whose gradient is zero in exact arithmetic, each held to the
+#: bound of another: the PAM key conv's bias shifts every score of a query
+#: row by the same amount, which the softmax cancels, so what is left of
+#: its gradient is rounding noise
+GRAD_SCALE_OF = {"head.pam.key.bias": "head.pam.key.weight"}
+#: the profiler's names for the device time of the convolutions
+CONV_FORWARD = ("aten::cudnn_convolution",)
+CONV_BACKWARD = ("aten::convolution_backward",)
+BATCH_NORM = ("aten::cudnn_batch_norm", "aten::native_batch_norm",
+              "aten::cudnn_batch_norm_backward",
+              "aten::native_batch_norm_backward")
+ATTENTION_KERNELS = ("pam_forward_kernel", "cam_gram_kernel",
+                     "cam_softmax_kernel", "cam_apply_kernel")
+
+
+class Cycled:
+    """``dataset``'s samples repeated to ``n``."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, index: int, rng=None) -> dict:
+        return self.dataset.__getitem__(index % len(self.dataset), rng=rng)
+
+
+def train_dataset():
+    """The train split of the in-memory fake VOC fixture that ``--fake-data``
+    trains on (seed 0, every object), through the default train stack at
+    512²."""
+    from distributedpytorch_tpu_torch.data import fake, pipeline, voc
+
+    tree = fake.make_fake_voc(n_images=8, size=(96, 128), n_val=3, seed=0)
+    return voc.VOCInstanceSegmentation(
+        tree, split="train", area_thres=0,
+        transform=pipeline.build_train_transform(crop_size=(512, 512)))
+
+
+def phase_train_grads(torch, ca, Predictor, batch) -> None:
+    """6a: one step's gradients through the kernels and the plain forms."""
+    from distributedpytorch_tpu_torch.ops.losses import multi_output_loss
+    from distributedpytorch_tpu_torch.parallel.step import device_batch
+
+    check_function_grads(torch, ca)
+    model = Predictor.fresh(512, "resnet101", seed=0, device="cuda").model.train()
+    model.head.dropout_rate = 0.0
+    data = device_batch(batch, torch.device("cuda"))
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    grads, rises, loss = {}, {}, {}
+    # the convolutions' algorithms fixed, so that only attention differs
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path, impl, dtype in (("kernels", "flash", torch.float32),
+                                  ("plain", "xla", torch.float32),
+                                  ("float64", "xla", torch.float64)):
+            model.to(dtype).load_state_dict(saved)
+            model.zero_grad(set_to_none=True)
+            model.set_attention_impl(impl)
+            before = dict(ca.launches)
+            out = multi_output_loss(model(data["concat"].to(dtype)),
+                                    data["crop_gt"].to(dtype))
+            out.backward()
+            torch.cuda.synchronize()
+            loss[path] = out.item()
+            rises[path] = {k: ca.launches[k] - before[k] for k in before}
+            grads[path] = {n: p.grad.detach().double()
+                           for n, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"train grads: DANet-R101 512^2 B={data['concat'].shape[0]}, loss with kernels "
+        f"{loss['kernels']:.9f}, plain forms {loss['plain']:.9f}, plain forms in "
+        f"float64 {loss['float64']:.9f}; forward launches with kernels "
+        f"{rises['kernels']}, plain {rises['plain']}")
+    if any(n != 1 for n in rises["kernels"].values()) or any(rises["plain"].values()):
+        raise AssertionError(f"launches per forward+backward: kernels "
+                             f"{rises['kernels']} (want 1 each), plain {rises['plain']}")
+    kernels, plain, exact = grads["kernels"], grads["plain"], grads["float64"]
+    rows, failures = [], []
+    for name in plain:
+        scale = plain[GRAD_SCALE_OF.get(name, name)].abs().max().item()
+        diff = (kernels[name] - plain[name]).abs().max().item()
+        f32_err = (plain[name] - exact[name]).abs().max().item()
+        rows.append((diff / scale, diff / max(f32_err, 1e-300),
+                     f32_err / exact[GRAD_SCALE_OF.get(name, name)].abs().max().item(),
+                     name))
+        if not diff <= max(1e-3 * scale, f32_err):
+            failures.append(f"{name}: {diff:.3e} > 1e-3 x {scale:.3e} and > the "
+                            f"float32 error {f32_err:.3e}")
+    by_ratio = sorted(rows)
+    by_f32 = sorted(rows, key=lambda r: r[1])
+    over = [r for r in rows if r[0] > 1e-3]
+    log(f"train grads: {len(rows)} parameter tensors; kernels vs plain max|diff| / "
+        f"max|g|: largest {by_ratio[-1][0]:.3e} ({by_ratio[-1][3]}), median "
+        f"{by_ratio[len(rows) // 2][0]:.3e}, {len(over)} above 1e-3; the float32 "
+        f"plain path vs float64, max|diff| / max|g|: median "
+        f"{statistics.median(r[2] for r in rows):.3e}, largest {max(r[2] for r in rows):.3e}; "
+        f"kernels vs plain over the float32 error, largest {by_f32[-1][1]:.3e} "
+        f"({by_f32[-1][3]})")
+    pam = {n: kernels[f"head.pam.{n}"].abs().max().item()
+           for n in ("query.weight", "key.weight", "value.weight", "query.bias",
+                     "key.bias", "value.bias")}
+    log("train grads: PAM max|g| with kernels " + ", ".join(
+        f"{n} {v:.3e}" for n, v in pam.items()) + " (the key bias is held to the "
+        "key weight's scale: its gradient is zero in exact arithmetic)")
+    if failures:
+        raise AssertionError("gradients, kernels vs plain forms: " + "; ".join(failures))
+    if not all(pam[n] > 0 for n in ("query.weight", "key.weight", "value.weight")):
+        raise AssertionError(f"a PAM projection gets no gradient through the kernels: {pam}")
+
+
+def check_function_grads(torch, ca) -> None:
+    """The kernels' autograd functions alone, at DANet-R101's attention shapes
+    (B = 2, N = 4096, Ck = 64, C = Cv = 512): the gradients of q, k, v and x
+    for a random upstream gradient against autograd through the plain forms
+    (full softmax), each within 1e-3 x max |g|."""
+    from distributedpytorch_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    cases = (("position_attention", ca.flash_position_attention, att.position_attention,
+              (randn(2, 4096, 64, scale=0.5), randn(2, 4096, 64, scale=0.5),
+               randn(2, 4096, 512))),
+             ("channel_attention", ca.flash_channel_attention, att.channel_attention,
+              (randn(2, 4096, 512, scale=0.05),)))
+    for name, kernel, plain, inputs in cases:
+        upstream = randn(2, 4096, 512)
+        got, want = ([x.detach().requires_grad_() for x in inputs] for _ in range(2))
+        got = torch.autograd.grad(kernel(*got), got, upstream)
+        want = torch.autograd.grad(plain(*want), want, upstream)
+        ratios = [((g - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(got, want)]
+        log(f"train grads: {name} alone, gradient of each input through the kernel "
+            f"vs the plain form, max|diff| / max|g| "
+            + ", ".join(f"{r:.3e}" for r in ratios) + " (limit 1e-3)")
+        if not all(r <= 1e-3 for r in ratios):
+            raise AssertionError(f"{name}: input gradients {ratios} above 1e-3")
+
+
+def _device_events(prof):
+    """The profiler's device kernels and copies (no annotation ranges)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name not in cpu_names
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _op_device_ms(prof, names) -> float:
+    """Device ms of the kernels launched inside the host ops ``names``."""
+    from torch.autograd import DeviceType
+
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CPU and e.name in names) / 1e3
+
+
+def phase_train_step(torch, ca, dataset, batch_size: int = 16, rounds: int = 5) -> None:
+    """6b: the default train step with the kernels and with the plain forms."""
+    from distributedpytorch_tpu_torch.data import pipeline
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.parallel.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+
+    loader = pipeline.DataLoader(Cycled(dataset, 3 * batch_size), batch_size,
+                                 shuffle=True, drop_last=True, seed=0)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    t0 = time.perf_counter()
+    for i in range(batch_size):
+        dataset.__getitem__(i % len(dataset), rng=pipeline.sample_rng(0, 1, i))
+    sample_ms = (time.perf_counter() - t0) * 1e3 / batch_size
+    log(f"train data: default train stack at 512^2, {loader_ms:.1f} ms per batch of "
+        f"{batch_size} through the DataLoader ({loader.num_workers} threads), "
+        f"{sample_ms:.1f} ms per sample in one thread")
+
+    cfg = OptimConfig()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("danet")
+    optimizer, schedule = make_optimizer(cfg, model, total_steps=100)
+    state = create_train_state(model, optimizer, schedule, 0, torch.device("cuda"))
+    step = make_train_step()
+    batch = batches[0]
+    paths = {"kernels": "auto", "plain": "xla"}
+    peak_gb = {}
+    for label, impl in paths.items():
+        model.set_attention_impl(impl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = step(state, batch).item()
+        peak_gb[label] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"train step: first step with {label} {time.perf_counter() - t0:.3f} s, "
+            f"loss {first:.6f}, peak memory {peak_gb[label]:.2f} GiB")
+        step(state, batch)
+    times = {label: [] for label in paths}
+    losses = []
+    before = dict(ca.launches)
+    for _ in range(rounds):
+        for label, impl in paths.items():
+            model.set_attention_impl(impl)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(state, batch))
+            end.record()
+            end.synchronize()
+            times[label].append(start.elapsed_time(end))
+    rise = {k: ca.launches[k] - before[k] for k in before}
+    if any(n != rounds for n in rise.values()):
+        raise AssertionError(f"{rounds} kernel-path steps launched {rise}: want one "
+                             f"forward launch per kernel per step")
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError(f"non-finite train losses: {torch.stack(losses).tolist()}")
+    ms = {label: statistics.median(t) for label, t in times.items()}
+    for label in paths:
+        log(f"train step: B={batch_size} 512^2 with {label} {ms[label]:.2f} ms median "
+            f"of {rounds} (all {', '.join(f'{t:.2f}' for t in times[label])}), "
+            f"{batch_size / ms[label] * 1e3:.2f} images/s, peak memory "
+            f"{peak_gb[label]:.2f} GiB")
+
+    model.set_attention_impl("auto")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kernels = _device_events(prof)
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    attention = sum(e.device_time_total for e in kernels
+                    if any(k in e.name for k in ATTENTION_KERNELS)) / 1e3
+    parts = {
+        "convolutions, forward": _op_device_ms(prof, CONV_FORWARD),
+        "convolutions, backward": _op_device_ms(prof, CONV_BACKWARD),
+        "batch norm, forward and backward": _op_device_ms(prof, BATCH_NORM),
+        "attention kernels, forward": attention,
+        "plain-form recompute, backward": _op_device_ms(prof, (ca.RECOMPUTE_RANGE,)),
+        "optimizer step": sum(e.device_time_total for e in prof.events()
+                              if e.name.startswith("Optimizer.step")
+                              and e.device_type != torch.autograd.DeviceType.CUDA) / 1e3,
+        "host-to-device copies": sum(e.device_time_total for e in kernels
+                                     if e.name.startswith("Memcpy HtoD")) / 1e3,
+    }
+    idle = 1.0 - busy / ms["kernels"]
+    log(f"train profile: one B={batch_size} step with kernels, device busy "
+        f"{busy:.2f} ms over {len(kernels)} kernels and copies; idle share "
+        f"{idle:.4f} of the {ms['kernels']:.2f} ms median step")
+    for what, t in parts.items():
+        log(f"train profile:   {t:9.2f} ms  {what}")
+    log(f"train profile:   {busy - sum(parts.values()):9.2f} ms  everything else")
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.device_time_total / 1e3)
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]:
+        log(f"train profile:   top {sum(ts):9.2f} ms x{len(ts):<4d} {name[:90]}")
+
+
+def _read_jsonl(path: Path) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_train_fit(torch, ca, Predictor) -> dict:
+    """6c: the entry point end to end, then its run served."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        param_digest,
+    )
+    from distributedpytorch_tpu_torch.train.config import from_json
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", "--fake-data",
+               "data.train_batch=4", "data.area_thres=0", "epochs=2",
+               f"work_dir={work}", "checkpoint.digest=true"]
+        log(f"train fit: {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        fit_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the fit exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        (run,) = work.glob("run_*")
+        with open(run / "fit_summary.json") as f:
+            summary = json.load(f)
+        records = _read_jsonl(run / "metrics.jsonl")
+        epochs = [r for r in records if "train/step_losses" in r]
+        step_losses = [x for r in epochs for x in r["train/step_losses"]]
+        vals = [r for r in records if "val/jaccard" in r]
+        final = summary["final_step"]
+        if final < 4 or len(step_losses) != final or \
+                not all(x is not None and math.isfinite(x) for x in step_losses):
+            raise AssertionError(f"fit: {final} steps, losses {step_losses}")
+        if len(vals) != 2 or not all(0.0 <= r["val/jaccard"] <= 1.0 for r in vals):
+            raise AssertionError(f"fit validations: {vals}")
+        with open(run / "checkpoints" / "COMMITTED.json") as f:
+            ledger = json.load(f)
+        if final not in ledger["latest"]:
+            raise AssertionError(f"COMMITTED.json {ledger} does not name step {final}")
+        launches = summary["kernel_launches"]
+        want = final + sum(int(r["val/n_samples"]) for r in vals)
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"launches in the fit {launches}: want {want} each "
+                                 f"({final} train steps + the validation samples)")
+        log(f"train fit: {fit_s:.1f} s wall (process start, model build, data, "
+            f"{final} steps, 2 validations, checkpoints); losses "
+            f"{[round(x, 6) for x in step_losses]}; val jaccard "
+            f"{[round(r['val/jaccard'], 6) for r in vals]} over "
+            f"{[int(r['val/n_samples']) for r in vals]} samples; COMMITTED.json {ledger}; "
+            f"kernel launches {launches}")
+        for r in epochs:
+            n = len(r["train/step_losses"])
+            data_ms = r["train/data_wait_seconds"] / n * 1e3
+            log(f"train fit: epoch {int(r['train/epoch'])}: {n} steps of B=4, "
+                f"{r['train/epoch_seconds'] / n * 1e3:.1f} ms per step of the loop, "
+                f"of which {data_ms:.1f} ms waiting on the host data; "
+                f"{r['train/imgs_per_sec']:.2f} images/s")
+
+        pred = Predictor.from_run(str(run), step=final, device="cuda")
+        _, meta = CheckpointManager(str(run / "checkpoints")).load(final)
+        if param_digest(pred.model.state_dict()) != meta["param_digest"]:
+            raise AssertionError("the served weights are not the trained model's")
+        cfg = from_json(str(run / "config.json"))
+        model = build_model(cfg.model.name, backbone=cfg.model.backbone)
+        payload, _ = CheckpointManager(str(run / "checkpoints")).load(final)
+        model.load_state_dict(payload["model"], strict=True)
+        model.to("cuda").eval()
+        image, clicks = synthetic_image()
+        concat, _ = pred.prepare(image, clicks[0])
+        x = torch.from_numpy(concat[None]).to("cuda").permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            served = pred.model(x)
+            direct = model(x)
+        if not all(torch.equal(a, b) for a, b in zip(served, direct)):
+            raise AssertionError("served logits differ from the checkpoint's model")
+        mask = pred.predict(image, clicks[0])
+        if mask.shape != image.shape[:2] or not np.isfinite(mask).all():
+            raise AssertionError(f"bad mask from the trained run {mask.shape}")
+        log(f"train fit: Predictor.from_run(step {final}) serves the weights the "
+            f"trainer hashed at save (sha256 {meta['param_digest'][:16]}...), its "
+            f"three logits bitwise equal to the checkpoint's model; a click gives a "
+            f"finite {mask.shape} mask")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_train(torch, ca, Predictor) -> dict:
+    """Phase 6 (a, b, c); returns the fit's launch counts."""
+    import gc
+
+    from distributedpytorch_tpu_torch.data import pipeline
+
+    t0 = time.perf_counter()
+    dataset = train_dataset()
+    batch = pipeline.collate([dataset.__getitem__(i, rng=pipeline.sample_rng(0, 0, i))
+                              for i in range(2)])
+    phase_train_grads(torch, ca, Predictor, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: (a) done at {time.perf_counter() - t0:.1f} s")
+    phase_train_step(torch, ca, dataset)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: (b) done at {time.perf_counter() - t0:.1f} s")
+    launches = phase_train_fit(torch, ca, Predictor)
+    log(f"train: (c) done; phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default="kernels,serve,train",
+                        help="comma list of kernels, serve, train (default: all)")
+    phases = set(parser.parse_args(argv).phases.split(","))
+    if not phases <= {"kernels", "serve", "train"}:
+        parser.error(f"unknown phases {sorted(phases)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -649,19 +1072,30 @@ def main() -> int:
     log(f"build: attention.cu in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds})")
 
-    records = phase_kernels(torch, ca, att, peaks)
+    if "kernels" in phases:
+        records = phase_kernels(torch, ca, att, peaks)
 
-    ca.reset_launches()
-    pred, image, clicks = phase_predictor(torch, Predictor, ca)
-    phase_service(pred, image, clicks, InferenceService)
-    phase_http(pred, image, clicks, InferenceService, make_server, ServeClient)
-    launches = dict(ca.launches)
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel never ran on the main path: {launches}")
+    paths = {}
+    if "serve" in phases:
+        ca.reset_launches()
+        pred, image, clicks = phase_predictor(torch, Predictor, ca)
+        phase_service(pred, image, clicks, InferenceService)
+        phase_http(pred, image, clicks, InferenceService, make_server, ServeClient)
+        paths["serve"] = dict(ca.launches)
+        del pred
+    if "train" in phases:
+        paths["train"] = phase_train(torch, ca, Predictor)
+    for path, launches in paths.items():
+        if not all(launches[k] > 0 for k in TPU_KERNELS):
+            raise AssertionError(f"a kernel never ran on the {path} path: {launches}")
+    if phases != {"kernels", "serve", "train"}:
+        log(f"partial run of phases {sorted(phases)}: no result")
+        return 0
 
     log(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE,
-         "replaces": TPU_KERNELS[k], "launches": launches[k], **r}
+        {"name": k, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNELS[k],
+         "launches": sum(p[k] for p in paths.values()),
+         "launches_by_path": {path: p[k] for path, p in paths.items()}, **r}
         for k, r in records.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

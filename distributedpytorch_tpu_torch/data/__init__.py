@@ -1,1 +1,3 @@
-"""Guidance synthesis of the port (numpy, click-derived families)."""
+"""Host data layer of the port (numpy): the VOC instance dataset and its
+in-memory fake, the default train/val transform stacks, guidance synthesis
+and the threaded loader."""

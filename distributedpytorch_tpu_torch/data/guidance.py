@@ -1,10 +1,11 @@
-"""Click-derived guidance channels: n-ellipse, gaussian point heatmaps and
-their combination, in crop coordinates.
+"""Guidance channels: extreme points of a mask, n-ellipse, gaussian point
+heatmaps and their combination, in crop coordinates.
 
-Copies of the click families of ``distributedpytorch_tpu/data/guidance.py``
-(its numpy paths; the native rasterizer is not carried over), kept here so
-the port never imports the JAX package.  The tests pin them to the
-originals.
+Copies of ``distributedpytorch_tpu/data/guidance.py``'s extreme points
+(consuming the same ``np.random.Generator`` draws in the same order) and
+click families (its numpy paths; the native rasterizer is not carried
+over), kept here so the port never imports the JAX package.  The tests pin
+them to the originals.
 """
 
 from __future__ import annotations
@@ -12,6 +13,43 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils.helpers import make_gt
+
+
+def _extreme_point_candidates(mask: np.ndarray, pert: int):
+    """For each side (left, top, right, bottom), the mask pixels within
+    ``pert`` px of that side's extreme coordinate."""
+    ys, xs = np.where(mask > 0.5)
+    out = []
+    for vals, other, extreme in ((xs, ys, xs.min()), (ys, xs, ys.min()),
+                                 (xs, ys, xs.max()), (ys, xs, ys.max())):
+        sel = np.abs(vals - extreme) <= pert
+        out.append((vals[sel], other[sel]))
+    return out
+
+
+def extreme_points(mask: np.ndarray, pert: int,
+                   rng: np.random.Generator | None = None) -> np.ndarray:
+    """Randomized 4 extreme points (x, y) of ``mask``: one candidate of each
+    side drawn uniformly from ``rng``."""
+    rng = rng or np.random.default_rng()
+    pts = []
+    for i, (vals, other) in enumerate(_extreme_point_candidates(mask, pert)):
+        k = int(rng.integers(0, len(vals)))
+        v, o = int(vals[k]), int(other[k])
+        pts.append((v, o) if i in (0, 2) else (o, v))
+    return np.asarray(pts, dtype=np.int64)
+
+
+def extreme_points_fixed(mask: np.ndarray, pert: int = 0) -> np.ndarray:
+    """Deterministic 4 extreme points (x, y): the median candidate of each
+    side."""
+    pts = []
+    for i, (vals, other) in enumerate(_extreme_point_candidates(mask, pert)):
+        k = len(vals) // 2
+        order = np.argsort(other)
+        v, o = int(vals[order[k]]), int(other[order[k]])
+        pts.append((v, o) if i in (0, 2) else (o, v))
+    return np.asarray(pts, dtype=np.int64)
 
 
 def _sum_of_distances(x_range, y_range, points) -> np.ndarray:

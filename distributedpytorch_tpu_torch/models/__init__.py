@@ -16,12 +16,14 @@ _BACKBONE_DEPTH = {"resnet18": 18, "resnet34": 34, "resnet50": 50,
 
 def build_model(name: str = "danet", nclass: int = 1,
                 backbone: str = "resnet101", output_stride: int | None = None,
-                attention_impl: str = "auto", in_channels: int = 4) -> DANet:
+                attention_impl: str = "auto", in_channels: int = 4,
+                dropout_rate: float = 0.1) -> DANet:
     """Construct a segmentation model by name (``danet`` only).
 
     ``attention_impl`` is the one knob for both attention branches:
     ``auto`` (CUDA kernels on a CUDA tensor, plain forms on the CPU),
-    ``xla`` (plain forms everywhere) or ``flash`` (kernels)."""
+    ``xla`` (plain forms everywhere) or ``flash`` (kernels).
+    ``dropout_rate`` is the head's train-mode dropout (flax's 0.1)."""
     if name != "danet":
         raise ValueError(f"model {name!r} is not ported (danet only)")
     if backbone not in _BACKBONE_DEPTH:
@@ -29,7 +31,7 @@ def build_model(name: str = "danet", nclass: int = 1,
                          f"({' | '.join(_BACKBONE_DEPTH)})")
     return DANet(nclass=nclass, backbone_depth=_BACKBONE_DEPTH[backbone],
                  output_stride=output_stride or 8, in_channels=in_channels,
-                 attention_impl=attention_impl)
+                 attention_impl=attention_impl, dropout_rate=dropout_rate)
 
 
 __all__ = ["DANet", "DANetHead", "ResNet", "build_model"]

@@ -11,7 +11,14 @@ half-pixel centres (``align_corners=False``, as ``jax.image.resize``).
 ``impl`` keeps the JAX knob names.  ``flash`` runs the hand-written CUDA
 kernels (``ops/cuda_attention.py``), ``einsum`` the plain PyTorch forms,
 and ``auto`` — the default — picks the kernels for a CUDA tensor and the
-plain forms on the CPU, whatever the dtype.
+plain forms on the CPU, whatever the dtype.  The kernels are autograd
+functions whose backward recomputes through the plain forms, so a train
+step differentiates through them.
+
+In train mode the head drops out (rate 0.1, before each classifier) with
+masks drawn from the ``generator`` passed to ``forward`` — the train
+state's, never the global RNG.  JAX's masks come from its own PRNG and
+cannot be reproduced bit for bit; parity runs use rate 0.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from torch import nn
 
 from ..ops import cuda_attention
 from ..ops.attention import channel_attention, position_attention
-from .resnet import ResNet, conv, norm
+from .resnet import ResNet, conv, flax_init_, norm
 
 #: build_model's one knob for both branches -> the branch impl
 ATTENTION_IMPLS = {"auto": "auto", "xla": "einsum", "flash": "flash"}
@@ -35,6 +42,16 @@ def _tokens(x: torch.Tensor) -> torch.Tensor:
 
 def _untokens(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], h, w)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale
+    the kept values by ``1 / (1 - rate)``; the identity in eval mode."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -102,7 +119,7 @@ class DANetHead(nn.Module):
             self.add_module(f"{branch}_out_bn", norm(inter))
         self.pam = PositionAttentionModule(inter, impl)
         self.cam = ChannelAttentionModule(impl)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.fused_cls = nn.Conv2d(inter, nclass, 1)
         self.pam_cls = nn.Conv2d(inter, nclass, 1)
         self.cam_cls = nn.Conv2d(inter, nclass, 1)
@@ -111,31 +128,39 @@ class DANetHead(nn.Module):
         conv_, bn = getattr(self, f"{name}_conv"), getattr(self, f"{name}_bn")
         return F.relu(bn(conv_(x)))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, ...]:
         pa = self._conv_bn_relu(x, "pam_in")
         pa = self._conv_bn_relu(self.pam(pa), "pam_out")
         ca = self._conv_bn_relu(x, "cam_in")
         ca = self._conv_bn_relu(self.cam(ca), "cam_out")
         fused = pa + ca
-        return (self.fused_cls(self.dropout(fused)),
-                self.pam_cls(self.dropout(pa)),
-                self.cam_cls(self.dropout(ca)))
+
+        def drop(y):
+            return dropout(y, self.dropout_rate, self.training, generator)
+
+        return (self.fused_cls(drop(fused)), self.pam_cls(drop(pa)),
+                self.cam_cls(drop(ca)))
 
 
 class DANet(nn.Module):
     """Backbone + dual-attention head.  ``forward(x)`` with ``x`` the
     (B, C, H, W) RGB + guidance crop -> ``(fused, pam, cam)`` logits, each
-    (B, nclass, H, W)."""
+    (B, nclass, H, W); in train mode ``generator`` draws the dropout
+    masks."""
 
     def __init__(self, nclass: int = 1, backbone_depth: int = 101,
                  output_stride: int = 8, in_channels: int = 4,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", dropout_rate: float = 0.1):
         super().__init__()
         self.nclass = nclass
         self.backbone = ResNet(depth=backbone_depth,
                                output_stride=output_stride,
                                in_channels=in_channels)
-        self.head = DANetHead(self.backbone.out_channels, nclass)
+        self.head = DANetHead(self.backbone.out_channels, nclass,
+                              dropout_rate=dropout_rate)
+        flax_init_(self)
         self.set_attention_impl(attention_impl)
 
     def set_attention_impl(self, attention_impl: str) -> None:
@@ -149,8 +174,10 @@ class DANet(nn.Module):
         self.head.pam.impl = impl
         self.head.cam.impl = impl
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, ...]:
         size = x.shape[-2:]
-        outs = self.head(self.backbone(x)["c4"])
+        outs = self.head(self.backbone(x)["c4"], generator)
         return tuple(F.interpolate(o, size=size, mode="bilinear",
                                    align_corners=False) for o in outs)

@@ -63,9 +63,60 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
                       bias=bias)
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``BatchNorm2d`` that keeps its running statistics the flax way.
+
+    In train mode both normalise with the biased batch variance, but torch
+    moves ``running_var`` towards the *unbiased* one while flax moves it
+    towards the biased one: ``ra = 0.9 ra + 0.1 var``.  The forward is
+    torch's (cuDNN on the card); the running variance is then corrected to
+    flax's update, ``(n - 1) / n`` times torch's step.  The keys stay
+    ``running_mean``/``running_var``, so JAX trees load strictly."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        # torch updates copies (its backward may keep the buffers it was
+        # given), which are then written back with flax's variance step
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - self.momentum)
+            # torch added momentum * var * n / (n - 1)
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+            self.running_mean.copy_(mean)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def norm(channels: int) -> nn.BatchNorm2d:
     """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` as a torch layer."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return FlaxBatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def flax_init_(model: nn.Module) -> nn.Module:
+    """Re-initialise ``model`` as flax initialises the JAX modules: conv
+    kernels lecun-normal (a normal of variance 1 / fan_in truncated at two
+    standard deviations), conv biases 0, BatchNorm scale 1 and bias 0 —
+    but 0 for the last BatchNorm of each residual block, so every block
+    starts as its shortcut.  Draws from torch's global generator."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, nn.Conv2d):
+                # 0.8796 is the std of a unit normal truncated at +-2
+                std = (1.0 / module.weight[0].numel()) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.BatchNorm2d):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+        for module in model.modules():
+            if isinstance(module, (BasicBlock, BottleneckBlock)):
+                module.last_norm.weight.zero_()
+    return model
 
 
 def max_pool_same(x: torch.Tensor, kernel: int = 3, stride: int = 2) -> torch.Tensor:
@@ -93,6 +144,10 @@ class BasicBlock(nn.Module):
             self.Conv_2 = conv(cin, filters, 1, stride)
             self.BatchNorm_2 = norm(filters)
 
+    @property
+    def last_norm(self) -> nn.BatchNorm2d:
+        return self.BatchNorm_1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
         y = self.BatchNorm_1(self.Conv_1(y))
@@ -119,6 +174,10 @@ class BottleneckBlock(nn.Module):
         if self.project:
             self.Conv_3 = conv(cin, out, 1, stride)
             self.BatchNorm_3 = norm(out)
+
+    @property
+    def last_norm(self) -> nn.BatchNorm2d:
+        return self.BatchNorm_2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))

@@ -1,4 +1,5 @@
-"""Attention ops of the port: plain PyTorch forms and the CUDA kernels.
+"""Ops of the port: the attention forms (plain PyTorch and the CUDA
+kernels, differentiable), the losses and the metrics.
 
 Nothing here builds or loads a kernel at import time.
 """

@@ -8,12 +8,18 @@ wrappers run for a tensor on the CPU.
 Numerics follow the JAX functions: position-attention energies are
 unscaled (DANet), channel attention softmaxes ``rowmax - E``, and every
 product accumulates in float32 whatever the input dtype (JAX's
-``preferred_element_type=float32``).
+``preferred_element_type=float32``) — in float64 for float64 inputs, so
+that gradients can be checked numerically.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in its accumulation dtype: float32, or float64 if wider."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def position_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -22,11 +28,11 @@ def position_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> (B, N, Cv) in ``v.dtype``.  Scores are float32 and unscaled unless
     ``scale`` is given; the attention weights are cast to ``v.dtype`` before
     the value product, as in the JAX form."""
-    scores = torch.matmul(q.float(), k.float().transpose(1, 2))
+    scores = torch.matmul(_acc(q), _acc(k).transpose(1, 2))
     if scale is not None:
         scores = scores * scale
     attn = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(attn.float(), v.float()).to(v.dtype)
+    return torch.matmul(_acc(attn), _acc(v)).to(v.dtype)
 
 
 def blocked_position_attention(q: torch.Tensor, k: torch.Tensor,
@@ -37,13 +43,13 @@ def blocked_position_attention(q: torch.Tensor, k: torch.Tensor,
     never read (the JAX form pads and masks them to -inf)."""
     b, n, _ = q.shape
     cv = v.shape[-1]
-    qf = q.float() if scale is None else q.float() * scale
-    m = torch.full((b, n), -torch.inf, dtype=torch.float32, device=q.device)
-    s = torch.zeros((b, n), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, n, cv), dtype=torch.float32, device=q.device)
+    qf = _acc(q) if scale is None else _acc(q) * scale
+    m = torch.full((b, n), -torch.inf, dtype=qf.dtype, device=q.device)
+    s = torch.zeros((b, n), dtype=qf.dtype, device=q.device)
+    acc = torch.zeros((b, n, cv), dtype=qf.dtype, device=q.device)
     for k0 in range(0, n, block_size):
-        kb = k[:, k0:k0 + block_size].float()
-        vb = v[:, k0:k0 + block_size].float()
+        kb = _acc(k[:, k0:k0 + block_size])
+        vb = _acc(v[:, k0:k0 + block_size])
         scores = torch.matmul(qf, kb.transpose(1, 2))
         m_new = torch.maximum(m, scores.amax(dim=-1))
         correction = torch.exp(m - m_new)
@@ -57,7 +63,7 @@ def blocked_position_attention(q: torch.Tensor, k: torch.Tensor,
 def channel_energy(x: torch.Tensor) -> torch.Tensor:
     """(B, N, C) -> the (B, C, C) float32 channel-attention map: the Gram
     matrix XᵀX, ``rowmax - E``, then a softmax over each row."""
-    xf = x.float()
+    xf = _acc(x)
     energy = torch.matmul(xf.transpose(1, 2), xf)
     energy = energy.amax(dim=-1, keepdim=True) - energy
     return torch.softmax(energy, dim=-1)
@@ -66,7 +72,7 @@ def channel_energy(x: torch.Tensor) -> torch.Tensor:
 def channel_apply(attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Apply a (B, C, C) map back over channels: ``out[n, i] = sum_j
     attn[i, j] * x[n, j]`` in float32, cast to ``x.dtype``."""
-    return torch.matmul(x.float(), attn.transpose(1, 2)).to(x.dtype)
+    return torch.matmul(_acc(x), attn.transpose(1, 2)).to(x.dtype)
 
 
 def channel_attention(x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,15 @@ its launches in :data:`launches` (one per call that reached the kernel), so
 a run can show that its main path went through the kernels.  Inputs are
 float32 or bfloat16 and must be contiguous; outputs are allocated here with
 ``torch.empty`` on the caller's current stream, and nothing synchronises.
+
+The two attention functions are ``torch.autograd.Function``s, the
+counterparts of the JAX ``custom_vjp``s: the forward is the kernels (the
+plain form on the CPU) and saves its inputs; the backward recomputes
+through the plain forms — :func:`.attention.blocked_position_attention`
+with the same key block, :func:`.attention.channel_attention` — and
+returns their vector-Jacobian products.  There is no backward kernel, as
+there is no backward Pallas kernel.  An output therefore carries a
+``grad_fn`` whenever an input requires grad.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from . import _build
 from .attention import (
     blocked_position_attention,
     channel_apply,
+    channel_attention,
     channel_energy,
 )
 
@@ -110,6 +120,53 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+#: the profiler range around every backward recompute
+RECOMPUTE_RANGE = "attention_backward_recompute"
+
+
+def _vjp(fn, inputs: tuple[torch.Tensor, ...], grad: torch.Tensor,
+         needs: tuple[bool, ...]) -> tuple[torch.Tensor | None, ...]:
+    """The gradients of ``fn(*inputs)`` against ``grad`` for the inputs
+    that ``needs`` marks (None for the others), by recomputing ``fn``
+    inside the profiler range :data:`RECOMPUTE_RANGE`."""
+    with torch.enable_grad(), torch.profiler.record_function(RECOMPUTE_RANGE):
+        leaves = [x.detach().requires_grad_(need)
+                  for x, need in zip(inputs, needs)]
+        wanted = [x for x in leaves if x.requires_grad]
+        grads = iter(torch.autograd.grad(fn(*leaves), wanted, grad)
+                     if wanted else ())
+    return tuple(next(grads) if need else None for need in needs)
+
+
+class _PositionAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, block_k, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.block_k, ctx.scale = block_k, scale
+        return _pam_forward(q, k, v, block_k, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(q, k, v):
+            return blocked_position_attention(q, k, v, block_size=ctx.block_k,
+                                              scale=ctx.scale)
+
+        return _vjp(plain, ctx.saved_tensors, grad,
+                    ctx.needs_input_grad[:3]) + (None, None)
+
+
+class _ChannelAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return cam_apply(cam_energy(x), x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _vjp(channel_attention, ctx.saved_tensors, grad,
+                    ctx.needs_input_grad)
+
+
 def flash_position_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, block_q: int = 256,
                              block_k: int = 256,
@@ -118,8 +175,16 @@ def flash_position_attention(q: torch.Tensor, k: torch.Tensor,
 
     Energies are unscaled unless ``scale`` is given; the output takes
     ``v.dtype``.  ``block_q``/``block_k`` are the TPU kernel's VMEM tiling:
-    the Hopper kernel has its own fixed tiles, and on the CPU ``block_k``
-    sets the key block of the plain online-softmax form."""
+    the Hopper kernel has its own fixed tiles, and ``block_k`` sets the key
+    block of the plain online-softmax form that the CPU forward and every
+    backward run."""
+    del block_q
+    return _PositionAttention.apply(q, k, v, block_k, scale)
+
+
+def _pam_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 block_k: int, scale: float | None) -> torch.Tensor:
+    """The position kernel's launch (the plain form for CPU tensors)."""
     if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 \
             or v.shape[:2] != q.shape[:2]:
         raise ValueError(f"expected q, k (B, N, Ck) and v (B, N, Cv); got "
@@ -244,7 +309,7 @@ def cam_apply(attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def flash_channel_attention(x: torch.Tensor,
                             block_n: int = 256) -> torch.Tensor:
     """Channel attention, (B, N, C) -> (B, N, C): :func:`cam_energy` then
-    :func:`cam_apply`.  ``block_n`` is the TPU kernel's row tiling and has
-    no effect here."""
+    :func:`cam_apply`, differentiable through the plain form.  ``block_n``
+    is the TPU kernel's row tiling and has no effect here."""
     del block_n
-    return cam_apply(cam_energy(x), x)
+    return _ChannelAttention.apply(x)

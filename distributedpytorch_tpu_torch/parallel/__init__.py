@@ -1,0 +1,1 @@
+"""The train and eval steps of the port (one device)."""

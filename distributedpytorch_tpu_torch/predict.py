@@ -10,11 +10,15 @@ relax border shaved.
 
 The forward runs on CUDA unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU request the constructor raises rather than
-quietly running on the CPU.
+quietly running on the CPU.  A ``Predictor`` applies the float32 precision
+policy (``train/precision.py``: no TF32 in matrix products or cuDNN
+convolutions).  ``Predictor.from_run`` serves the weights of a run the
+port's ``Trainer`` wrote.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Sequence
 
 import numpy as np
@@ -22,6 +26,7 @@ import torch
 
 from . import imaging
 from .data import guidance as guidance_lib
+from .train.precision import apply_policy
 from .utils.helpers import crop2fullmask, crop_from_bbox, get_bbox
 
 
@@ -118,6 +123,7 @@ class Predictor:
                              "clicks alone "
                              f"({' | '.join(guidance_lib.POINT_GUIDANCE)})")
         self.device = resolve_device(device)
+        apply_policy("float32")
         self.dtype = dtype
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self.resolution = tuple(resolution)
@@ -142,6 +148,41 @@ class Predictor:
         _randomize_(model, torch.Generator().manual_seed(seed))
         return cls(model, resolution=(size, size), device=device, dtype=dtype,
                    **kwargs)
+
+    @classmethod
+    def from_run(cls, run_dir: str, step: int | None = None,
+                 device: str | torch.device | None = None,
+                 **kwargs) -> "Predictor":
+        """Serve a training run of the port's ``Trainer``: its
+        ``config.json`` and a committed checkpoint — ``step`` from the
+        latest slot, or by default the best checkpoint (the latest when
+        there is no best yet), as the JAX package's ``from_run`` does.
+        Crop size, relax, zero padding, alpha and guidance come from the
+        run's config unless given."""
+        from .models import build_model
+        from .train.checkpoint import CheckpointManager
+        from .train.config import from_json
+
+        cfg = from_json(os.path.join(run_dir, "config.json"))
+        if cfg.task != "instance":
+            raise ValueError(f"Predictor is the click-guided instance path; "
+                             f"this run was trained with task={cfg.task!r}")
+        mgr = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+        best = step is None and bool(mgr.committed_steps(best=True))
+        payload, _ = mgr.load(step, best=best)
+        model = build_model(cfg.model.name, nclass=cfg.model.nclass,
+                            backbone=cfg.model.backbone,
+                            output_stride=cfg.model.output_stride,
+                            attention_impl=cfg.model.attention_impl,
+                            in_channels=cfg.model.in_channels)
+        model.load_state_dict(payload["model"], strict=True)
+        kwargs.setdefault("resolution", tuple(cfg.data.crop_size))
+        kwargs.setdefault("relax", cfg.data.relax)
+        kwargs.setdefault("zero_pad", cfg.data.zero_pad)
+        kwargs.setdefault("alpha", cfg.data.guidance_alpha)
+        kwargs.setdefault("guidance", cfg.data.guidance)
+        kwargs.setdefault("in_channels", cfg.model.in_channels)
+        return cls(model, device=device, **kwargs)
 
     def prepare(self, image: np.ndarray,
                 points: Any) -> tuple[np.ndarray, tuple[int, int, int, int]]:

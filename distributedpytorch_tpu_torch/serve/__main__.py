@@ -12,8 +12,10 @@ each request thread submits into the shared queue and blocks on its future.
     GET  /stats     -> the metrics snapshot
 
 The model is DANet with random weights from a seed (``--fresh-init
-SIZE:BACKBONE:SEED``) or a saved ``state_dict`` of the port's DANet
-(``--state-dict PTH``).  It runs on CUDA unless ``--device cpu``.
+SIZE:BACKBONE:SEED``), a saved ``state_dict`` of the port's DANet
+(``--state-dict PTH``), or a training run of the port (``--run-dir RUN``,
+its best checkpoint, or ``--step N``).  It runs on CUDA unless ``--device
+cpu``, in float32 (no TF32).
 SIGTERM/SIGINT stop the server, fail the queued requests and exit 0.
 """
 
@@ -119,12 +121,16 @@ def make_server(service: InferenceService, host: str = "127.0.0.1",
 
 
 def build_predictor(args):
-    """The served Predictor from ``--fresh-init`` or ``--state-dict``."""
+    """The served Predictor from ``--fresh-init``, ``--state-dict`` or
+    ``--run-dir``."""
     import torch
 
     from ..models import build_model
     from ..predict import Predictor
 
+    if args.run_dir:
+        return Predictor.from_run(args.run_dir, step=args.step,
+                                  device=args.device)
     if args.fresh_init:
         parts = args.fresh_init.split(":")
         if len(parts) != 3:
@@ -150,6 +156,12 @@ def main(argv: list[str] | None = None) -> int:
                           "at SIZE² (e.g. 512:resnet101:0)")
     src.add_argument("--state-dict", metavar="PTH",
                      help="a torch state_dict of the port's DANet")
+    src.add_argument("--run-dir", metavar="RUN",
+                     help="a training run of the port (config.json + "
+                          "checkpoints/)")
+    parser.add_argument("--step", type=int, default=None,
+                        help="--run-dir: this committed step instead of the "
+                             "best checkpoint")
     parser.add_argument("--backbone", default="resnet101",
                         help="backbone of --state-dict's DANet")
     parser.add_argument("--resolution", type=int, default=512,

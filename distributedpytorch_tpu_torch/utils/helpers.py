@@ -2,9 +2,10 @@
 paste-back and gaussian point heatmaps.
 
 Copies of ``distributedpytorch_tpu/utils/helpers.py`` (``get_bbox``,
-``crop_from_bbox``, ``crop2fullmask``, ``make_gaussian``, ``make_gt``),
-kept here so the port never imports the JAX package; the tests pin them to
-the originals.  A bbox is ``(x_min, y_min, x_max, y_max)`` with inclusive
+``crop_from_bbox``, ``crop_from_mask``, ``resize_interp_flag``,
+``fixed_resize``, ``crop2fullmask``, ``tens2image``, ``make_gaussian``,
+``make_gt``), kept here so the port never imports the JAX package; the
+tests pin them to the originals.  A bbox is ``(x_min, y_min, x_max, y_max)`` with inclusive
 max coordinates, x = column, y = row; images are (H, W[, C]) numpy arrays.
 """
 
@@ -70,6 +71,66 @@ def crop_from_bbox(img: np.ndarray, bbox, zero_pad: bool = False) -> np.ndarray:
         bbox_valid[1]:bbox_valid[3] + 1, bbox_valid[0]:bbox_valid[2] + 1, ...
     ]
     return crop
+
+
+def crop_from_mask(img: np.ndarray, mask: np.ndarray, relax: int = 0,
+                   zero_pad: bool = False) -> np.ndarray:
+    """Crop ``img`` to the bbox of ``mask`` grown by ``relax`` pixels (the
+    mask nearest-resized to the image first if their sizes differ)."""
+    if mask.shape[:2] != img.shape[:2]:
+        mask = imaging.resize(mask, (img.shape[0], img.shape[1]),
+                              imaging.NEAREST)
+    bbox = get_bbox(mask, pad=relax, zero_pad=zero_pad)
+    if bbox is None:
+        return np.zeros(img.shape, dtype=img.dtype)
+    return crop_from_bbox(img, bbox, zero_pad=zero_pad)
+
+
+def resize_interp_flag(arr: np.ndarray) -> int:
+    """Nearest for {0, 1}- or {0, 255}-valued arrays (masks), cubic
+    otherwise."""
+    if ((arr == 0) | (arr == 1)).all() or ((arr == 0) | (arr == 255)).all():
+        return imaging.NEAREST
+    return imaging.CUBIC
+
+
+def fixed_resize(sample: np.ndarray, resolution,
+                 flagval: int | None = None) -> np.ndarray:
+    """Resize to ``resolution`` (an int scales the shortest side to it, a
+    tuple is (H, W)); the interpolation defaults to
+    :func:`resize_interp_flag`.  Arrays of other than 1 or 3 channels are
+    resized channel by channel into float32."""
+    if flagval is None:
+        flagval = resize_interp_flag(sample)
+    if isinstance(resolution, int):
+        tmp = [resolution, resolution]
+        tmp[int(np.argmax(sample.shape[:2]))] = int(
+            round(resolution * np.max(sample.shape[:2])
+                  / np.min(sample.shape[:2])))
+        resolution = tuple(tmp)
+    if sample.ndim == 2 or (sample.ndim == 3 and sample.shape[2] == 3):
+        return imaging.resize(sample, tuple(resolution), flagval)
+    out = np.zeros(tuple(resolution) + (sample.shape[2],), dtype=np.float32)
+    for ii in range(sample.shape[2]):
+        out[:, :, ii] = imaging.resize(sample[:, :, ii], tuple(resolution),
+                                       flagval)
+    return out
+
+
+def tens2image(tens) -> np.ndarray:
+    """(H, W), (H, W, C), (C, H, W) or a batch of one -> an HW(C) numpy
+    image: the batch axis squeezed, a small leading channel axis moved
+    last, a single channel dropped."""
+    arr = np.asarray(tens)
+    if arr.ndim == 4:
+        if arr.shape[0] != 1:
+            raise ValueError(f"tens2image expects batch size 1, got {arr.shape}")
+        arr = arr[0]
+    if arr.ndim == 3 and arr.shape[0] in (1, 3, 4) and arr.shape[0] < arr.shape[1]:
+        arr = np.moveaxis(arr, 0, -1)
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        arr = arr[:, :, 0]
+    return arr
 
 
 def crop2fullmask(

@@ -1,4 +1,4 @@
-"""Load the JAX package's parameter trees into the port's modules.
+"""Carry parameter trees between the JAX package and the port's modules.
 
 The trees are nested dicts of numpy arrays (``variables["params"]`` and
 ``variables["batch_stats"]`` of a flax model, e.g. after
@@ -19,7 +19,9 @@ flax leaf           port key                     conversion
 
 Loading is ``strict=True``: a leaf with no key, or a key with no leaf,
 raises.  (BatchNorm's ``num_batches_tracked`` counter has no flax
-counterpart and keeps the module's value.)
+counterpart and keeps the module's value.)  :func:`state_dict_to_jax` is
+the inverse: a port ``state_dict`` back to a (params, batch_stats) pair of
+nested numpy dicts, bit for bit.
 """
 
 from __future__ import annotations
@@ -74,3 +76,38 @@ def load_jax_params(model: nn.Module, params: Mapping[str, Any],
             state[key] = value
     model.load_state_dict(state, strict=True)
     return model
+
+
+def state_dict_to_jax(state: Mapping[str, torch.Tensor]
+                      ) -> tuple[dict[str, Any], dict[str, Any]]:
+    """The flax ``(params, batch_stats)`` trees of a port ``state_dict``:
+    nested dicts of float32 numpy arrays, conv kernels back to HWIO.  A
+    BatchNorm is a module with ``running_mean``; its ``weight`` becomes
+    ``scale``."""
+    norms = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
+    params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().cpu().numpy()
+        is_norm = ".".join(path) in norms
+        if leaf in ("running_mean", "running_var"):
+            tree, name = stats, leaf.removeprefix("running_")
+        elif leaf == "weight":
+            tree, name = params, "scale" if is_norm else "kernel"
+            if not is_norm:
+                if arr.ndim != 4:
+                    raise ValueError(f"{key}: expected an OIHW conv weight, "
+                                     f"got shape {arr.shape}")
+                arr = arr.transpose(2, 3, 1, 0)
+        elif leaf in ("bias", "gamma"):
+            tree, name = params, leaf
+        else:
+            raise KeyError(f"no JAX counterpart for port key {key}")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    return params, stats
