@@ -23,8 +23,10 @@ it), printing no result.  The phases, each raising on failure:
              call at B = 1,
              each against its bound: for float32 work the least time of a
              float32-accurate route, 3xTF32 on the tensor cores (a third of
-             the TF32 rate) or the bytes at the memory rate; the position
-             kernel on bfloat16 inputs against the bf16 rate and SDPA.
+             the TF32 rate) or the bytes at the memory rate; all three on
+             bfloat16 inputs (as bf16 training and serving give them)
+             against the bf16 rate or the bytes, their plain forms and a
+             bf16 library call (SDPA; ``bmm`` + ``softmax``; ``bmm``).
 3. predictor — DANet-R101 at 512² with every weight drawn from seed 0
              (gammas and last-BN scales included), ``predict_batch`` on a
              synthetic 480x640 image with 4 click sets, compared with the
@@ -58,11 +60,32 @@ it), printing no result.  The phases, each raising on failure:
              committed checkpoint whose weights ``Predictor.from_run``
              serves bit for bit, and the kernels' launches in the fit equal
              to one per train step and per validation sample.
+             bf16 (``train.precision=bfloat16``): (d) one DANet-R101 step's
+             gradients at B = 2 through the kernels, through the plain
+             forms in bf16 and in float32: every gradient float32, every
+             tensor within 2e-2 x its float32 max |g| of the bf16 plain
+             path or within that path's own distance from float32, q/k/v
+             gradients nonzero, each counter up by 1; (e) the bf16 B = 16
+             step in turns with the float32 kernel step and the bf16
+             plain-form step (median of 5, images/s, peak memory, profiler
+             split, idle share), and one bf16 step with ``model.remat``;
+             (f) the bf16 CLI fit at train batch 2 sent SIGTERM after its
+             first step line (exit 0, ``preempted``, a committed step with
+             ``interrupted_epoch``), then ``resume=auto``: the straight
+             run's final step, no batch twice, weights within the stated
+             tolerance of a straight run's, launches one per train step
+             and validation sample over both runs, and
+             ``Predictor.from_run`` serving it in bf16 on float32 weights,
+             bitwise the checkpoint's model; (g) a ``Trainer`` warm-started
+             from its weights holds them bit for bit, at step 0 with an
+             empty optimizer.
 
 The launch counters are zeroed just before phase 3 and read after phase 5
-(the serving path), and zeroed by the trainer when its fit starts and read
-from its ``fit_summary.json`` (the training path): every kernel must have
-run on both.  The second-to-last line is the ``kernels`` JSON record; the
+(the serving path), zeroed by the trainer when its fit starts and read
+from its ``fit_summary.json`` (the training paths, f32 and bf16, the latter
+summed over the preempted and resumed runs), and zeroed just before the
+bf16 run is served (the bf16 serving path): every kernel must have run on
+each.  The second-to-last line is the ``kernels`` JSON record; the
 last line is the device record.  ``--phases train`` (or any comma list of
 ``kernels,serve,train``) runs part of the script for development and then
 prints neither record.
@@ -325,20 +348,53 @@ def phase_kernels(torch, ca, att, peaks) -> dict:
         log(f"time channel_attention B={b}: kernels {ours:.4f} ms single, "
             f"{ours_run:.4f} ms in runs; library composite bmm+softmax+bmm "
             f"{composite:.4f} ms single, {composite_run:.4f} ms in runs")
-    # bf16 inputs: the position kernel on the bf16 tensor-core rate, against
-    # SDPA on the same bf16 inputs, in turns
+    # bf16 inputs, as the bf16 training and serving forwards give them, each
+    # kernel against its plain form and a library call on the same inputs,
+    # in turns; bounds at the bf16 tensor-core rate (or the bytes: bf16
+    # tokens, float32 maps)
     for b in (1, 8):
         q, k, v = pam_inputs(b, n, ck, c, torch.bfloat16)
-        (ms, lib_ms), (ms_run, lib_run) = both_ms(
-            lambda: ca.flash_position_attention(q, k, v),
-            lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
-                                                   scale=1.0))
-        bf16_ms, bf16_by = bound(2.0 * b * n * n * (ck + c),
-                                 2.0 * b * n * (2 * ck + 2 * c), bf16, bw)
-        log(f"time position_attention B={b} bf16: kernel {ms:.4f} ms single, "
-            f"{ms_run:.4f} ms in runs; SDPA {lib_ms:.4f} / {lib_run:.4f} ms; bf16 "
-            f"bound {bf16_ms:.4f} ms ({bf16_by}), {bf16_ms / ms:.1%} of it single, "
-            f"{bf16_ms / ms_run:.1%} in runs")
+        x, = cam_inputs(b, n, c, torch.bfloat16)
+        attn = att.channel_energy(x)
+        work = {
+            "position_attention": (
+                lambda: ca.flash_position_attention(q, k, v),
+                lambda: att.position_attention(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, None], k[:, None], v[:, None], scale=1.0),
+                2.0 * b * n * n * (ck + c), 2.0 * b * n * (2 * ck + 2 * c)),
+            # the library calls round E (energy) or the map (apply) to
+            # bf16: a cheaper, less accurate function than the kernels'
+            "cam_energy": (
+                lambda: ca.cam_energy(x),
+                lambda: att.channel_energy(x),
+                lambda: torch.softmax(_rowmax_minus(
+                    torch.bmm(x.transpose(1, 2), x).float()), -1),
+                2.0 * b * n * c * (c + 1) / 2, 2.0 * b * n * c + 4.0 * b * c * c),
+            "cam_apply": (
+                lambda: ca.cam_apply(attn, x),
+                lambda: att.channel_apply(attn, x),
+                lambda: torch.bmm(x, attn.transpose(1, 2).to(torch.bfloat16)),
+                2.0 * b * n * c * c, 4.0 * b * n * c + 4.0 * b * c * c),
+        }
+        for name, (kern, plain, lib, flops, nbytes) in work.items():
+            (ms, plain_ms, lib_ms), (ms_run, plain_run, lib_run) = both_ms(
+                kern, plain, lib)
+            bf16_ms, bf16_by = bound(flops, nbytes, bf16, bw)
+            log(f"time {name} B={b} bf16: kernel {ms:.4f} ms single, {ms_run:.4f} "
+                f"ms in runs of {RUN}; plain {plain_ms:.4f} / {plain_run:.4f} ms; "
+                f"library {lib_ms:.4f} / {lib_run:.4f} ms; bf16 bound {bf16_ms:.4f} "
+                f"ms ({bf16_by}), {bf16_ms / ms:.1%} of it single, "
+                f"{bf16_ms / ms_run:.1%} in runs")
+            if min(ms, ms_run) < bf16_ms:
+                raise AssertionError(f"{name} B={b} bf16: {min(ms, ms_run):.4f} ms is "
+                                     f"below its bound {bf16_ms:.4f} ms")
+            if b == 1:
+                records[name]["bf16"] = {
+                    "ms": ms, "ms_run20": ms_run, "plain_ms": plain_ms,
+                    "plain_ms_run20": plain_run, "library_ms": lib_ms,
+                    "library_ms_run20": lib_run, "bound_ms": bf16_ms,
+                    "bound_by": bf16_by}
     for name in records:
         records[name]["max_abs_err"] = errors[name]
     return records
@@ -804,6 +860,41 @@ def _op_device_ms(prof, names) -> float:
                if e.device_type == DeviceType.CPU and e.name in names) / 1e3
 
 
+def _profile_split(torch, ca, prof, step_ms: float, what: str,
+                   label: str) -> dict:
+    """Log one profiled step's device time by part, its top kernels and
+    the idle share against ``step_ms``; returns the parts."""
+    kernels = _device_events(prof)
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    attention = sum(e.device_time_total for e in kernels
+                    if any(k in e.name for k in ATTENTION_KERNELS)) / 1e3
+    parts = {
+        "convolutions, forward": _op_device_ms(prof, CONV_FORWARD),
+        "convolutions, backward": _op_device_ms(prof, CONV_BACKWARD),
+        "batch norm, forward and backward": _op_device_ms(prof, BATCH_NORM),
+        "attention kernels, forward": attention,
+        "plain-form recompute, backward": _op_device_ms(prof, (ca.RECOMPUTE_RANGE,)),
+        "optimizer step": sum(e.device_time_total for e in prof.events()
+                              if e.name.startswith("Optimizer.step")
+                              and e.device_type != torch.autograd.DeviceType.CUDA) / 1e3,
+        "host-to-device copies": sum(e.device_time_total for e in kernels
+                                     if e.name.startswith("Memcpy HtoD")) / 1e3,
+    }
+    idle = 1.0 - busy / step_ms
+    log(f"{label} profile: {what}, device busy {busy:.2f} ms over {len(kernels)} "
+        f"kernels and copies; idle share {idle:.4f} of the {step_ms:.2f} ms median "
+        f"step")
+    for what, t in parts.items():
+        log(f"{label} profile:   {t:9.2f} ms  {what}")
+    log(f"{label} profile:   {busy - sum(parts.values()):9.2f} ms  everything else")
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.device_time_total / 1e3)
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]:
+        log(f"{label} profile:   top {sum(ts):9.2f} ms x{len(ts):<4d} {name[:90]}")
+    return parts
+
+
 def phase_train_step(torch, ca, dataset, batch_size: int = 16, rounds: int = 5) -> None:
     """6b: the default train step with the kernels and with the plain forms."""
     from distributedpytorch_tpu_torch.data import pipeline
@@ -879,34 +970,8 @@ def phase_train_step(torch, ca, dataset, batch_size: int = 16, rounds: int = 5) 
     with torch.profiler.profile(activities=acts) as prof:
         step(state, batch)
         torch.cuda.synchronize()
-    kernels = _device_events(prof)
-    busy = sum(e.device_time_total for e in kernels) / 1e3
-    attention = sum(e.device_time_total for e in kernels
-                    if any(k in e.name for k in ATTENTION_KERNELS)) / 1e3
-    parts = {
-        "convolutions, forward": _op_device_ms(prof, CONV_FORWARD),
-        "convolutions, backward": _op_device_ms(prof, CONV_BACKWARD),
-        "batch norm, forward and backward": _op_device_ms(prof, BATCH_NORM),
-        "attention kernels, forward": attention,
-        "plain-form recompute, backward": _op_device_ms(prof, (ca.RECOMPUTE_RANGE,)),
-        "optimizer step": sum(e.device_time_total for e in prof.events()
-                              if e.name.startswith("Optimizer.step")
-                              and e.device_type != torch.autograd.DeviceType.CUDA) / 1e3,
-        "host-to-device copies": sum(e.device_time_total for e in kernels
-                                     if e.name.startswith("Memcpy HtoD")) / 1e3,
-    }
-    idle = 1.0 - busy / ms["kernels"]
-    log(f"train profile: one B={batch_size} step with kernels, device busy "
-        f"{busy:.2f} ms over {len(kernels)} kernels and copies; idle share "
-        f"{idle:.4f} of the {ms['kernels']:.2f} ms median step")
-    for what, t in parts.items():
-        log(f"train profile:   {t:9.2f} ms  {what}")
-    log(f"train profile:   {busy - sum(parts.values()):9.2f} ms  everything else")
-    by_name: dict[str, list[float]] = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.device_time_total / 1e3)
-    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]:
-        log(f"train profile:   top {sum(ts):9.2f} ms x{len(ts):<4d} {name[:90]}")
+    _profile_split(torch, ca, prof, ms["kernels"],
+                   f"one B={batch_size} step with kernels", "train")
 
 
 def _read_jsonl(path: Path) -> list[dict]:
@@ -1006,8 +1071,430 @@ def phase_train_fit(torch, ca, Predictor) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def phase_train_grads_bf16(torch, ca, Predictor, batch) -> None:
+    """6d: one bf16 step's gradients through the kernels, through the plain
+    forms in bf16 and through the plain forms in float32."""
+    from distributedpytorch_tpu_torch.ops.losses import multi_output_loss
+    from distributedpytorch_tpu_torch.parallel.step import _forward, device_batch
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    policy = precision_policy("bfloat16")
+    model = Predictor.fresh(512, "resnet101", seed=0, device="cuda").model.train()
+    model.head.dropout_rate = 0.0
+    data = device_batch(batch, torch.device("cuda"))
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    grads, rises, loss, dtypes = {}, {}, {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path, impl, pol in (("kernels", "flash", policy),
+                                ("plain", "xla", policy),
+                                ("float32", "xla", None)):
+            model.load_state_dict(saved)
+            model.set_compute_dtype(torch.bfloat16 if pol else None)
+            model.zero_grad(set_to_none=True)
+            model.set_attention_impl(impl)
+            before = dict(ca.launches)
+            out = multi_output_loss(_forward(model, data["concat"], pol),
+                                    data["crop_gt"])
+            out.backward()
+            torch.cuda.synchronize()
+            loss[path] = out.item()
+            rises[path] = {k: ca.launches[k] - before[k] for k in before}
+            dtypes[path] = {p.grad.dtype for p in model.parameters()}
+            grads[path] = {n: p.grad.detach().double()
+                           for n, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"train grads bf16: DANet-R101 512^2 B={data['concat'].shape[0]}, loss with "
+        f"kernels {loss['kernels']:.9f}, plain forms in bf16 {loss['plain']:.9f}, "
+        f"plain forms in float32 {loss['float32']:.9f}; forward launches with "
+        f"kernels {rises['kernels']}; gradient dtypes {sorted(map(str, dtypes['kernels']))}")
+    if any(n != 1 for n in rises["kernels"].values()) or any(rises["plain"].values()):
+        raise AssertionError(f"launches per bf16 forward+backward: kernels "
+                             f"{rises['kernels']} (want 1 each), plain {rises['plain']}")
+    if dtypes["kernels"] != {torch.float32}:
+        raise AssertionError(f"bf16 step gradients in {dtypes['kernels']}, not float32")
+    kernels, plain, f32 = grads["kernels"], grads["plain"], grads["float32"]
+    rows, failures = [], []
+    for name in plain:
+        scale = f32[GRAD_SCALE_OF.get(name, name)].abs().max().item()
+        diff = (kernels[name] - plain[name]).abs().max().item()
+        own = (plain[name] - f32[name]).abs().max().item()
+        rows.append((diff / scale, diff / max(own, 1e-300), own / scale, name))
+        if not diff <= max(BF16_GRAD_TOL * scale, own):
+            failures.append(f"{name}: {diff:.3e} > {BF16_GRAD_TOL} x {scale:.3e} and "
+                            f"> the bf16 plain path's distance from float32 {own:.3e}")
+    by_ratio = sorted(rows)
+    log(f"train grads bf16: {len(rows)} parameter tensors; kernels vs plain bf16 "
+        f"max|diff| / max|g|: largest {by_ratio[-1][0]:.3e} ({by_ratio[-1][3]}), "
+        f"median {by_ratio[len(rows) // 2][0]:.3e}; the bf16 plain path vs float32, "
+        f"max|diff| / max|g|: median {statistics.median(r[2] for r in rows):.3e}, "
+        f"largest {max(r[2] for r in rows):.3e}; kernels-vs-plain over plain-vs-float32:"
+        f" median {statistics.median(r[1] for r in rows):.3e}, largest "
+        f"{max(r[1] for r in rows):.3e} ({max(rows, key=lambda r: r[1])[3]})")
+    pam = {n: kernels[f"head.pam.{n}"].abs().max().item()
+           for n in ("query.weight", "key.weight", "value.weight")}
+    log("train grads bf16: PAM max|g| with kernels " +
+        ", ".join(f"{n} {v:.3e}" for n, v in pam.items()))
+    if failures:
+        raise AssertionError("bf16 gradients, kernels vs plain forms: " +
+                             "; ".join(failures))
+    if not all(v > 0 for v in pam.values()):
+        raise AssertionError(f"a PAM projection gets no bf16 gradient: {pam}")
+
+
+def phase_train_step_bf16(torch, ca, dataset, batch_size: int = 16,
+                          rounds: int = 5) -> None:
+    """6e: the bf16 train step (B = 16) in turns with the float32 kernel step
+    and the bf16 plain-form step; then one bf16 step with remat."""
+    from distributedpytorch_tpu_torch.data import pipeline
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.parallel.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    loader = pipeline.DataLoader(Cycled(dataset, batch_size), batch_size,
+                                 shuffle=True, drop_last=True, seed=0)
+    batch = next(iter(loader))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("danet", dtype="bfloat16")
+    optimizer, schedule = make_optimizer(OptimConfig(), model, total_steps=100)
+    state = create_train_state(model, optimizer, schedule, 0, torch.device("cuda"))
+    steps = {"bf16": make_train_step(precision=precision_policy("bfloat16")),
+             "f32": make_train_step()}
+    # (label, step, compute dtype, attention impl)
+    paths = {"bf16 kernels": ("bf16", torch.bfloat16, "auto"),
+             "f32 kernels": ("f32", None, "auto"),
+             "bf16 plain": ("bf16", torch.bfloat16, "xla")}
+
+    def use(label):
+        kind, dtype, impl = paths[label]
+        model.set_compute_dtype(dtype)
+        model.set_attention_impl(impl)
+        return steps[kind]
+
+    peak_gb = {}
+    for label in paths:
+        step = use(label)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = step(state, batch).item()
+        peak_gb[label] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"train step bf16: first step with {label} {time.perf_counter() - t0:.3f} s, "
+            f"loss {first:.6f}, peak memory {peak_gb[label]:.2f} GiB")
+        step(state, batch)
+    times = {label: [] for label in paths}
+    losses = []
+    before = dict(ca.launches)
+    for _ in range(rounds):
+        for label in paths:
+            step = use(label)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(state, batch))
+            end.record()
+            end.synchronize()
+            times[label].append(start.elapsed_time(end))
+    rise = {k: ca.launches[k] - before[k] for k in before}
+    if any(n != 2 * rounds for n in rise.values()):
+        raise AssertionError(f"{2 * rounds} kernel-path steps launched {rise}: want "
+                             f"one forward launch per kernel per step")
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError(f"non-finite train losses: {torch.stack(losses).tolist()}")
+    if any(p.dtype != torch.float32 for p in model.parameters()) or any(
+            m.dtype != torch.float32 for s in optimizer.state.values()
+            for m in s.values() if torch.is_tensor(m)):
+        raise AssertionError("bf16 training left float32 parameters or momentum")
+    ms = {label: statistics.median(t) for label, t in times.items()}
+    for label in paths:
+        log(f"train step bf16: B={batch_size} 512^2 with {label} {ms[label]:.2f} ms "
+            f"median of {rounds} (all {', '.join(f'{t:.2f}' for t in times[label])}), "
+            f"{batch_size / ms[label] * 1e3:.2f} images/s, peak memory "
+            f"{peak_gb[label]:.2f} GiB")
+    step = use("bf16 kernels")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    parts = _profile_split(torch, ca, prof, ms["bf16 kernels"],
+                           f"one B={batch_size} bf16 step with kernels", "train bf16")
+    # aten::_to_copy also carries the batch's copy to the device
+    casts = _op_device_ms(prof, ("aten::_to_copy",)) - parts["host-to-device copies"]
+    log(f"train bf16 profile:   dtype casts (aten::_to_copy but the batch's copy) "
+        f"{casts:.2f} ms, within the parts above")
+
+    model.backbone.remat = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        remat_peak = torch.cuda.max_memory_allocated() / 2**30
+        remat_ms = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, batch)
+            end.record()
+            end.synchronize()
+            remat_ms.append(start.elapsed_time(end))
+    finally:
+        model.backbone.remat = False
+    log(f"train step bf16: B={batch_size} with model.remat=true "
+        f"{statistics.median(remat_ms):.2f} ms median of 3 "
+        f"({', '.join(f'{t:.2f}' for t in remat_ms)}), peak memory "
+        f"{remat_peak:.2f} GiB (without remat {peak_gb['bf16 kernels']:.2f} GiB)")
+
+
+#: the bf16 gradient check's own bound, as a share of the float32 max |g|
+BF16_GRAD_TOL = 2e-2
+#: resumed vs straight final weights on the card, where the backward is
+#: not bitwise repeatable (cuDNN's default weight-gradient algorithms and
+#: the bilinear upsample's backward add in no fixed order, and bf16
+#: magnifies it): max |diff| per tensor within this share of the straight
+#: run's own movement from its initial weights, or within this factor of a
+#: second straight run's max |diff| from the first (the card's own spread),
+#: plus this many float32 ulps of the tensor's largest value (not for the
+#: PAM key bias, whose gradient is zero in exact arithmetic); and the whole
+#: model's L2 distance within this share of the straight run's L2
+#: movement.  A batch skipped or trained twice moves the weights by about a
+#: tenth of a 10-step run's movement, and a state not restored by more.
+RESUME_MOVE_TOL, RESUME_SPREAD_FACTOR, RESUME_ULPS, RESUME_L2_TOL = 0.5, 4, 4, 1e-3
+
+
+#: the bf16 CLI fit of 6f: train batch 2, so that the fixture's 11 train
+#: objects make 5 steps per epoch and a stop after the first step line
+#: lands inside an epoch (at train batch 4 an epoch is 2 steps, and any
+#: such stop would land on an epoch's last step, whose batch the resume
+#: replays)
+FIT_ARGS = ["--fake-data", "train.precision=bfloat16", "data.train_batch=2",
+            "data.area_thres=0", "epochs=2", "checkpoint.digest=true",
+            "log_every_steps=1", "checkpoint.preempt_check_every=1"]
+
+
+def _fit_cmd(work: Path, *extra: str) -> list[str]:
+    return [sys.executable, "-m", "distributedpytorch_tpu_torch", *FIT_ARGS,
+            f"work_dir={work}", *extra]
+
+
+def _run_record(run: Path) -> dict:
+    with open(run / "fit_summary.json") as f:
+        summary = json.load(f)
+    records = _read_jsonl(run / "metrics.jsonl")
+    return {"summary": summary,
+            "epochs": [r for r in records if "train/step_losses" in r],
+            "vals": [r for r in records if "val/jaccard" in r]}
+
+
+def phase_train_resume(torch, ca, Predictor,
+                       device: str = "cuda") -> tuple[dict, dict]:
+    """6f and 6g: the bf16 CLI fit preempted by SIGTERM and resumed with
+    ``resume=auto`` against a straight run, the resumed run served, then a
+    warm start from its weights.  Returns the kernels' launches of the
+    two fits and of the bf16 serving forward."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.train.checkpoint import CheckpointManager
+    from distributedpytorch_tpu_torch.train.config import apply_overrides, from_json
+    from distributedpytorch_tpu_torch.train.trainer import Trainer
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    procs = []
+    straight_log = open(root / "straight.log", "w+")
+    try:
+        straight_dir, work = root / "straight", root / "preempted"
+        log(f"train resume: {' '.join(_fit_cmd(work)[1:])}")
+        # two straight runs alongside the preempted one: the reference and
+        # the card's own run-to-run spread
+        straight = subprocess.Popen(_fit_cmd(straight_dir), cwd=REPO, text=True,
+                                    stdout=straight_log, stderr=subprocess.STDOUT)
+        again = subprocess.Popen(_fit_cmd(root / "again"), cwd=REPO, text=True,
+                                 stdout=straight_log, stderr=subprocess.STDOUT)
+        procs += [straight, again]
+        t0 = time.perf_counter()
+        first = subprocess.Popen(_fit_cmd(work), cwd=REPO, text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        procs.append(first)
+        out = []
+        for line in first.stdout:
+            out.append(line)
+            if line.startswith("[step 1] train/loss="):
+                first.send_signal(signal.SIGTERM)
+                log(f"train resume: SIGTERM after its first step line, "
+                    f"{time.perf_counter() - t0:.1f} s after start")
+                break
+        out.extend(first.stdout)
+        if first.wait(timeout=600) != 0:
+            raise AssertionError(f"the preempted fit exited {first.returncode}:\n"
+                                 f"{''.join(out)[-3000:]}")
+        (run_a,) = work.glob("run_*")
+        a = _run_record(run_a)
+        mgr_a = CheckpointManager(str(run_a / "checkpoints"))
+        _, meta_a = mgr_a.load()
+        if not a["summary"]["preempted"] or "interrupted_epoch" not in meta_a:
+            raise AssertionError(f"preempted fit: summary {a['summary']}, meta {meta_a}")
+        log(f"train resume: preempted at step {a['summary']['final_step']}, committed "
+            f"{mgr_a.committed_steps()} with interrupted_epoch "
+            f"{meta_a['interrupted_epoch']}, epoch_steps_done {meta_a['epoch_steps_done']}")
+        proc = subprocess.run(_fit_cmd(work, "resume=auto"), cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the resumed fit exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        if straight.wait(timeout=600) != 0 or again.wait(timeout=600) != 0:
+            straight_log.seek(0)
+            raise AssertionError(f"the straight fit exited {straight.returncode}:\n"
+                                 f"{straight_log.read()[-3000:]}")
+        fit_s = time.perf_counter() - t0
+        (run_b,) = set(work.glob("run_*")) - {run_a}
+        (run_s,) = straight_dir.glob("run_*")
+        (run_s2,) = (root / "again").glob("run_*")
+        b, s = _run_record(run_b), _run_record(run_s)
+        steps_per_epoch = len(s["epochs"][0]["train/step_losses"])
+        done = meta_a["epoch_steps_done"]
+        resumed_epoch = b["epochs"][0]
+        trained = a["summary"]["final_step"] + \
+            b["summary"]["final_step"] - b["summary"]["start_step"]
+        if b["summary"]["final_step"] != s["summary"]["final_step"] or \
+                trained != s["summary"]["final_step"] or \
+                b["summary"]["start_step"] != a["summary"]["final_step"] or \
+                resumed_epoch.get("train/resumed_at_batch") != done or \
+                len(resumed_epoch["train/step_losses"]) != steps_per_epoch - done:
+            raise AssertionError(f"resume: straight {s['summary']}, preempted "
+                                 f"{a['summary']}, resumed {b['summary']}, first "
+                                 f"resumed epoch {resumed_epoch}")
+        launches = {k: a["summary"]["kernel_launches"][k] +
+                    b["summary"]["kernel_launches"][k] for k in TPU_KERNELS}
+        want = s["summary"]["final_step"] + sum(
+            int(r["val/n_samples"]) for r in a["vals"] + b["vals"])
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"launches over both fits {launches}: want {want} "
+                                 "each (train steps + validation samples)")
+        log(f"train resume: resumed at epoch {b['summary']['start_epoch']} batch "
+            f"{done} of {steps_per_epoch}, final step {b['summary']['final_step']} as "
+            f"the straight run's; {trained} steps trained over both runs; launches "
+            f"over both {launches}; {fit_s:.1f} s wall for the three fits")
+
+        final = s["summary"]["final_step"]
+        straight_w, _ = CheckpointManager(str(run_s / "checkpoints")).load(final)
+        again_w, _ = CheckpointManager(str(run_s2 / "checkpoints")).load(final)
+        resumed_w, meta_b = CheckpointManager(str(run_b / "checkpoints")).load(final)
+        cfg = from_json(str(run_b / "config.json"))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            init = build_model(cfg.model.name, backbone=cfg.model.backbone).state_dict()
+        rows, failures = [], []
+        sq = {"resumed": 0.0, "again": 0.0, "moved": 0.0}
+        for key, want_t in straight_w["model"].items():
+            got_t = resumed_w["model"][key]
+            if not want_t.is_floating_point():
+                if not torch.equal(got_t, want_t):
+                    failures.append(f"{key}: {got_t} != {want_t}")
+                continue
+            w, g = want_t.double(), got_t.double()
+            spread = again_w["model"][key].double() - w
+            sq["resumed"] += float(((g - w) ** 2).sum())
+            sq["again"] += float((spread ** 2).sum())
+            sq["moved"] += float(((w - init[key].double()) ** 2).sum())
+            diff = (g - w).abs().max().item()
+            moved = (w - init[key].double()).abs().max().item()
+            ulps = RESUME_ULPS * torch.finfo(torch.float32).eps * w.abs().max().item()
+            if key in GRAD_SCALE_OF:
+                continue
+            rows.append((diff / max(moved, 1e-300), diff, key))
+            limit = max(RESUME_MOVE_TOL * moved,
+                        RESUME_SPREAD_FACTOR * spread.abs().max().item()) + ulps
+            if not diff <= limit:
+                failures.append(f"{key}: {diff:.3e} > {limit:.3e} ({RESUME_MOVE_TOL} x "
+                                f"its movement {moved:.3e}, {RESUME_SPREAD_FACTOR} x the "
+                                f"straight runs' spread, + {ulps:.3e})")
+        l2 = {k: v ** 0.5 for k, v in sq.items()}
+        equal = sum(1 for _, d, _ in rows if d == 0.0)
+        log(f"train resume: final weights, resumed vs straight: {equal} of "
+            f"{len(rows)} float tensors bitwise equal; largest max|diff| "
+            f"{max(r[1] for r in rows):.3e}; largest max|diff| over the tensor's own "
+            f"movement: " + ", ".join(f"{r:.3e} ({k})" for r, _, k in sorted(rows)[-5:])
+            + f"; L2 distance {l2['resumed']:.3e} against the straight run's L2 "
+            f"movement {l2['moved']:.3e}; a second straight run's L2 distance from "
+            f"the first {l2['again']:.3e}")
+        if not l2["resumed"] <= RESUME_L2_TOL * l2["moved"]:
+            failures.append(f"L2 distance {l2['resumed']:.3e} > {RESUME_L2_TOL} x the "
+                            f"straight run's movement {l2['moved']:.3e}")
+        if failures:
+            raise AssertionError("resumed vs straight weights: " + "; ".join(failures[:8]))
+
+        ca.reset_launches()
+        pred = Predictor.from_run(str(run_b), step=final, device=device)
+        if pred.dtype != torch.bfloat16 or any(
+                p.dtype != torch.float32 for p in pred.model.parameters()):
+            raise AssertionError(f"Predictor.from_run of the bf16 run: dtype {pred.dtype}")
+        model = build_model(cfg.model.name, backbone=cfg.model.backbone,
+                            dtype="bfloat16")
+        model.load_state_dict(resumed_w["model"], strict=True)
+        model.to(device).eval()
+        image, clicks = synthetic_image()
+        concat, _ = pred.prepare(image, clicks[0])
+        x = torch.from_numpy(concat[None]).to(device).permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            served = pred.model(x)
+        mask = pred.predict(image, clicks[0])
+        serve_launches = dict(ca.launches)
+        with torch.inference_mode():
+            direct = model(x)
+        if not all(o.dtype == torch.bfloat16 for o in served) or \
+                not all(torch.equal(p, q) for p, q in zip(served, direct)):
+            raise AssertionError("served bf16 logits differ from the checkpoint's model")
+        if mask.shape != image.shape[:2] or not np.isfinite(mask).all():
+            raise AssertionError(f"bad mask from the resumed run {mask.shape}")
+        log(f"train resume: Predictor.from_run(step {final}) serves in bf16 on float32 "
+            f"weights, its three bf16 logits bitwise equal to the checkpoint's model; "
+            f"kernel launches of its forwards {serve_launches}")
+        del pred, model
+
+        # 6g: warm start from the resumed run's weights
+        pth = root / "resumed_weights.pth"
+        torch.save(resumed_w["model"], pth)
+        wcfg = apply_overrides(cfg, [f"checkpoint.warm_start={pth}", "resume=null",
+                                     f"work_dir={root / 'warm'}"])
+        trainer = Trainer(wcfg, device=device)
+        got = trainer.model.state_dict()
+        mismatched = [k for k, v in resumed_w["model"].items()
+                      if not k.endswith("num_batches_tracked")
+                      and not torch.equal(got[k].cpu(), v.cpu())]
+        if mismatched or trainer.state.step != 0 or trainer.state.optimizer.state:
+            raise AssertionError(f"warm start: mismatched {mismatched[:5]}, step "
+                                 f"{trainer.state.step}, optimizer state "
+                                 f"{len(trainer.state.optimizer.state)}")
+        trainer.close()
+        log(f"train warm start: checkpoint.warm_start={pth.name}: "
+            f"{len(resumed_w['model'])} tensors bitwise equal (BatchNorm's "
+            f"num_batches_tracked aside), step 0, empty optimizer state")
+        del trainer
+        return launches, serve_launches
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        straight_log.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_train(torch, ca, Predictor) -> dict:
-    """Phase 6 (a, b, c); returns the fit's launch counts."""
+    """Phase 6 (a-g); returns the launch counts of each training and bf16
+    serving path."""
     import gc
 
     from distributedpytorch_tpu_torch.data import pipeline
@@ -1025,8 +1512,18 @@ def phase_train(torch, ca, Predictor) -> dict:
     torch.cuda.empty_cache()
     log(f"train: (b) done at {time.perf_counter() - t0:.1f} s")
     launches = phase_train_fit(torch, ca, Predictor)
-    log(f"train: (c) done; phase wall time {time.perf_counter() - t0:.1f} s")
-    return launches
+    log(f"train: (c) done at {time.perf_counter() - t0:.1f} s")
+    phase_train_grads_bf16(torch, ca, Predictor, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: (d) done at {time.perf_counter() - t0:.1f} s")
+    phase_train_step_bf16(torch, ca, dataset)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: (e) done at {time.perf_counter() - t0:.1f} s")
+    bf16_fit, bf16_serve = phase_train_resume(torch, ca, Predictor)
+    log(f"train: (f, g) done; phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"train": launches, "train_bf16": bf16_fit, "serve_bf16": bf16_serve}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1084,7 +1581,7 @@ def main(argv: list[str] | None = None) -> int:
         paths["serve"] = dict(ca.launches)
         del pred
     if "train" in phases:
-        paths["train"] = phase_train(torch, ca, Predictor)
+        paths.update(phase_train(torch, ca, Predictor))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")

@@ -118,9 +118,15 @@ class DataLoader:
         self.num_workers = max(0, num_workers)
         self.prefetch = max(1, prefetch)
         self.epoch = 0
+        self.start_batch = 0
 
-    def set_epoch(self, epoch: int) -> None:
+    def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
+        """Position the loader at ``epoch``; ``start_batch`` skips that many
+        batches of the epoch's fixed ``(seed, epoch)`` order, so a resumed
+        run continues where a preempted one stopped.  ``len`` still counts
+        the whole epoch."""
         self.epoch = epoch
+        self.start_batch = start_batch
 
     def epoch_indices(self) -> np.ndarray:
         """The dataset indices of the current epoch in order."""
@@ -141,7 +147,7 @@ class DataLoader:
     def __iter__(self) -> Iterator[dict]:
         order = self.epoch_indices()
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
-                   for i in range(len(self))]
+                   for i in range(self.start_batch, len(self))]
         if self.num_workers == 0:
             for idxs in batches:
                 yield collate([self._load_one(i) for i in idxs])

@@ -10,13 +10,29 @@ layer with an even input it pads one pixel more on the bottom and right
 than on the top and left.  :func:`same_pad` computes flax's split, and the
 layers pad explicitly where the split is uneven (the 7x7 stem, stride-2
 3x3s and the max-pool, which pads with -inf).
+
+Mixed precision follows flax's ``dtype``/``param_dtype``: parameters stay
+float32, and a layer with a ``compute_dtype`` (set by
+:func:`set_compute_dtype`) casts its input and its weights to that dtype
+at use — explicit casts, the same on the CPU and the card, where
+``torch.autocast``'s op lists differ between the two.  BatchNorm takes
+its bf16 input with float32 statistics and affine parameters (flax's
+``force_float32_reductions``: mean and variance in float32, the input
+normalised in float32) and returns the compute dtype.
+
+``remat=True`` recomputes each residual block in the backward
+(``torch.utils.checkpoint``, non-reentrant), flax's per-block ``nn.remat``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 #: block counts per stage
 RESNET_DEPTHS = {
@@ -39,28 +55,79 @@ def same_pad(size: int, kernel: int, stride: int, dilation: int = 1
     return total // 2, total - total // 2
 
 
-class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with flax's ``SAME`` padding (asymmetric when needed)."""
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` (flax ``nn.Conv``'s
+    ``dtype``): the input, weight and bias are cast to it at use and the
+    output is in it.  ``None`` computes in the parameters' own dtype."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def _operands(self, x: torch.Tensor):
+        dtype = self.compute_dtype
+        if dtype is None:
+            return x, self.weight, self.bias
+        return (x.to(dtype), self.weight.to(dtype),
+                None if self.bias is None else self.bias.to(dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = self._operands(x)
+        return self._conv_forward(x, weight, bias)
+
+
+class SameConv2d(Conv2d):
+    """:class:`Conv2d` with flax's ``SAME`` padding (asymmetric when
+    needed)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = self._operands(x)
         (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
         top, bottom = same_pad(x.shape[-2], kh, sh, dh)
         left, right = same_pad(x.shape[-1], kw, sw, dw)
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (top, left),
+            return F.conv2d(x, weight, bias, self.stride, (top, left),
                             self.dilation)
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation)
+        return F.conv2d(x, weight, bias, self.stride, 0, self.dilation)
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
-         bias: bool = False) -> nn.Conv2d:
+         bias: bool = False) -> Conv2d:
     """flax ``nn.Conv`` (default ``SAME`` padding) as a torch layer; a 1x1
-    conv never pads, so it is a plain ``nn.Conv2d``."""
+    conv never pads, so it is a plain :class:`Conv2d`."""
     if kernel == 1:
-        return nn.Conv2d(cin, cout, 1, stride=stride, bias=bias)
+        return Conv2d(cin, cout, 1, stride=stride, bias=bias)
     return SameConv2d(cin, cout, kernel, stride=stride, dilation=dilation,
                       bias=bias)
+
+
+_remat = threading.local()
+
+
+def recomputing() -> bool:
+    """True inside a remat block's recompute in the backward."""
+    return getattr(_remat, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _recompute_scope():
+    _remat.depth = getattr(_remat, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _remat.depth -= 1
+
+
+def _remat_contexts():
+    """``checkpoint``'s (forward, recompute) contexts: the recompute is
+    marked, so that BatchNorm moves its running statistics once."""
+    return contextlib.nullcontext(), _recompute_scope()
+
+
+def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` whose activations are recomputed in the backward
+    instead of kept (non-reentrant ``torch.utils.checkpoint``)."""
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=_remat_contexts)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -71,29 +138,51 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     towards the biased one: ``ra = 0.9 ra + 0.1 var``.  The forward is
     torch's (cuDNN on the card); the running variance is then corrected to
     flax's update, ``(n - 1) / n`` times torch's step.  The keys stay
-    ``running_mean``/``running_var``, so JAX trees load strictly."""
+    ``running_mean``/``running_var``, so JAX trees load strictly.
+
+    A bf16 input is normalised with float32 statistics and parameters
+    (torch's mixed-dtype batch norm: float32 mean and variance of the
+    bf16 values, float32 arithmetic, rounded once on output) and the
+    result is in ``compute_dtype`` (the input's dtype when ``None``).
+    Inside a remat recompute the running statistics are left alone: the
+    forward that is being recomputed already moved them."""
+
+    compute_dtype: torch.dtype | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype or x.dtype
         if not self.training:
-            return super().forward(x)
+            return super().forward(x).to(dtype)
         n = x.numel() // x.shape[1]
         # torch updates copies (its backward may keep the buffers it was
         # given), which are then written back with flax's variance step
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
                          self.momentum, self.eps)
+        if recomputing():
+            return y.to(dtype)
         with torch.no_grad():
             kept = self.running_var * (1.0 - self.momentum)
             # torch added momentum * var * n / (n - 1)
             self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
             self.running_mean.copy_(mean)
             self.num_batches_tracked.add_(1)
-        return y
+        return y.to(dtype)
 
 
 def norm(channels: int) -> nn.BatchNorm2d:
     """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` as a torch layer."""
     return FlaxBatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
+    """Make every conv and BatchNorm of ``model`` compute in ``dtype``,
+    its parameters unchanged; ``None`` or float32 computes in the
+    parameters' own dtype."""
+    dtype = None if dtype in (None, torch.float32) else dtype
+    for module in model.modules():
+        if isinstance(module, (Conv2d, FlaxBatchNorm2d)):
+            module.compute_dtype = dtype
 
 
 def flax_init_(model: nn.Module) -> nn.Module:
@@ -202,11 +291,14 @@ class ResNet(nn.Module):
     """Dilated ResNet feature extractor with a single 7x7 stem.
 
     ``forward(x)`` (B, in_channels, H, W) -> dict of stage outputs
-    ``{'c1', 'c2', 'c3', 'c4'}``; ``c4`` is at H / output_stride."""
+    ``{'c1', 'c2', 'c3', 'c4'}``; ``c4`` is at H / output_stride.  With
+    ``remat`` a training forward keeps only each residual block's input
+    and recomputes the block in the backward."""
 
     def __init__(self, depth: int = 50, output_stride: int = 16,
-                 in_channels: int = 4, width: int = 64):
+                 in_channels: int = 4, width: int = 64, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if depth not in RESNET_DEPTHS:
             raise ValueError(f"unsupported ResNet depth {depth} "
                              f"({sorted(RESNET_DEPTHS)})")
@@ -232,10 +324,11 @@ class ResNet(nn.Module):
         x = F.relu(self.BatchNorm_0(self.Conv_0(x)))
         x = max_pool_same(x)
         blocks = [m for name, m in self.named_children() if "Block_" in name]
+        remat = self.remat and self.training and torch.is_grad_enabled()
         feats, start = {}, 0
         for stage, end in enumerate(self.stage_ends):
             for block in blocks[start:end]:
-                x = block(x)
+                x = remat_block(block, x) if remat else block(x)
             feats[f"c{stage + 1}"] = x
             start = end
         return feats

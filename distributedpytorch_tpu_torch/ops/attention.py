@@ -23,14 +23,19 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
 
 
 def position_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       scale: float | None = None) -> torch.Tensor:
+                       scale: float | None = None,
+                       score_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Full position attention: ``q``/``k`` (B, N, Ck), ``v`` (B, N, Cv)
-    -> (B, N, Cv) in ``v.dtype``.  Scores are float32 and unscaled unless
-    ``scale`` is given; the attention weights are cast to ``v.dtype`` before
+    -> (B, N, Cv) in ``v.dtype``.  Scores accumulate in float32 and are
+    unscaled unless ``scale`` is given; ``score_dtype`` (e.g. bfloat16)
+    rounds the N x N scores to that dtype before the softmax, which still
+    runs in float32.  The attention weights are cast to ``v.dtype`` before
     the value product, as in the JAX form."""
     scores = torch.matmul(_acc(q), _acc(k).transpose(1, 2))
     if scale is not None:
         scores = scores * scale
+    if score_dtype is not None:
+        scores = scores.to(score_dtype).to(scores.dtype)
     attn = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.matmul(_acc(attn), _acc(v)).to(v.dtype)
 

@@ -26,7 +26,12 @@ through the plain forms — :func:`.attention.blocked_position_attention`
 with the same key block, :func:`.attention.channel_attention` — and
 returns their vector-Jacobian products.  There is no backward kernel, as
 there is no backward Pallas kernel.  An output therefore carries a
-``grad_fn`` whenever an input requires grad.
+``grad_fn`` whenever an input requires grad.  On bfloat16 inputs the
+forward takes the kernels' bf16 paths and the backward recomputes in the
+inputs' dtype, as the JAX ``custom_vjp`` does: the plain forms accumulate
+in float32 (the position form keeps p in float32 and upcasts v, where the
+forward kernel rounds p to bf16 before P·V), and the gradients come back
+in bf16.
 """
 
 from __future__ import annotations

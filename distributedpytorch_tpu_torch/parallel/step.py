@@ -12,6 +12,13 @@ multiplies the loss before the backward and divides the gradients after.
 The returned loss is a device scalar: reading it synchronises, so callers
 read it when they log.
 
+``precision`` (a ``train.precision.Policy``, ``None`` for float32) draws
+the two dtype boundaries of the mixed regime, as the JAX step does: the
+input is cast to the compute dtype before the model and the outputs to
+the loss dtype after it.  The model itself must be built in the compute
+dtype; its parameters are float32, so their gradients, the clip norm and
+the SGD momentum are float32 with nothing here to cast.
+
 Mesh sharding, the uint8/packbits/coalesced wires, multi-step dispatch and
 bucketed reduces are not ported yet.
 """
@@ -27,6 +34,7 @@ from torch import nn
 
 from ..ops.losses import multi_output_loss
 from ..train.optim import Schedule, apply_update
+from ..train.precision import Policy
 
 #: the batch keys the step consumes
 INPUT_KEY = "concat"
@@ -78,6 +86,18 @@ def device_batch(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor
             for k in (INPUT_KEY, TARGET_KEY, VOID_KEY) if k in batch}
 
 
+def _forward(model: nn.Module, inputs: torch.Tensor,
+             precision: Policy | None,
+             generator: torch.Generator | None = None
+             ) -> tuple[torch.Tensor, ...]:
+    """The model's outputs on ``inputs`` across the policy's boundaries:
+    inputs in the compute dtype, outputs in the loss dtype."""
+    if precision is None:
+        return model(inputs, generator)
+    return precision.cast_to_loss(
+        model(precision.cast_to_compute(inputs), generator))
+
+
 def _compute_loss(outputs: Sequence[torch.Tensor], batch: Mapping,
                   weights: Sequence[float] | None) -> torch.Tensor:
     """``multi_sigmoid``: the weighted balanced BCE of every output against
@@ -92,7 +112,8 @@ def _compute_loss(outputs: Sequence[torch.Tensor], batch: Mapping,
 
 def make_train_step(loss_weights: Sequence[float] | None = None,
                     accum_steps: int = 1, loss_scale: float = 1.0,
-                    grad_clip_norm: float | None = None
+                    grad_clip_norm: float | None = None,
+                    precision: Policy | None = None
                     ) -> Callable[[TrainState, Mapping], torch.Tensor]:
     """``(state, host batch) -> loss``: one optimizer update of ``state``
     in place; ``grad_clip_norm`` clips the trainable gradients' global norm
@@ -110,7 +131,8 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
         losses = []
         for i in range(accum_steps):
             part = {k: v[i * micro:(i + 1) * micro] for k, v in data.items()}
-            outputs = model(part[INPUT_KEY], state.generator)
+            outputs = _forward(model, part[INPUT_KEY], precision,
+                               state.generator)
             loss = _compute_loss(outputs, part, loss_weights)
             (loss * loss_scale).backward()
             losses.append(loss.detach())
@@ -127,17 +149,20 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
     return step
 
 
-def make_eval_step(loss_weights: Sequence[float] | None = None
+def make_eval_step(loss_weights: Sequence[float] | None = None,
+                   precision: Policy | None = None
                    ) -> Callable[[TrainState, Mapping],
                                  tuple[tuple[torch.Tensor, ...], torch.Tensor]]:
     """``(state, host batch) -> (logits, loss)`` in eval mode: the model's
-    three NCHW logit maps and the loss, as device tensors."""
+    three NCHW logit maps and the loss, as device tensors.  Under
+    ``precision`` the forward runs in the compute dtype, the loss on the
+    outputs upcast to the loss dtype."""
 
     def step(state: TrainState, batch: Mapping):
         model = state.model.eval()
         data = device_batch(batch, state.device)
         with torch.inference_mode():
-            outputs = model(data[INPUT_KEY])
+            outputs = _forward(model, data[INPUT_KEY], precision)
             return outputs, _compute_loss(outputs, data, loss_weights)
 
     return step

@@ -10,10 +10,13 @@ relax border shaved.
 
 The forward runs on CUDA unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU request the constructor raises rather than
-quietly running on the CPU.  A ``Predictor`` applies the float32 precision
-policy (``train/precision.py``: no TF32 in matrix products or cuDNN
-convolutions).  ``Predictor.from_run`` serves the weights of a run the
-port's ``Trainer`` wrote.
+quietly running on the CPU.  A ``Predictor`` turns TF32 off
+(``train/precision.py``); its ``dtype`` is the compute dtype of the
+forward — ``bfloat16`` computes in bf16 on float32 parameters, as the JAX
+package's ``dtype`` does, and never casts the module's weights.
+``Predictor.from_run`` serves the weights of a run the port's ``Trainer``
+wrote, in the run's precision: a ``train.precision=bfloat16`` run serves
+in bf16.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 
 from . import imaging
 from .data import guidance as guidance_lib
-from .train.precision import apply_policy
+from .train.precision import apply_policy, precision_policy, torch_dtype
 from .utils.helpers import crop2fullmask, crop_from_bbox, get_bbox
 
 
@@ -124,8 +127,9 @@ class Predictor:
                              f"({' | '.join(guidance_lib.POINT_GUIDANCE)})")
         self.device = resolve_device(device)
         apply_policy("float32")
-        self.dtype = dtype
-        self.model = model.to(device=self.device, dtype=dtype).eval()
+        self.dtype = torch_dtype(dtype)
+        self.model = model.to(device=self.device).eval()
+        self.model.set_compute_dtype(self.dtype)
         self.resolution = tuple(resolution)
         self.relax = relax
         self.zero_pad = zero_pad
@@ -139,12 +143,13 @@ class Predictor:
               dtype: torch.dtype = torch.float32, **kwargs) -> "Predictor":
         """A predictor on DANet(nclass=1, ``backbone``, output stride 8) at
         ``size``², every weight drawn from ``torch.Generator`` seeded with
-        ``seed`` — no checkpoint needed."""
+        ``seed`` — no checkpoint needed; ``dtype`` is the compute dtype
+        (the weights are float32)."""
         from .models import build_model
 
         device = resolve_device(device)
         model = build_model("danet", nclass=1, backbone=backbone,
-                            output_stride=8)
+                            output_stride=8, dtype=dtype)
         _randomize_(model, torch.Generator().manual_seed(seed))
         return cls(model, resolution=(size, size), device=device, dtype=dtype,
                    **kwargs)
@@ -157,7 +162,8 @@ class Predictor:
         ``config.json`` and a committed checkpoint — ``step`` from the
         latest slot, or by default the best checkpoint (the latest when
         there is no best yet), as the JAX package's ``from_run`` does.
-        Crop size, relax, zero padding, alpha and guidance come from the
+        Crop size, relax, zero padding, alpha, guidance and the compute
+        dtype (``train.precision``, else ``model.dtype``) come from the
         run's config unless given."""
         from .models import build_model
         from .train.checkpoint import CheckpointManager
@@ -170,12 +176,16 @@ class Predictor:
         mgr = CheckpointManager(os.path.join(run_dir, "checkpoints"))
         best = step is None and bool(mgr.committed_steps(best=True))
         payload, _ = mgr.load(step, best=best)
+        policy = precision_policy(cfg.train.precision)
+        dtype = policy.compute_dtype if policy else cfg.model.dtype
         model = build_model(cfg.model.name, nclass=cfg.model.nclass,
                             backbone=cfg.model.backbone,
                             output_stride=cfg.model.output_stride,
                             attention_impl=cfg.model.attention_impl,
-                            in_channels=cfg.model.in_channels)
+                            in_channels=cfg.model.in_channels, dtype=dtype,
+                            pam_score_dtype=cfg.model.pam_score_dtype)
         model.load_state_dict(payload["model"], strict=True)
+        kwargs.setdefault("dtype", dtype)
         kwargs.setdefault("resolution", tuple(cfg.data.crop_size))
         kwargs.setdefault("relax", cfg.data.relax)
         kwargs.setdefault("zero_pad", cfg.data.zero_pad)

@@ -15,7 +15,8 @@ The model is DANet with random weights from a seed (``--fresh-init
 SIZE:BACKBONE:SEED``), a saved ``state_dict`` of the port's DANet
 (``--state-dict PTH``), or a training run of the port (``--run-dir RUN``,
 its best checkpoint, or ``--step N``).  It runs on CUDA unless ``--device
-cpu``, in float32 (no TF32).
+cpu``, in float32 with TF32 off, or in the run's precision with
+``--run-dir`` (a bf16 run serves in bf16 on its float32 weights).
 SIGTERM/SIGINT stop the server, fail the queued requests and exit 0.
 """
 
@@ -201,6 +202,7 @@ def main(argv: list[str] | None = None) -> int:
     signal.signal(signal.SIGINT, on_signal)
     print(json.dumps({"serving": f"http://{args.host}:{httpd.server_port}",
                       "device": str(predictor.device),
+                      "dtype": str(predictor.dtype).removeprefix("torch."),
                       "buckets": list(service.buckets),
                       "resolution": list(predictor.resolution)}), flush=True)
     try:

@@ -12,7 +12,15 @@ Layout under the manager's directory::
 
 Each save is written into a temporary directory and renamed into place,
 then the ``COMMITTED.json`` ledger is rewritten atomically, so a step
-named there was complete on disk.  Saves are synchronous.
+named there was complete on disk.  Saves are synchronous.  A restore that
+is not pinned to a step falls back from an unreadable newest checkpoint
+(a file torn after its commit) to the next older committed one, loudly,
+and records the skipped steps in ``last_restore_fallback``.
+
+The meta dict of a save carries ``step`` and ``best_metric``, and what the
+trainer adds: ``epoch`` (the last completed epoch), and for a save made on
+preemption ``interrupted_epoch``, ``epoch_steps_done``, ``train_batch``,
+``seed`` and ``echo`` — what a resume reads to continue mid-epoch.
 """
 
 from __future__ import annotations
@@ -57,13 +65,38 @@ def param_digest(state_dict) -> str:
     return h.hexdigest()
 
 
-def next_run_dir(work_dir: str) -> str:
-    """Create and return ``work_dir/run_<N>``, N one past the highest."""
-    ids = [int(m.group(1)) for r in glob.glob(os.path.join(work_dir, "run_*"))
-           if (m := re.search(r"run_(\d+)$", r))]
-    path = os.path.join(work_dir, f"run_{max(ids) + 1 if ids else 0}")
+def _run_indices(work_dir: str) -> list[tuple[int, str]]:
+    """``(N, path)`` of every ``run_<N>`` under ``work_dir``, by N."""
+    return sorted((int(m.group(1)), r)
+                  for r in glob.glob(os.path.join(work_dir, "run_*"))
+                  if (m := re.search(r"run_(\d+)$", r)))
+
+
+def next_run_dir(work_dir: str, resume_run: int | None = None) -> str:
+    """Create and return ``work_dir/run_<N>``: N one past the highest, or
+    ``resume_run`` when given (the reference pinned ``run_0`` to resume)."""
+    if resume_run is None:
+        runs = _run_indices(work_dir)
+        resume_run = runs[-1][0] + 1 if runs else 0
+    path = os.path.join(work_dir, f"run_{resume_run}")
     os.makedirs(path, exist_ok=True)
     return path
+
+
+def latest_checkpoint_dir(work_dir: str,
+                          exclude_run: str | None = None) -> str | None:
+    """The ``checkpoints`` directory of the highest-numbered ``run_<N>``
+    under ``work_dir`` with a committed step, skipping ``exclude_run`` (the
+    caller's own new run); ``None`` when no run has one.  The target of
+    ``resume=auto``."""
+    skip = os.path.abspath(exclude_run) if exclude_run else None
+    for _, run in reversed(_run_indices(work_dir)):
+        if os.path.abspath(run) == skip:
+            continue
+        ckpt = os.path.join(run, "checkpoints")
+        if CheckpointManager.committed_in(ckpt):
+            return ckpt
+    return None
 
 
 def _steps(slot_dir: str) -> list[int]:
@@ -84,6 +117,8 @@ class CheckpointManager:
         self.keep_latest = keep_latest
         self.best_metric = best_metric_init
         self.digest = digest
+        #: the steps the last unpinned restore skipped as unreadable
+        self.last_restore_fallback: list[int] = []
 
     def _slot(self, best: bool) -> str:
         return os.path.join(self.directory, "best" if best else "latest")
@@ -103,13 +138,18 @@ class CheckpointManager:
         for s in _steps(slot)[:-keep] if keep > 0 else []:
             shutil.rmtree(os.path.join(slot, str(s)), ignore_errors=True)
 
-    def committed_steps(self, best: bool = False) -> list[int]:
-        """The steps the ledger records in the requested slot."""
+    @staticmethod
+    def committed_in(directory: str, best: bool = False) -> list[int]:
+        """The steps the ledger under ``directory`` records in the slot."""
         try:
-            with open(os.path.join(self.directory, _LEDGER)) as f:
+            with open(os.path.join(directory, _LEDGER)) as f:
                 return list(json.load(f).get("best" if best else "latest", ()))
         except (OSError, ValueError):
             return []
+
+    def committed_steps(self, best: bool = False) -> list[int]:
+        """The steps the ledger records in the requested slot."""
+        return self.committed_in(self.directory, best)
 
     def save(self, step: int, state, metric: float | None = None,
              extra: dict | None = None) -> bool:
@@ -165,8 +205,28 @@ class CheckpointManager:
     def restore(self, state, step: int | None = None,
                 best: bool = False) -> dict:
         """Load a committed checkpoint into ``state`` (model, optimizer,
-        update count, generator); returns its meta."""
-        payload, meta = self.load(step, best=best, map_location=state.device)
+        update count, generator); returns its meta.  Without ``step``, the
+        newest committed one that reads back; the unreadable ones skipped
+        on the way are in ``last_restore_fallback``.  A pinned ``step``
+        never falls back."""
+        candidates = [step] if step is not None else \
+            sorted(self.committed_steps(best=best), reverse=True)
+        if not candidates:
+            raise FileNotFoundError(f"no committed checkpoint under "
+                                    f"{self.directory} ({'best' if best else 'latest'})")
+        self.last_restore_fallback = []
+        for i, s in enumerate(candidates):
+            try:
+                payload, meta = self.load(s, best=best,
+                                          map_location=state.device)
+                break
+            except Exception as e:
+                if step is not None or i == len(candidates) - 1:
+                    raise
+                print(f"warning: checkpoint step {s} is unreadable "
+                      f"({type(e).__name__}: {e}; torn after commit) — "
+                      f"falling back to step {candidates[i + 1]}", flush=True)
+                self.last_restore_fallback.append(int(s))
         state.model.load_state_dict(payload["model"], strict=True)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])

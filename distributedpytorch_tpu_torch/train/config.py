@@ -10,7 +10,9 @@ LR, 100 epochs, eval every epoch at thresholds {0.3, 0.5, 0.8}.
 
 The port runs part of what these knobs select.  :func:`unported_knobs`
 names every knob set away from its default that the port does not run
-yet; the ``Trainer`` raises on them instead of ignoring them.  What each
+yet; the ``Trainer`` raises on them instead of ignoring them.  A few knobs
+are ported for some values only (:data:`PORTED_VALUES`): any other value
+is refused the same way.  What each
 knob means is documented at the JAX package's field of the same name.
 """
 
@@ -336,25 +338,32 @@ UNPORTED = (
     "data.decode_cache", "data.steps_per_dispatch", "data.echo",
     "data.governor", "data.governor_target", "data.governor_window",
     "data.max_echo",
-    "model.name", "model.remat", "model.remat_policy", "model.bn_fp32_stats",
-    "model.dtype", "model.pam_block_size", "model.pam_impl",
-    "model.pam_score_dtype", "model.quantization", "model.moe_experts",
-    "model.guidance_inject",
-    "train.precision", "train.reduce_buckets",
+    "model.name", "model.remat_policy", "model.bn_fp32_stats",
+    "model.pam_block_size", "model.pam_impl", "model.quantization",
+    "model.moe_experts", "model.guidance_inject",
+    "train.reduce_buckets",
     "optim.name",
     "parallel.strategy", "parallel.data", "parallel.model",
     "parallel.hbm_budget_gb",
     "mesh.data", "mesh.model", "mesh.slices", "mesh.process_is_granule",
     "mesh.shard_params", "mesh.shard_opt_state",
-    "checkpoint.warm_start", "checkpoint.warm_start_partial",
     "sentinel.enabled", "sentinel.monitor_grads",
     "task", "val_overlap", "eval_tta_scales", "eval_tta_flip",
-    "eval_full_res", "resume", "profile_epoch",
+    "eval_full_res", "profile_epoch",
 )
+
+#: knobs the port runs for these values only; others are refused
+PORTED_VALUES = {
+    "model.dtype": ("float32", "bfloat16"),
+    "model.pam_score_dtype": (None, "float32", "bfloat16"),
+}
 
 
 def unported_knobs(cfg: Config) -> list[str]:
     """``knob=value`` for every :data:`UNPORTED` knob that ``cfg`` sets
-    away from its default."""
+    away from its default, and every :data:`PORTED_VALUES` knob set to a
+    value outside its list."""
     got, default = flatten(cfg), flatten(Config())
-    return [f"{k}={got[k]!r}" for k in UNPORTED if got[k] != default[k]]
+    return [f"{k}={got[k]!r}" for k in UNPORTED if got[k] != default[k]] + \
+        [f"{k}={got[k]!r}" for k, ok in PORTED_VALUES.items()
+         if got[k] not in ok]

@@ -238,7 +238,11 @@ class TestNoSilentCpu:
                                       relax=10)
         bf16 = predict.Predictor.fresh(64, "resnet18", seed=5, device="cpu",
                                        relax=10, dtype=torch.bfloat16)
-        assert next(bf16.model.parameters()).dtype == torch.bfloat16
+        # bf16 compute on float32 master weights, as the JAX package's dtype
+        assert all(p.dtype == torch.float32 for p in bf16.model.parameters())
+        x = torch.rand(1, 4, 64, 64) * 255
+        with torch.no_grad():
+            assert all(o.dtype == torch.bfloat16 for o in bf16.model(x))
         got, want = bf16.predict(img, POINTS), f32.predict(img, POINTS)
         assert got.dtype == np.float32 and np.isfinite(got).all()
         # bf16 keeps ~3 significant digits through 20 layers

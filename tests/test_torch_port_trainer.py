@@ -75,7 +75,7 @@ class TestConfig:
         assert jax_config.to_json(jax_config.from_json(config.to_json(port))) \
             == config.to_json(port)
 
-    @pytest.mark.parametrize("knob", ["train.precision=bfloat16",
+    @pytest.mark.parametrize("knob", ["model.bn_fp32_stats=false",
                                       "data.source=packed", "mesh.model=2",
                                       "model.guidance_inject=head",
                                       "sentinel.enabled=true"])
@@ -94,8 +94,9 @@ def test_precision_policy():
     precision.apply_policy("float32")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        precision.apply_policy("bfloat16")
+    # bf16 compute keeps TF32 off for its float32 islands too
+    assert precision.apply_policy("bfloat16").compute_dtype == "bfloat16"
+    assert not torch.backends.cudnn.allow_tf32
     with pytest.raises(ValueError):
         precision.apply_policy("fp8")
 
