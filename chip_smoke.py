@@ -79,20 +79,47 @@ it), printing no result.  The phases, each raising on failure:
              bitwise the checkpoint's model; (g) a ``Trainer`` warm-started
              from its weights holds them bit for bit, at step 0 with an
              empty optimizer.
+7. host    — the host-data layer (phases 6h-6j): (h) each op of the host
+             library (``csrc/host_image_ops.cpp``, built with the host C++
+             compiler) against its numpy form at the main path's shapes,
+             ms of both and max |diff| within ``HOST_OP_TOL``, and ms per
+             sample of the default stack on the library, on the numpy
+             forms and with the fused crop + resize; (i) ms per
+             batch of 16 at 512² from a 375x500 fake VOC set for the
+             threaded loader on the numpy forms and on the library, the
+             worker-process loader (``data.loader=grain``) at 2, 4 and 8
+             processes (capped by the CPU affinity), with
+             ``data.fused_crop_resize``, and on an on-disk JPEG/PNG tree with
+             ``data.decode_cache`` 0 and 64 (only where PIL imports), the
+             worker loader's samples bitwise the threaded loader's, the
+             peak ``/dev/shm`` use, no worker left after each; (j) the bf16
+             B = 16 step fed by the worker loader (data wait per step, step
+             ms, images/s, the stream's idle share between steps; finite
+             losses, one launch per kernel per step), then the worker-fed
+             bf16 CLI fit (``data.loader=grain data.num_workers=2
+             data.fused_crop_resize=true``) SIGTERMed after its first step
+             line and resumed: the straight run's final step, no batch
+             twice, no process of either fit's process group left.
 
-The launch counters are zeroed just before phase 3 and read after phase 5
-(the serving path), zeroed by the trainer when its fit starts and read
-from its ``fit_summary.json`` (the training paths, f32 and bf16, the latter
-summed over the preempted and resumed runs), and zeroed just before the
-bf16 run is served (the bf16 serving path): every kernel must have run on
-each.  The second-to-last line is the ``kernels`` JSON record; the
-last line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train``) runs part of the script for development and then
-prints neither record.
+The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
+whether PIL imports and cv2 and grain are installed).  The launch counters
+are zeroed just before phase 3 and read after phase 5 (the serving path),
+zeroed by the trainer when its fit starts and read from its
+``fit_summary.json`` (the training paths, f32, bf16 and worker-fed, the
+latter two summed over the preempted and resumed runs), and zeroed just
+before the bf16 run is served (the bf16 serving path): every kernel must
+have run on each.  Every bounded check of phases 6f-6j records its
+smallest limit / value, printed as the ``margins`` line before the
+records.  The second-to-last line is the ``kernels`` JSON record; the last
+line is the device record.  ``--phases train`` (or any comma list of
+``kernels,serve,train,host``) runs part of the script for development and
+then prints neither record.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import statistics
@@ -123,6 +150,26 @@ SOURCE = "distributedpytorch_tpu_torch/csrc/attention.cu"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: every bounded check's smallest limit / value over this run (inf where
+#: the value was 0); printed as the ``margins`` line before the records
+MARGINS: dict[str, float] = {}
+
+
+def note_margin(name: str, value: float, limit: float) -> float:
+    """Record ``limit / value`` as ``name``'s margin (the smallest seen)."""
+    ratio = math.inf if value == 0 else limit / value
+    MARGINS[name] = min(MARGINS.get(name, math.inf), ratio)
+    return ratio
+
+
+def check(name: str, value: float, limit: float) -> None:
+    """Raise unless ``value <= limit``; print both and the margin."""
+    ratio = note_margin(name, value, limit)
+    log(f"check {name}: {value:.3e} <= {limit:.3e} (limit/value {ratio:.3g})")
+    if not value <= limit:
+        raise AssertionError(f"{name}: {value:.3e} > {limit:.3e}")
 
 
 def card_peaks(name: str) -> tuple[str, tuple[float, float, float, float]]:
@@ -613,10 +660,20 @@ def breakdown(torch, pred, image, clicks) -> None:
     of the top CUDA kernels of one B = 1 forward."""
     import numpy as np
 
+    from distributedpytorch_tpu_torch import native_ops
+
     prep_ms = _host_ms(lambda: pred.prepare(image, clicks[0]))
+    native_ops.reset_calls()
     concat, bbox = pred.prepare(image, clicks[0])
+    prep_calls = dict(native_ops.calls)
     prob = pred.forward_prepared(concat)[0]
     paste_ms = _host_ms(lambda: pred.paste_back(prob, bbox, image.shape[:2]))
+    with numpy_forms():
+        prep_np_ms = _host_ms(lambda: pred.prepare(image, clicks[0]))
+        paste_np_ms = _host_ms(lambda: pred.paste_back(prob, bbox, image.shape[:2]))
+    log(f"breakdown: prepare {prep_ms:.2f} ms on the host library ({prep_np_ms:.2f} "
+        f"ms on the numpy forms; library calls of one prepare {prep_calls}), "
+        f"paste_back {paste_ms:.2f} ms ({paste_np_ms:.2f} ms on the numpy forms)")
     stack = {b: np.stack([concat] * b) for b in (1, 4)}
     fwd = {}
     for impl in ("auto", "xla"):
@@ -1416,6 +1473,9 @@ def phase_train_resume(torch, ca, Predictor,
             rows.append((diff / max(moved, 1e-300), diff, key))
             limit = max(RESUME_MOVE_TOL * moved,
                         RESUME_SPREAD_FACTOR * spread.abs().max().item()) + ulps
+            note_margin("6f resumed vs straight, per tensor", diff, limit)
+            note_margin("6f resumed vs straight, per tensor, movement term alone",
+                        diff, RESUME_MOVE_TOL * moved + ulps)
             if not diff <= limit:
                 failures.append(f"{key}: {diff:.3e} > {limit:.3e} ({RESUME_MOVE_TOL} x "
                                 f"its movement {moved:.3e}, {RESUME_SPREAD_FACTOR} x the "
@@ -1429,6 +1489,11 @@ def phase_train_resume(torch, ca, Predictor,
             + f"; L2 distance {l2['resumed']:.3e} against the straight run's L2 "
             f"movement {l2['moved']:.3e}; a second straight run's L2 distance from "
             f"the first {l2['again']:.3e}")
+        note_margin("6f resumed vs straight, L2", l2["resumed"],
+                    RESUME_L2_TOL * l2["moved"])
+        log("train resume: margins (limit / value, smallest over the tensors): " +
+            ", ".join(f"{k[len('6f resumed vs straight, '):]} {v:.3g}"
+                      for k, v in MARGINS.items() if k.startswith("6f")))
         if not l2["resumed"] <= RESUME_L2_TOL * l2["moved"]:
             failures.append(f"L2 distance {l2['resumed']:.3e} > {RESUME_L2_TOL} x the "
                             f"straight run's movement {l2['moved']:.3e}")
@@ -1492,11 +1557,574 @@ def phase_train_resume(torch, ca, Predictor,
         shutil.rmtree(root, ignore_errors=True)
 
 
+def environment_line() -> str:
+    """CPU affinity, /dev/shm size and free space, host RAM, and whether
+    PIL imports and cv2 and grain are installed (found, not imported)."""
+    import importlib.util
+    import os
+    import platform
+
+    cpus = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else os.cpu_count()
+    try:
+        st = os.statvfs("/dev/shm")
+        shm = (f"/dev/shm {st.f_blocks * st.f_frsize / 2**20:.0f} MiB, "
+               f"{st.f_bavail * st.f_frsize / 2**20:.0f} MiB free")
+    except OSError:
+        shm = "/dev/shm absent"
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") / 2**30
+    avail = "?"
+    with contextlib.suppress(OSError, ValueError, IndexError):
+        with open("/proc/meminfo") as f:
+            avail = next(f"{int(line.split()[1]) / 2**20:.1f}" for line in f
+                         if line.startswith("MemAvailable"))
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} imports"
+    except ImportError:
+        pil = "PIL does not import"
+    found = ", ".join(f"{m} {'installed' if importlib.util.find_spec(m) else 'absent'}"
+                      for m in ("cv2", "grain"))
+    return (f"env: CPU affinity {cpus} (os.cpu_count {os.cpu_count()}), {shm}, "
+            f"host RAM {ram:.1f} GiB ({avail} GiB available), {pil}, {found}; "
+            f"python {platform.python_version()}")
+
+
+@contextlib.contextmanager
+def numpy_forms():
+    """Within the block the host ops take their numpy forms
+    (``DPTPU_NATIVE=0``), in this process and in workers started in it."""
+    import os
+
+    old = os.environ.get("DPTPU_NATIVE")
+    os.environ["DPTPU_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DPTPU_NATIVE"]
+        else:
+            os.environ["DPTPU_NATIVE"] = old
+
+
+def _best_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``reps`` calls of ``fn`` after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def host_image(size: tuple[int, int], seed: int = 0):
+    """A float32 RGB image in [0, 255] with smooth structure plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size[0], 0:size[1]].astype(np.float32)
+    img = np.stack([127 + 100 * np.sin(xx / 17.0 + c) * np.cos(yy / 23.0 - c)
+                    for c in range(3)], -1)
+    return np.clip(img + rng.normal(0, 10, img.shape), 0, 255).astype(np.float32)
+
+
+#: native vs numpy bounds of phase 6h (max |diff| on the [0, 255] scale for
+#: images, [0, 1] for the heatmaps; 0 where the op picks pixels)
+HOST_OP_TOL = {"resize": 1e-3, "resize_nearest": 0.0, "warp_cubic_uint8": 1.0,
+               "warp_nearest": 0.0, "crop_resize": 1e-3, "gaussian_hm": 1e-5,
+               "nellipse": 1e-5, "hflip": 0.0}
+
+
+def phase_host_ops(src: tuple[int, int] = (375, 500),
+                   crop: tuple[int, int] = (512, 512), reps: int = 5,
+                   tree=None, samples: int = 8) -> dict:
+    """6h: each host-library op against its numpy form at the main path's
+    shapes (a VOC-sized image, its crop resized to ``crop``): ms of both
+    and max |diff| within :data:`HOST_OP_TOL`; then ms per sample of the
+    default train stack over ``tree`` (a fake VOC train split at ``src``)
+    in one thread, on the library, on the numpy forms, and fused."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch import imaging, native_ops
+    from distributedpytorch_tpu_torch.data import guidance
+    from distributedpytorch_tpu_torch.utils import helpers
+
+    t0 = time.perf_counter()
+    native_ops.load()
+    log(f"host ops: library {native_ops.LIBRARY} built or found in "
+        f"{time.perf_counter() - t0:.2f} s")
+    h, w = src
+    img = host_image(src)
+    img8 = img.astype(np.uint8)
+    mask = np.zeros(src, np.float32)
+    mask[h // 5:4 * h // 5, w // 4:3 * w // 4] = 1.0
+    window = (-w // 12, h // 12, 3 * w // 5, 9 * h // 10)
+    big = host_image((max(crop[0] + 188, h), max(crop[1] + 138, w)), seed=1)
+    crop_img = helpers.crop_from_bbox(img, window, zero_pad=True)
+    m = imaging.rotation_matrix((w / 2, h / 2), 13.7, 1.1)
+    pts = np.array([[crop[1] * 0.1, crop[0] * 0.5], [crop[1] * 0.5, crop[0] * 0.12],
+                    [crop[1] * 0.9, crop[0] * 0.45], [crop[1] * 0.55, crop[0] * 0.9]])
+    grid = (np.arange(crop[1]), np.arange(crop[0]))
+    cases = [  # (name, tolerance key, what, function)
+        ("resize", "resize", f"cubic {window[3] - window[1] + 1}x"
+         f"{window[2] - window[0] + 1}x3 -> {crop[0]}x{crop[1]}",
+         lambda: imaging.resize(crop_img, crop, imaging.CUBIC)),
+        ("resize", "resize", f"cubic {big.shape[0]}x{big.shape[1]}x3 -> "
+         f"{crop[0]}x{crop[1]}", lambda: imaging.resize(big, crop, imaging.CUBIC)),
+        ("resize", "resize_nearest", f"nearest {h}x{w} mask -> {crop[0]}x{crop[1]}",
+         lambda: imaging.resize(mask, crop, imaging.NEAREST)),
+        ("warp_affine", "warp_cubic_uint8", f"cubic {h}x{w}x3 uint8, 13.7 deg x 1.1",
+         lambda: imaging.warp_affine(img8, m, src, imaging.CUBIC, 0)),
+        ("warp_affine", "warp_nearest", f"nearest {h}x{w} mask, border 255",
+         lambda: imaging.warp_affine(mask, m, src, imaging.NEAREST, 255)),
+        ("crop_resize", "crop_resize", f"cubic window {window} of {h}x{w}x3 -> "
+         f"{crop[0]}x{crop[1]}", lambda: imaging.crop_resize(img, window, crop,
+                                                             imaging.CUBIC)),
+        ("gaussian_hm", "gaussian_hm", f"make_gt, 4 points, {crop[0]}x{crop[1]}",
+         lambda: helpers.make_gt(np.zeros(crop, np.float32), pts)),
+        ("nellipse", "nellipse", f"compute_nellipse, 4 points, {crop[0]}x{crop[1]}",
+         lambda: guidance.compute_nellipse(*grid, pts)),
+        ("hflip", "hflip", f"{h}x{w}x3 float32", lambda: imaging.flip_h(img)),
+    ]
+    out = {}
+    for op, tol_key, what, fn in cases:
+        native_ops.reset_calls()
+        got = fn()
+        if native_ops.calls[op] < 1:
+            raise AssertionError(f"{op} did not run on the host library: "
+                                 f"{native_ops.calls}")
+        with numpy_forms():
+            want = fn()
+            ms_np = _best_ms(fn, max(1, reps // 2))
+        ms = _best_ms(fn, reps)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{op} ({what}): {got.shape} {got.dtype} vs the "
+                                 f"numpy form's {want.shape} {want.dtype}")
+        diff = float(np.abs(got.astype(np.float64) - want).max())
+        log(f"host op: {op} ({what}): {ms:.3f} ms on the library, {ms_np:.3f} ms "
+            f"in the numpy form")
+        check(f"6h {tol_key}, library vs numpy form, max |diff|", diff,
+              HOST_OP_TOL[tol_key])
+        out[f"{op} ({what})"] = {"ms": ms, "numpy_ms": ms_np, "max_abs_diff": diff}
+
+    from distributedpytorch_tpu_torch.data import pipeline
+
+    tree = tree if tree is not None else host_tree(4, src)
+    per_sample = {}
+    for label, fused, forms in (("on the library", False, contextlib.nullcontext),
+                                ("on the numpy forms", False, numpy_forms),
+                                ("fused crop + resize, on the library", True,
+                                 contextlib.nullcontext)):
+        ds = host_dataset(tree, crop, fused=fused)
+        n = min(samples, len(ds))
+        with forms():
+            t0 = time.perf_counter()
+            for i in range(n):
+                ds.__getitem__(i, rng=pipeline.sample_rng(0, 0, i))
+            per_sample[label] = (time.perf_counter() - t0) * 1e3 / n
+    log(f"host data: ms per sample of the default train stack at {crop[0]}x{crop[1]} "
+        f"from {src[0]}x{src[1]} in one thread: " + ", ".join(
+            f"{v:.1f} {k}" for k, v in per_sample.items()))
+    out["ms per sample"] = per_sample
+    return out
+
+
+def host_tree(n_images: int, size: tuple[int, int], seed: int = 0):
+    """An in-memory fake VOC train split of ``n_images`` at ``size``."""
+    from distributedpytorch_tpu_torch.data import fake
+
+    return fake.make_fake_voc(n_images=n_images + 1, size=size, n_val=1, seed=seed)
+
+
+def host_dataset(tree, crop: tuple[int, int], fused: bool = False,
+                 decode_cache: int = 0):
+    """The train split of ``tree`` through the default train stack."""
+    from distributedpytorch_tpu_torch.data import pipeline, voc
+
+    return voc.VOCInstanceSegmentation(
+        tree, split="train", area_thres=0, decode_cache=decode_cache,
+        transform=pipeline.build_train_transform(crop_size=crop,
+                                                 fused_crop_resize=fused))
+
+
+def write_tree(tree, root: Path) -> None:
+    """``tree`` as a VOC2012 directory: JPEG images, PNG masks (PIL)."""
+    from PIL import Image
+
+    voc = root / "VOCdevkit" / "VOC2012"
+    dirs = {k: voc / d for k, d in (("image", "JPEGImages"),
+                                    ("instances", "SegmentationObject"),
+                                    ("classes", "SegmentationClass"),
+                                    ("sets", "ImageSets/Segmentation"))}
+    for d in dirs.values():
+        d.mkdir(parents=True, exist_ok=True)
+    ids = tree.split_ids("train")
+    (dirs["sets"] / "train.txt").write_text("\n".join(ids))
+    for im_id in ids:
+        Image.fromarray(tree.image(im_id)).save(dirs["image"] / f"{im_id}.jpg",
+                                                quality=90)
+        Image.fromarray(tree.instances(im_id)).save(dirs["instances"] / f"{im_id}.png")
+        Image.fromarray(tree.classes(im_id)).save(dirs["classes"] / f"{im_id}.png")
+
+
+class ShmPeak:
+    """Samples the used bytes of ``/dev/shm`` every 20 ms in a thread; the
+    peak above the level at the start is :attr:`peak` (None without
+    ``/dev/shm``)."""
+
+    def __init__(self):
+        import os
+
+        self._os = os
+        self.peak = None
+        self._stop = threading.Event()
+        self._base = self._used()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _used(self):
+        try:
+            st = self._os.statvfs("/dev/shm")
+        except OSError:
+            return None
+        return (st.f_blocks - st.f_bfree) * st.f_frsize
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            used = self._used()
+            if used is not None and self._base is not None:
+                self.peak = max(self.peak or 0, used - self._base)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def no_children(where: str) -> None:
+    import multiprocessing
+
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"worker processes left after {where}: {left}")
+
+
+def loader_ms(loader, n: int) -> tuple[float, float, list]:
+    """(ms to the first batch, ms per batch after it, the batches) over the
+    first ``n`` batches of ``loader``'s epoch 0."""
+    loader.set_epoch(0)
+    batches = []
+    it = iter(loader)
+    t0 = time.perf_counter()
+    try:
+        for batch in it:
+            batches.append(batch)
+            if len(batches) == 1:
+                t1 = time.perf_counter()
+            if len(batches) == n:
+                break
+    finally:
+        it.close()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(1, len(batches) - 1), batches
+
+
+def phase_loaders(tree=None, n_images: int = 64,
+                  size: tuple[int, int] = (375, 500),
+                  crop: tuple[int, int] = (512, 512), batch: int = 16,
+                  n_samples: int = 256, workers: tuple[int, ...] = (2, 4, 8),
+                  decode_cache: int = 64, numpy_batches: int = 3) -> dict:
+    """6i: ms per batch of ``batch`` for the threaded loader on the numpy
+    forms and on the host library, the worker loader at each of
+    ``workers`` (capped by the CPU affinity), with the fused crop + resize,
+    and over an on-disk JPEG/PNG tree with and without the decode cache
+    (only where PIL imports); the worker loader's samples against the
+    threaded loader's, bit for bit; no worker left after any of them."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.data import grain_pipeline, pipeline
+
+    t0 = time.perf_counter()
+    tree = tree if tree is not None else host_tree(n_images, size)
+    dataset = Cycled(host_dataset(tree, crop), n_samples)
+    log(f"host data: in-memory fake VOC, {n_images} train images at {size[0]}x"
+        f"{size[1]}, {len(dataset.dataset)} objects cycled to {n_samples} samples, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    n_batches = n_samples // batch
+    results, shm = {}, {}
+
+    def run(label, loader, n=n_batches):
+        first, per, got = loader_ms(loader, n)
+        results[label] = per
+        log(f"host data: {per:.1f} ms per batch of {batch}, {label} "
+            f"({len(got)} batches; the first after {first:.1f} ms)")
+        no_children(label)
+        return got
+
+    with numpy_forms():
+        run("threads (2) + numpy forms",
+            pipeline.DataLoader(dataset, batch, shuffle=True, drop_last=True,
+                                seed=0, num_workers=2), numpy_batches)
+    run("threads (2) + host library",
+        pipeline.DataLoader(dataset, batch, shuffle=True, drop_last=True, seed=0,
+                            num_workers=2), 2 * numpy_batches)
+    cap = grain_pipeline.cpu_count()
+    counts = sorted({min(n, cap) for n in workers})
+    for n in counts:
+        loader = grain_pipeline.GrainDataLoader(dataset, batch, shuffle=True,
+                                                drop_last=True, seed=0,
+                                                num_workers=n)
+        with ShmPeak() as peak:
+            got = run(f"data.loader=grain, {n} processes + host library", loader)
+        shm[n] = peak.peak
+    # the worker loader's samples against the threaded loader's sample
+    # function, for the same (seed, epoch, index)
+    plan = loader.batch_plan()
+    checked = 0
+    for (_, idxs), b in list(zip(plan, got))[:2]:
+        for k, i in enumerate(idxs):
+            want = dataset.__getitem__(int(i), rng=pipeline.sample_rng(0, 0, i))
+            for key, val in want.items():
+                if key != "meta" and not np.array_equal(b[key][k], val):
+                    raise AssertionError(f"worker loader sample {i} differs from the "
+                                         f"threaded loader's in {key}")
+            checked += 1
+    log(f"check 6i worker vs threaded samples: {checked} samples of {counts[-1]} "
+        f"worker processes bitwise equal to the threaded loader's (exact)")
+    fused = Cycled(host_dataset(tree, crop, fused=True), n_samples)
+    run(f"data.loader=grain, {counts[-1]} processes, data.fused_crop_resize",
+        grain_pipeline.GrainDataLoader(fused, batch, shuffle=True, drop_last=True,
+                                       seed=0, num_workers=counts[-1]))
+    if importlib.util.find_spec("PIL") is None:
+        log("host data: PIL does not import here: the on-disk JPEG/PNG timing "
+            "with and without data.decode_cache is skipped")
+    else:
+        root = Path(tempfile.mkdtemp(prefix="chip_smoke_voc_"))
+        try:
+            write_tree(tree, root)
+            for cache in (0, decode_cache):
+                disk = Cycled(host_dataset(str(root), crop, decode_cache=cache),
+                              n_samples)
+                run(f"data.loader=grain, {counts[-1]} processes, on-disk "
+                    f"{size[0]}x{size[1]} JPEG/PNG tree, data.decode_cache={cache}",
+                    grain_pipeline.GrainDataLoader(disk, batch, shuffle=True,
+                                                   drop_last=True, seed=0,
+                                                   num_workers=counts[-1]))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    log("host data: peak /dev/shm use above its level at the start, by worker "
+        "count: " + ", ".join(f"{n}: {'not measured' if v is None else f'{v / 2**20:.1f} MiB'}"
+                              for n, v in shm.items()))
+    log("host data: " + json.dumps({k: round(v, 2) for k, v in results.items()}))
+    return results
+
+
+#: the worker-fed bf16 CLI fit of 6j, SIGTERMed after its first step line
+#: and resumed: the fake fixture's 11 train objects on 2 workers make
+#: batches of 2 from slices of 6 and 5, 5 steps an epoch
+WORKER_FIT_ARGS = ["--fake-data", "train.precision=bfloat16", "data.train_batch=2",
+                   "data.loader=grain", "data.num_workers=2",
+                   "data.fused_crop_resize=true", "epochs=2", "data.area_thres=0",
+                   "log_every_steps=1", "checkpoint.preempt_check_every=1"]
+
+
+def group_members(pgid: int) -> list[str]:
+    """Live (not zombie) processes of process group ``pgid``, from /proc."""
+    import os
+
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            out.append(f"{pid} {stat[stat.index('('):stat.rindex(')') + 1]} {fields[0]}")
+    return out
+
+
+def run_in_group(cmd: list[str], timeout: float = 600, on_line=None) -> tuple[int, str]:
+    """Run ``cmd`` in a new process group (its own session), stream its
+    output to ``on_line(proc, line)``, and fail if any process of the group
+    is still alive 10 s after it exits."""
+    proc = subprocess.Popen(cmd, cwd=REPO, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    out = []
+    try:
+        for line in proc.stdout:
+            out.append(line)
+            if on_line is not None:
+                on_line(proc, line)
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    deadline = time.perf_counter() + 10
+    while (left := group_members(proc.pid)) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    if left:
+        raise AssertionError(f"processes of {' '.join(cmd[1:4])} ... alive after it "
+                             f"exited: {left}")
+    return proc.returncode, "".join(out)
+
+
+def phase_train_workers(torch, ca, dataset, batch_size: int = 16,
+                        steps: int = 12, warm: int = 2) -> dict:
+    """6j: the bf16 train step at B = 16 fed by the worker loader at the
+    affinity-capped count; then the worker-fed bf16 CLI fit SIGTERMed and
+    resumed.  Returns the kernels' launches of the two fits."""
+    import shutil
+    import signal
+    import tempfile
+
+    from distributedpytorch_tpu_torch.data import grain_pipeline
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.parallel.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    workers = grain_pipeline.cpu_count()
+    loader = grain_pipeline.GrainDataLoader(dataset, batch_size, shuffle=True,
+                                            drop_last=True, seed=0,
+                                            num_workers=workers)
+    if len(loader) < steps:
+        raise AssertionError(f"{len(loader)} batches for {steps} steps")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("danet", dtype="bfloat16")
+    optimizer, schedule = make_optimizer(OptimConfig(), model, total_steps=100)
+    state = create_train_state(model, optimizer, schedule, 0, torch.device("cuda"))
+    step = make_train_step(precision=precision_policy("bfloat16"))
+    loader.set_epoch(0)
+    waits, events, losses = [], [], []
+    before = None
+    it = iter(loader)
+    try:
+        for k in range(steps):
+            if k == warm:
+                torch.cuda.synchronize()
+                before = dict(ca.launches)
+                t_loop = time.perf_counter()
+            t0 = time.perf_counter()
+            batch = next(it)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(state, batch))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_loop) * 1e3
+    finally:
+        it.close()
+    no_children("the worker-fed bf16 steps")
+    timed = steps - warm
+    rise = {k: ca.launches[k] - before[k] for k in before}
+    if any(n != timed for n in rise.values()):
+        raise AssertionError(f"{timed} worker-fed bf16 steps launched {rise}: want one "
+                             f"forward launch per kernel per step")
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError(f"non-finite losses: {torch.stack(losses).tolist()}")
+    dev = [s.elapsed_time(e) for s, e in events[warm:]]
+    gaps = [events[i][1].elapsed_time(events[i + 1][0])
+            for i in range(warm, steps - 1)]
+    span = events[warm][0].elapsed_time(events[-1][1])
+    log(f"train workers: bf16 B={batch_size} 512^2 fed by {workers} worker processes "
+        f"(data.loader=grain), {timed} steps after {warm}: {wall / timed:.1f} ms per "
+        f"step of the loop, {statistics.median(waits[warm:]):.1f} ms median data wait "
+        f"(all {', '.join(f'{w:.1f}' for w in waits[warm:])}), "
+        f"{statistics.median(dev):.1f} ms median device step (events around it); "
+        f"{batch_size * timed / wall * 1e3:.2f} images/s; the stream idle between "
+        f"steps {sum(gaps) / span:.4f} of the steps' span; launches {rise}")
+    del model, optimizer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_workers_"))
+    try:
+        cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *WORKER_FIT_ARGS,
+               f"work_dir={root}"]
+        log(f"train workers fit: {' '.join(cmd[1:])}")
+
+        def stop_after_first_step(proc, line):
+            if line.startswith("[step 1] train/loss=") and proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                log("train workers fit: SIGTERM after its first step line")
+
+        t0 = time.perf_counter()
+        rc, out = run_in_group(cmd, on_line=stop_after_first_step)
+        if rc != 0:
+            raise AssertionError(f"the preempted worker-fed fit exited {rc}:\n{out[-3000:]}")
+        (run_a,) = root.glob("run_*")
+        a = _run_record(run_a)
+        if not a["summary"]["preempted"]:
+            raise AssertionError(f"the worker-fed fit was not preempted: {a['summary']}")
+        rc, out = run_in_group(cmd + ["resume=auto"])
+        if rc != 0:
+            raise AssertionError(f"the resumed worker-fed fit exited {rc}:\n{out[-3000:]}")
+        fit_s = time.perf_counter() - t0
+        (run_b,) = set(root.glob("run_*")) - {run_a}
+        b = _run_record(run_b)
+        # a straight run's steps: the same loader over the same fixture
+        from distributedpytorch_tpu_torch.data import fake, voc
+        tree = fake.make_fake_voc(n_images=8, size=(96, 128), n_val=3, seed=0)
+        per_epoch = len(grain_pipeline.GrainDataLoader(
+            voc.VOCInstanceSegmentation(tree, split="train", area_thres=0), 2,
+            drop_last=True, num_workers=2))
+        straight = 2 * per_epoch
+        done = int(b["epochs"][0].get("train/resumed_at_batch", 0))
+        trained = a["summary"]["final_step"] + \
+            b["summary"]["final_step"] - b["summary"]["start_step"]
+        if b["summary"]["final_step"] != straight or trained != straight or \
+                b["summary"]["start_step"] != a["summary"]["final_step"] or \
+                len(b["epochs"][0]["train/step_losses"]) != per_epoch - done or \
+                not all(x is not None and math.isfinite(x)
+                        for r in a["epochs"] + b["epochs"]
+                        for x in r["train/step_losses"]):
+            raise AssertionError(f"worker-fed resume: preempted {a['summary']}, "
+                                 f"resumed {b['summary']}, epochs {b['epochs']}")
+        launches = {k: a["summary"]["kernel_launches"][k] +
+                    b["summary"]["kernel_launches"][k] for k in TPU_KERNELS}
+        want = straight + sum(int(r["val/n_samples"]) for r in a["vals"] + b["vals"])
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"launches over both worker-fed fits {launches}: "
+                                 f"want {want} each")
+        for r in b["epochs"]:
+            n = len(r["train/step_losses"])
+            log(f"train workers fit: resumed epoch {int(r['train/epoch'])}: {n} steps "
+                f"of B=2 on 2 worker processes, "
+                f"{r['train/data_wait_seconds'] / n * 1e3:.1f} ms waiting on data and "
+                f"{r['train/epoch_seconds'] / n * 1e3:.1f} ms per step of the loop")
+        log(f"train workers fit: preempted at step {a['summary']['final_step']}, "
+            f"resumed at batch {done} of {per_epoch}, final step "
+            f"{b['summary']['final_step']} = a straight run's {straight}; {trained} "
+            f"steps over both runs; no process of either fit's group left; "
+            f"launches {launches}; {fit_s:.1f} s wall for both")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_train(torch, ca, Predictor) -> dict:
     """Phase 6 (a-g); returns the launch counts of each training and bf16
     serving path."""
-    import gc
-
     from distributedpytorch_tpu_torch.data import pipeline
 
     t0 = time.perf_counter()
@@ -1526,17 +2154,38 @@ def phase_train(torch, ca, Predictor) -> dict:
     return {"train": launches, "train_bf16": bf16_fit, "serve_bf16": bf16_serve}
 
 
+def phase_host(torch, ca) -> dict:
+    """Phase 6 (h-j): the host library, the loaders, and the bf16 step and
+    CLI fit fed by worker processes; returns the launch counts of the
+    worker-fed fits."""
+    t0 = time.perf_counter()
+    tree = host_tree(64, (375, 500))
+    phase_host_ops(tree=tree)
+    log(f"host: (h) done at {time.perf_counter() - t0:.1f} s")
+    phase_loaders(tree)
+    log(f"host: (i) done at {time.perf_counter() - t0:.1f} s")
+    launches = phase_train_workers(
+        torch, ca, Cycled(host_dataset(tree, (512, 512)), 256))
+    log(f"host: (j) done; phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"train_workers": launches}
+
+
+#: the phases of a whole run, in order
+PHASES = ("kernels", "serve", "train", "host")
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="kernels,serve,train",
-                        help="comma list of kernels, serve, train (default: all)")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma list of " + ", ".join(PHASES) + " (default: all)")
     phases = set(parser.parse_args(argv).phases.split(","))
-    if not phases <= {"kernels", "serve", "train"}:
+    if not phases <= set(PHASES):
         parser.error(f"unknown phases {sorted(phases)}")
+    log(environment_line())
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1582,13 +2231,17 @@ def main(argv: list[str] | None = None) -> int:
         del pred
     if "train" in phases:
         paths.update(phase_train(torch, ca, Predictor))
+    if "host" in phases:
+        paths.update(phase_host(torch, ca))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")
-    if phases != {"kernels", "serve", "train"}:
+    if phases != set(PHASES):
         log(f"partial run of phases {sorted(phases)}: no result")
         return 0
 
+    log("margins: " + json.dumps({k: (None if math.isinf(v) else round(v, 4))
+                                  for k, v in MARGINS.items()}))
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNELS[k],
          "launches": sum(p[k] for p in paths.values()),

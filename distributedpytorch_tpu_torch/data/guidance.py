@@ -3,15 +3,17 @@ heatmaps and their combination, in crop coordinates.
 
 Copies of ``distributedpytorch_tpu/data/guidance.py``'s extreme points
 (consuming the same ``np.random.Generator`` draws in the same order) and
-click families (its numpy paths; the native rasterizer is not carried
-over), kept here so the port never imports the JAX package.  The tests pin
-them to the originals.
+click families, kept here so the port never imports the JAX package.  The
+tests pin them to the originals.  As in the JAX package, the n-ellipse on
+a full pixel grid runs on the port's host library (:mod:`..native_ops`)
+unless ``DPTPU_NATIVE=0``, which selects the numpy form.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native_ops
 from ..utils.helpers import make_gt
 
 
@@ -71,6 +73,15 @@ def compute_nellipse(x_range, y_range, points,
     points = np.asarray(points, dtype=np.float32)
     if points.size == 0:
         raise ValueError("compute_nellipse requires at least one focal point")
+    xx, yy = np.asarray(x_range), np.asarray(y_range)
+    if (native_ops.enabled() and xx.ndim == 1 and yy.ndim == 1
+            and xx.size and yy.size
+            and np.array_equal(xx, np.arange(xx.size))
+            and np.array_equal(yy, np.arange(yy.size))):
+        # full 0-based pixel grids: every call site of the pipeline and
+        # of serving
+        return native_ops.nellipse(points[:, :2], (yy.size, xx.size),
+                                   softness)
     d = _sum_of_distances(x_range, y_range, points)
     per_point = [
         sum(np.hypot(px - qx, py - qy) for qx, qy in points) for px, py in points

@@ -36,21 +36,45 @@ def _guidance_stage(guidance: str, alpha: float,
             T.ConcatInputs(elems=("crop_image", GUIDANCE_KEY))]
 
 
+def build_crop_stage(crop_size: tuple[int, int], relax: int, zero_pad: bool,
+                     fused: bool = False,
+                     clamp: bool = True) -> list[T.Transform]:
+    """The crop front of the train stack: crop around the object with
+    ``relax``, then resize to ``crop_size`` — two transforms, or with
+    ``fused`` one pass of the host library's fused crop + resize
+    (:class:`~.transforms.FusedCropResize`).  ``clamp`` bounds the cubic
+    resize's overshoot back into [0, 255]: needed wherever no uint8 cast
+    sits upstream, as the fused pass resizes in float32 always."""
+    if fused:
+        stage = [T.FusedCropResize(crop_elems=("image", "gt"), mask_elem="gt",
+                                   relax=relax, zero_pad=zero_pad,
+                                   size=crop_size)]
+    else:
+        stage = [T.CropFromMaskStatic(crop_elems=("image", "gt"),
+                                      mask_elem="gt", relax=relax,
+                                      zero_pad=zero_pad),
+                 T.FixedResize(resolutions={"crop_image": crop_size,
+                                            "crop_gt": crop_size})]
+    return stage + ([T.ClampRange(("crop_image",))] if clamp else [])
+
+
 def build_train_transform(crop_size: tuple[int, int] = (512, 512),
                           relax: int = 50, zero_pad: bool = True,
                           rots: tuple[float, float] = (-20, 20),
                           scales: tuple[float, float] = (0.75, 1.25),
                           alpha: float = 0.6,
-                          guidance: str = "nellipse_gaussians") -> T.Compose:
+                          guidance: str = "nellipse_gaussians",
+                          fused_crop_resize: bool = False) -> T.Compose:
     """The training stack: flip -> scale/rotate -> crop around the object
-    with ``relax`` -> resize to ``crop_size`` -> guidance -> concat."""
+    with ``relax`` -> resize to ``crop_size`` -> guidance -> concat.
+    ``fused_crop_resize`` makes the crop and resize one pass
+    (:func:`build_crop_stage`), clamped, as ScaleNRotate's uint8 cast no
+    longer bounds the resized image."""
     return T.Compose([
         T.RandomHorizontalFlip(),
         T.ScaleNRotate(rots=rots, scales=scales),
-        T.CropFromMaskStatic(crop_elems=("image", "gt"), mask_elem="gt",
-                             relax=relax, zero_pad=zero_pad),
-        T.FixedResize(resolutions={"crop_image": crop_size,
-                                   "crop_gt": crop_size}),
+        *build_crop_stage(crop_size, relax, zero_pad, fused=fused_crop_resize,
+                          clamp=fused_crop_resize),
         *_guidance_stage(guidance, alpha, is_val=False),
         T.ToArray(),
     ])

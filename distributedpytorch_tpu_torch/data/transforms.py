@@ -183,6 +183,57 @@ class CropFromMaskStatic(Transform):
                 f"relax={self.relax}, zero_pad={self.zero_pad})")
 
 
+class FusedCropResize(Transform):
+    """``CropFromMaskStatic`` + ``FixedResize`` in one pass
+    (``data.fused_crop_resize``): each of ``crop_elems`` is resized
+    straight from its relaxed, zero-padded bbox window to ``size`` by
+    ``imaging.crop_resize`` (the host library's fused kernel), never
+    materializing the crop.  The pair's output contract: ``crop_<elem>``
+    keys at ``size`` (float32 here: the image is not rounded to uint8 on
+    the way, so a ``ClampRange`` follows it), the recorded ``bbox``,
+    ``FixedResize``'s pruning rule and its per-element interpolation
+    (nearest for binary or 255-valued windows, cubic otherwise)."""
+
+    def __init__(self, crop_elems=("image", "gt"), mask_elem="gt", relax=0,
+                 zero_pad=False, size=(512, 512)):
+        self.crop_elems = crop_elems
+        self.mask_elem = mask_elem
+        self.relax = relax
+        self.zero_pad = zero_pad
+        self.size = tuple(size)
+
+    def __call__(self, sample, rng=None):
+        mask = sample[self.mask_elem]
+        if mask.ndim != 2:
+            raise ValueError("FusedCropResize takes a single-object 2-D mask")
+        bbox = helpers.get_bbox(mask, pad=self.relax, zero_pad=self.zero_pad)
+        for elem in self.crop_elems:
+            arr = sample[elem]
+            if bbox is None:  # empty mask: zeros at the output size
+                sample["crop_" + elem] = np.zeros(self.size + arr.shape[2:],
+                                                  np.float32)
+                continue
+            # the interpolation rule on the in-image part of the window
+            # (the zero padding never changes binary-ness)
+            win = arr[max(bbox[1], 0):bbox[3] + 1, max(bbox[0], 0):bbox[2] + 1]
+            sample["crop_" + elem] = imaging.crop_resize(
+                arr, bbox, self.size, helpers.resize_interp_flag(win))
+        if bbox is None:
+            bbox = (0, 0, mask.shape[1] - 1, mask.shape[0] - 1)
+        sample["bbox"] = np.asarray(bbox, dtype=np.int64)
+        produced = {"crop_" + e for e in self.crop_elems}
+        for key in list(sample.keys()):
+            if key in produced or "meta" in key or "bbox" in key \
+                    or "crop_relax" in key:
+                continue
+            del sample[key]
+        return sample
+
+    def __repr__(self):
+        return (f"FusedCropResize(elems={self.crop_elems}, relax={self.relax},"
+                f" zero_pad={self.zero_pad}, size={self.size})")
+
+
 class NEllipseWithGaussians(Transform):
     """The guidance channel: n-ellipse plus gaussian bumps at the extreme
     points of ``crop_gt`` (random at train, the median candidates at val),

@@ -14,12 +14,15 @@ decoded by PIL, imported at the first read: the card's machine may not
 have it) or from an in-memory :class:`~.fake.FakeVOC` with the same three
 readers.  The per-image object categories are scanned at construction, as
 the JAX trainer does with ``preprocess=True``; the port writes no cache
-file into the dataset tree.
+file into the dataset tree.  ``decode_cache=N`` keeps the last N decoded
+images (``data.decode_cache``, :class:`_DecodeCache`).
 """
 
 from __future__ import annotations
 
+import collections
 import os
+import threading
 
 import numpy as np
 
@@ -73,19 +76,55 @@ class VOCTree:
         return self._read("classes", im_id, ".png")
 
 
+class _DecodeCache:
+    """Thread-safe LRU of decoded images keyed by image index, the JAX
+    package's decode-once cache: an image is decoded once for all of its
+    objects and epochs while it stays among the ``max_items`` most
+    recently used.  Values are stored as decoded (uint8 RGB, raw instance
+    mask) and never mutated: readers copy as they convert.  A process
+    worker gets an empty cache of its own (``__getstate__``)."""
+
+    def __init__(self, max_items: int):
+        self.max_items = max_items
+        self._d: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key, load):
+        with self._lock:
+            if key in self._d:
+                self._d.move_to_end(key)
+                return self._d[key]
+        val = load()  # decode outside the lock: loader threads overlap
+        with self._lock:
+            self._d[key] = val
+            self._d.move_to_end(key)
+            while len(self._d) > self.max_items:
+                self._d.popitem(last=False)
+        return val
+
+    def __getstate__(self):
+        return {"max_items": self.max_items}
+
+    def __setstate__(self, state):
+        self.__init__(state["max_items"])
+
+
 class VOCInstanceSegmentation:
     """Random-access (image, single-object mask, void mask) samples.
 
     ``root`` is a VOC directory or a tree object (:class:`VOCTree`,
     :class:`~.fake.FakeVOC`).  Objects of ``area_thres`` pixels or fewer
     are skipped.  A ``transform`` gets the ``rng`` passed to
-    ``__getitem__``."""
+    ``__getitem__``.  ``decode_cache`` > 0 keeps that many decoded images
+    (:class:`_DecodeCache`)."""
 
     def __init__(self, root, split="val", transform=None, area_thres: int = 0,
-                 retname: bool = True, suppress_void_pixels: bool = True):
+                 retname: bool = True, suppress_void_pixels: bool = True,
+                 decode_cache: int = 0):
         self.tree = VOCTree(root) if isinstance(root, (str, os.PathLike)) \
             else root
         self.transform = transform
+        self._cache = _DecodeCache(decode_cache) if decode_cache > 0 else None
         self.area_thres = area_thres
         self.retname = retname
         self.suppress_void_pixels = suppress_void_pixels
@@ -117,8 +156,10 @@ class VOCInstanceSegmentation:
                     rng: np.random.Generator | None = None) -> dict:
         im_ii, obj_ii = self.obj_list[index]
         im_id = self.im_ids[im_ii]
-        img = self.tree.image(im_id).astype(np.float32)
-        inst = self.tree.instances(im_id).astype(np.float32)
+        img8, inst_raw = self.decode_raw(im_ii)
+        # astype copies: a cached decode is never mutated
+        img = img8.astype(np.float32)
+        inst = inst_raw.astype(np.float32)
         void = inst == 255
         if self.suppress_void_pixels:
             inst[void] = 0
@@ -132,6 +173,16 @@ class VOCInstanceSegmentation:
         if self.transform is not None:
             sample = self.transform(sample, rng)
         return sample
+
+    def decode_raw(self, im_ii: int) -> tuple[np.ndarray, np.ndarray]:
+        """The decoded (uint8 RGB, raw instance mask) of image ``im_ii``,
+        through the decode cache when there is one."""
+        def decode():
+            im_id = self.im_ids[im_ii]
+            return self.tree.image(im_id), self.tree.instances(im_id)
+
+        return self._cache.get(im_ii, decode) if self._cache is not None \
+            else decode()
 
     def __str__(self) -> str:
         return f"VOC2012(split={self.split},area_thres={self.area_thres})"

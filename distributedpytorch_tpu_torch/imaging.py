@@ -1,8 +1,17 @@
-"""Host image ops with OpenCV's conventions, in numpy.
+"""Host image ops with OpenCV's conventions.
 
 Counterpart of ``distributedpytorch_tpu/imaging.py`` (``resize``,
-``warp_affine``, ``flip_h``, ``rotation_matrix``).  The card's machine has
-no OpenCV, so the port keeps its own ops with cv2's conventions.
+``warp_affine``, ``flip_h``, ``rotation_matrix``), plus ``crop_resize``,
+the fused zero-padded crop + resize of ``data.fused_crop_resize``.  The
+card's machine is not promised OpenCV, so the port has no cv2 backend:
+``resize``, ``warp_affine``, ``flip_h`` and ``crop_resize`` run on the
+port's host library (:mod:`.native_ops`, built at first use) unless
+``DPTPU_NATIVE=0``, which selects their numpy forms (``resize_numpy``,
+``warp_affine_numpy``,
+``flip_h_numpy``, ``crop_resize_numpy``) — the plain versions the library
+is held against.  Through the library, arrays compute in float32 and
+integer outputs are rounded and saturated as in the numpy forms; a flip of
+an array that float32 does not hold exactly takes the numpy form.
 
 ``resize``: the conventions ``native/image_ops.cpp`` pins to cv2's —
 pixel-centre sampling (``src = (dst + 0.5) * scale - 0.5``) for linear and
@@ -25,8 +34,21 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import native_ops
+
 #: interpolation modes (the JAX package's values)
 NEAREST, LINEAR, CUBIC = 0, 1, 2
+#: dtypes that float32 holds exactly (a flip through the library is exact)
+_FLOAT32_EXACT = (np.float32, np.uint8, np.int8, np.uint16, np.int16, np.bool_)
+
+
+def _like(out: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    """The library's float32 result in ``dtype``: integers rounded and
+    saturated, as the numpy forms do."""
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return np.clip(np.rint(out), info.min, info.max).astype(dtype)
+    return out if dtype == np.float32 else out.astype(dtype)
 
 
 def _cubic_weight(x: np.ndarray) -> np.ndarray:
@@ -70,6 +92,19 @@ def resize(arr: np.ndarray, size: tuple[int, int],
     Float32 in, float32 out (other float types compute in float32 and cast
     back); integer arrays are rounded and saturated to their type, as cv2
     does."""
+    if native_ops.enabled():
+        arr = np.asarray(arr)
+        if interp not in (NEAREST, LINEAR, CUBIC):
+            raise ValueError(f"unknown interpolation {interp} (0 nearest, "
+                             "1 linear, 2 cubic)")
+        return _like(native_ops.resize(arr, (int(size[0]), int(size[1])),
+                                       interp), arr.dtype)
+    return resize_numpy(arr, size, interp)
+
+
+def resize_numpy(arr: np.ndarray, size: tuple[int, int],
+                 interp: int = CUBIC) -> np.ndarray:
+    """:func:`resize`'s numpy form."""
     arr = np.asarray(arr)
     if arr.ndim not in (2, 3):
         raise ValueError(f"expected (H, W) or (H, W, C), got {arr.shape}")
@@ -104,7 +139,43 @@ def rotation_matrix(center: tuple[float, float], angle_deg: float,
 
 def flip_h(arr: np.ndarray) -> np.ndarray:
     """Left-right flip (``cv2.flip(arr, 1)``), as a new array."""
+    arr = np.asarray(arr)
+    if native_ops.enabled() and arr.ndim in (2, 3) \
+            and arr.dtype.type in _FLOAT32_EXACT:
+        return native_ops.hflip(arr).astype(arr.dtype, copy=False)
+    return flip_h_numpy(arr)
+
+
+def flip_h_numpy(arr: np.ndarray) -> np.ndarray:
+    """:func:`flip_h`'s numpy form."""
     return np.ascontiguousarray(np.asarray(arr)[:, ::-1])
+
+
+def crop_resize(arr: np.ndarray, bbox, size: tuple[int, int],
+                interp: int = CUBIC) -> np.ndarray:
+    """The inclusive window ``bbox`` = (x0, y0, x1, y1) of ``arr`` (H, W[,
+    C]), zero where it leaves the image, resized to ``size`` = (H, W):
+    ``helpers.crop_from_bbox(zero_pad=True)`` then :func:`resize`, in one
+    pass on the library.  Always float32."""
+    if native_ops.enabled():
+        return native_ops.crop_resize(arr, bbox, (int(size[0]), int(size[1])),
+                                      interp)
+    return crop_resize_numpy(arr, bbox, size, interp)
+
+
+def crop_resize_numpy(arr: np.ndarray, bbox, size: tuple[int, int],
+                      interp: int = CUBIC) -> np.ndarray:
+    """:func:`crop_resize`'s numpy form: the zero-padded crop in float32,
+    then :func:`resize_numpy`."""
+    arr = np.asarray(arr)
+    x0, y0, x1, y1 = (int(v) for v in bbox)
+    h, w = arr.shape[:2]
+    crop = np.zeros((y1 - y0 + 1, x1 - x0 + 1) + arr.shape[2:], np.float32)
+    ys, xs = max(y0, 0), max(x0, 0)
+    ye, xe = min(y1, h - 1), min(x1, w - 1)
+    if ye >= ys and xe >= xs:
+        crop[ys - y0:ye - y0 + 1, xs - x0:xe - x0 + 1] = arr[ys:ye + 1, xs:xe + 1]
+    return resize_numpy(crop, size, interp)
 
 
 def _invert_affine(m: np.ndarray) -> np.ndarray:
@@ -123,6 +194,21 @@ def warp_affine(arr: np.ndarray, m: np.ndarray, size: tuple[int, int],
     ``size`` = (H, W), pixels that map outside taking ``border``:
     ``cv2.warpAffine`` with ``BORDER_CONSTANT``, NEAREST or CUBIC.  The
     output keeps ``arr``'s dtype (integers rounded and saturated)."""
+    if interp not in (NEAREST, CUBIC):
+        raise ValueError(f"warp_affine supports nearest (0) and cubic (2), "
+                         f"got {interp}")
+    if native_ops.enabled():
+        arr = np.asarray(arr)
+        border = float(np.asarray(border).astype(arr.dtype))
+        return _like(native_ops.warp_affine(
+            arr, m, (int(size[0]), int(size[1])), interp, border), arr.dtype)
+    return warp_affine_numpy(arr, m, size, interp, border)
+
+
+def warp_affine_numpy(arr: np.ndarray, m: np.ndarray, size: tuple[int, int],
+                      interp: int = CUBIC, border: float = 0.0) -> np.ndarray:
+    """:func:`warp_affine`'s numpy form.  Cubic taps add in float64; an
+    integer output is rounded from the float32 sum, as the library's is."""
     if interp not in (NEAREST, CUBIC):
         raise ValueError(f"warp_affine supports nearest (0) and cubic (2), "
                          f"got {interp}")
@@ -159,7 +245,7 @@ def warp_affine(arr: np.ndarray, m: np.ndarray, size: tuple[int, int],
                 acc += padded[rows, cols] * (wy[..., i] * wx[..., j])[..., None]
         if np.issubdtype(arr.dtype, np.integer):
             info = np.iinfo(arr.dtype)
-            acc = np.clip(np.rint(acc), info.min, info.max)
+            acc = np.clip(np.rint(acc.astype(np.float32)), info.min, info.max)
         out = acc.astype(arr.dtype)
     return out if arr.ndim == 3 else out[..., 0]
 

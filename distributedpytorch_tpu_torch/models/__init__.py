@@ -23,7 +23,8 @@ def build_model(name: str = "danet", nclass: int = 1,
                 dropout_rate: float = 0.1,
                 dtype: str | torch.dtype | None = "float32",
                 pam_score_dtype: str | torch.dtype | None = None,
-                remat: bool = False) -> DANet:
+                remat: bool = False, aux_head: bool = False,
+                encnet_codes: int = 32, ccnet_recurrence: int = 2) -> DANet:
     """Construct a segmentation model by name (``danet`` only).
 
     ``attention_impl`` is the one knob for both attention branches:
@@ -33,9 +34,23 @@ def build_model(name: str = "danet", nclass: int = 1,
     ``dtype`` is the compute dtype (parameters stay float32),
     ``pam_score_dtype`` the dtype the plain position branch rounds its
     scores to, ``remat`` recomputes the backbone's blocks in the
-    backward."""
+    backward.  ``aux_head``, ``encnet_codes`` and ``ccnet_recurrence``
+    belong to other families and raise away from their defaults, as in the
+    JAX package."""
     if name != "danet":
         raise ValueError(f"model {name!r} is not ported (danet only)")
+    if encnet_codes != 32:
+        raise ValueError(
+            f"encnet_codes is EncNet-only; model {name!r} does not "
+            "support it")
+    if ccnet_recurrence != 2:
+        raise ValueError(
+            f"ccnet_recurrence is CCNet-only; model {name!r} does not "
+            "support it")
+    if aux_head:
+        raise ValueError("aux_head is a DeepLabV3/FCN/PSPNet option; DANet's "
+                         "three heads already provide multi-output "
+                         "supervision")
     if backbone not in _BACKBONE_DEPTH:
         raise ValueError(f"unknown backbone {backbone!r} "
                          f"({' | '.join(_BACKBONE_DEPTH)})")

@@ -183,7 +183,10 @@ class Predictor:
                             output_stride=cfg.model.output_stride,
                             attention_impl=cfg.model.attention_impl,
                             in_channels=cfg.model.in_channels, dtype=dtype,
-                            pam_score_dtype=cfg.model.pam_score_dtype)
+                            pam_score_dtype=cfg.model.pam_score_dtype,
+                            aux_head=cfg.model.aux_head,
+                            encnet_codes=cfg.model.encnet_codes,
+                            ccnet_recurrence=cfg.model.ccnet_recurrence)
         model.load_state_dict(payload["model"], strict=True)
         kwargs.setdefault("dtype", dtype)
         kwargs.setdefault("resolution", tuple(cfg.data.crop_size))

@@ -331,11 +331,11 @@ def flatten(cfg: Config) -> dict[str, Any]:
 UNPORTED = (
     "data.source", "data.pack_path", "data.pack_quarantine",
     "data.session_log", "data.session_only", "data.session_quarantine",
-    "data.sbd_root", "data.download", "data.loader", "data.device_prefetch",
+    "data.sbd_root", "data.download", "data.device_prefetch",
     "data.device_augment", "data.device_augment_geom",
-    "data.device_guidance", "data.fused_crop_resize", "data.prepared_cache",
+    "data.device_guidance", "data.prepared_cache",
     "data.uint8_transfer", "data.packbits_masks", "data.coalesce_wire",
-    "data.decode_cache", "data.steps_per_dispatch", "data.echo",
+    "data.steps_per_dispatch", "data.echo",
     "data.governor", "data.governor_target", "data.governor_window",
     "data.max_echo",
     "model.name", "model.remat_policy", "model.bn_fp32_stats",

@@ -11,6 +11,12 @@ epochs (saving the checkpoint, and the best one by Jaccard), saves a
 snapshot every ``checkpoint.snapshot_every`` epochs otherwise, and writes
 ``fit_summary.json``.
 
+``data.loader`` picks the train loader: ``threads`` (the threaded
+``DataLoader``) or ``grain`` (worker processes,
+``data/grain_pipeline.py``); validation always runs on the threaded one.
+``data.fused_crop_resize`` and ``data.decode_cache`` reach the train
+transform and both datasets.
+
 ``train.precision=bfloat16`` builds the model in bf16 compute with float32
 master weights and hands the policy to the train and eval steps
 (``train/precision.py``).  ``checkpoint.warm_start`` imports model weights
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from ..data.fake import make_fake_voc
+from ..data.grain_pipeline import GrainDataLoader
 from ..data.pipeline import DataLoader, build_eval_transform, build_train_transform
 from ..data.voc import VOCInstanceSegmentation
 from ..models import build_model
@@ -84,21 +91,31 @@ class Trainer:
         train_tf = build_train_transform(
             crop_size=tuple(d.crop_size), relax=d.relax, zero_pad=d.zero_pad,
             rots=tuple(d.rots), scales=tuple(d.scales),
-            alpha=d.guidance_alpha, guidance=d.guidance)
+            alpha=d.guidance_alpha, guidance=d.guidance,
+            fused_crop_resize=d.fused_crop_resize)
         val_tf = build_eval_transform(
             crop_size=tuple(d.crop_size), relax=d.relax, zero_pad=d.zero_pad,
             alpha=d.guidance_alpha, guidance=d.guidance)
         self.train_set = VOCInstanceSegmentation(
             root, split=d.train_split, transform=train_tf,
-            area_thres=d.area_thres)
+            area_thres=d.area_thres, decode_cache=d.decode_cache)
         self.val_set = VOCInstanceSegmentation(
-            root, split=d.val_split, transform=val_tf, area_thres=d.area_thres)
+            root, split=d.val_split, transform=val_tf, area_thres=d.area_thres,
+            decode_cache=d.decode_cache)
         if d.train_batch % cfg.optim.accum_steps:
             raise ValueError(f"train batch {d.train_batch} not divisible by "
                              f"accum_steps {cfg.optim.accum_steps}")
-        self.train_loader = DataLoader(
-            self.train_set, d.train_batch, shuffle=True, drop_last=True,
-            seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch)
+        if d.loader == "grain":
+            self.train_loader = GrainDataLoader(
+                self.train_set, d.train_batch, shuffle=True, drop_last=True,
+                seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch)
+        elif d.loader == "threads":
+            self.train_loader = DataLoader(
+                self.train_set, d.train_batch, shuffle=True, drop_last=True,
+                seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch)
+        else:
+            raise ValueError(f"unknown data.loader: {d.loader!r} "
+                             "(threads | grain)")
         self.val_loader = DataLoader(
             self.val_set, d.val_batch, shuffle=False, drop_last=False,
             seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch)
@@ -119,7 +136,9 @@ class Trainer:
                 dtype=(self.precision.compute_dtype if self.precision
                        else cfg.model.dtype),
                 pam_score_dtype=cfg.model.pam_score_dtype,
-                remat=cfg.model.remat)
+                remat=cfg.model.remat, aux_head=cfg.model.aux_head,
+                encnet_codes=cfg.model.encnet_codes,
+                ccnet_recurrence=cfg.model.ccnet_recurrence)
         total_steps = len(self.train_loader) * cfg.epochs
         optimizer, self.schedule = make_optimizer(cfg.optim, self.model,
                                                   total_steps)
@@ -166,6 +185,13 @@ class Trainer:
             f.writelines(f"{k}: {v}\n" for k, v in flat.items())
         config_lib.to_json(cfg, os.path.join(self.run_dir, "config.json"))
         self.writer.hparams(flat)
+
+    @property
+    def loader_workers(self) -> int:
+        """The worker count that shapes the train loader's batches: the
+        worker-process loader's, 0 for the threaded one."""
+        return self.train_loader.num_workers \
+            if isinstance(self.train_loader, GrainDataLoader) else 0
 
     @property
     def n_params(self) -> int:
@@ -217,8 +243,9 @@ class Trainer:
         ``source`` and position the fit: the epoch after the saved one,
         or, for a save made on preemption, the interrupted epoch at the
         batch where it stopped — unless ``checkpoint.exact_resume`` is off
-        or the batch order changed since (train batch, seed or echo),
-        when the epoch replays from its start."""
+        or the batch order changed since (train batch, seed, echo, or the
+        worker-process loader's worker count), when the epoch replays from
+        its start."""
         mgr = CheckpointManager(source)
         meta = mgr.restore(self.state)
         self.resume_meta = dict(meta)
@@ -230,7 +257,8 @@ class Trainer:
         if interrupted is not None and self.cfg.checkpoint.exact_resume:
             now = {"echo": self.cfg.data.echo,
                    "train_batch": self.cfg.data.train_batch,
-                   "seed": self.cfg.seed}
+                   "seed": self.cfg.seed,
+                   "loader_workers": self.loader_workers}
             stale = {k: (meta.get(k, v), v) for k, v in now.items()
                      if int(meta.get(k, v)) != v}
             if stale:
@@ -265,24 +293,26 @@ class Trainer:
         data_s = 0.0
         t0 = time.perf_counter()
         batches = iter(self.train_loader)
-        while True:
-            t_data = time.perf_counter()
-            batch = next(batches, None)
-            data_s += time.perf_counter() - t_data
-            if batch is None:
-                break
-            if cfg.debug_asserts:
-                batch_debug_asserts(batch)
-            losses.append(self.train_step(self.state, batch))
-            step = self.state.step
-            if guard is not None and guard.should_stop(step):
-                interrupted = True
-                break
-            if step % cfg.log_every_steps == 0:
-                self.writer.scalars({"train/loss": float(losses[-1]),
-                                     "train/lr": self.schedule(step - 1),
-                                     "train/epoch": epoch}, step)
-        batches.close()
+        try:
+            while True:
+                t_data = time.perf_counter()
+                batch = next(batches, None)
+                data_s += time.perf_counter() - t_data
+                if batch is None:
+                    break
+                if cfg.debug_asserts:
+                    batch_debug_asserts(batch)
+                losses.append(self.train_step(self.state, batch))
+                step = self.state.step
+                if guard is not None and guard.should_stop(step):
+                    interrupted = True
+                    break
+                if step % cfg.log_every_steps == 0:
+                    self.writer.scalars({"train/loss": float(losses[-1]),
+                                         "train/lr": self.schedule(step - 1),
+                                         "train/epoch": epoch}, step)
+        finally:
+            batches.close()  # stops the loader's threads or workers
         loss_arr = torch.stack(losses).cpu().numpy()
         dt = time.perf_counter() - t0
         if not np.all(np.isfinite(loss_arr)):
@@ -368,6 +398,7 @@ class Trainer:
                                 "echo": cfg.data.echo,
                                 "train_batch": cfg.data.train_batch,
                                 "seed": cfg.seed,
+                                "loader_workers": self.loader_workers,
                                 "preempted": True})
                     self.writer.scalars({"preempted_at_epoch": epoch}, step)
                     break
@@ -401,4 +432,6 @@ class Trainer:
         return history
 
     def close(self) -> None:
+        if isinstance(self.train_loader, GrainDataLoader):
+            self.train_loader.close()
         self.writer.close()

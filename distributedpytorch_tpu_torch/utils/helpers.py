@@ -5,7 +5,9 @@ Copies of ``distributedpytorch_tpu/utils/helpers.py`` (``get_bbox``,
 ``crop_from_bbox``, ``crop_from_mask``, ``resize_interp_flag``,
 ``fixed_resize``, ``crop2fullmask``, ``tens2image``, ``make_gaussian``,
 ``make_gt``), kept here so the port never imports the JAX package; the
-tests pin them to the originals.  A bbox is ``(x_min, y_min, x_max, y_max)`` with inclusive
+tests pin them to the originals.  ``make_gt``'s max-combined heatmap runs
+on the port's host library (:mod:`..native_ops`) unless ``DPTPU_NATIVE=0``,
+as the JAX package's does.  A bbox is ``(x_min, y_min, x_max, y_max)`` with inclusive
 max coordinates, x = column, y = row; images are (H, W[, C]) numpy arrays.
 """
 
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import imaging
+from .. import imaging, native_ops
 
 
 def get_bbox(mask: np.ndarray, points=None, pad: int = 0,
@@ -211,6 +213,8 @@ def make_gt(target: np.ndarray, labels, sigma: float = 10.0,
         for ii in range(labels.shape[0]):
             gt[:, :, ii] = make_gaussian((h, w), center=labels[ii], sigma=sigma)
     else:
+        if native_ops.enabled():
+            return native_ops.gaussian_hm(labels[:, :2], (h, w), sigma)
         gt = np.zeros((h, w), dtype=np.float32)
         for ii in range(labels.shape[0]):
             gt = np.maximum(gt, make_gaussian((h, w), center=labels[ii], sigma=sigma))

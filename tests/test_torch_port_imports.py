@@ -1,5 +1,6 @@
 """The port stands alone: importing any of its modules loads neither JAX,
-flax nor the JAX package, no source reaches into the JAX package, and
+flax nor the JAX package (nor ``grain`` or ``cv2``, which the card's
+machine does not have), no source imports any of them, and
 ``chip_smoke.py`` refuses to run (printing no result) without a CUDA device
 or away from the repository."""
 
@@ -34,7 +35,7 @@ def test_importing_every_module_leaves_jax_out():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'distributedpytorch_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'distributedpytorch_tpu', 'grain', 'cv2'))\n"
         "assert not bad, bad\n"
         "print('standalone-ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -63,7 +64,8 @@ def test_source_imports_nothing_of_jax(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "distributedpytorch_tpu"), \
+            assert root not in ("jax", "jaxlib", "flax", "distributedpytorch_tpu",
+                                "grain", "cv2"), \
                 f"{path} imports {name}"
 
 

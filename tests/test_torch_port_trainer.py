@@ -3,7 +3,8 @@
 * Config: the JSON form is identical in both packages, default and with
   overrides, and each package reads the other's; a knob the port does not
   run yet, set away from its default, makes the ``Trainer`` raise and name
-  it.
+  it; ``model.aux_head``, ``encnet_codes`` and ``ccnet_recurrence`` set
+  for DANet raise the JAX package's ``ValueError``, message for message.
 * Weights both ways: JAX trees -> port ``state_dict`` -> JAX trees is bit
   for bit the identity.
 * ``np_jaccard`` and ``np_jaccard_thresholds`` bit for bit.
@@ -84,6 +85,23 @@ class TestConfig:
             knob, f"work_dir={tmp_path}"])
         with pytest.raises(NotImplementedError, match=knob.split("=")[0]):
             Trainer(cfg, device="cpu")
+
+    @pytest.mark.parametrize("knob", ["model.aux_head=true",
+                                      "model.encnet_codes=16",
+                                      "model.ccnet_recurrence=3"])
+    def test_danet_refuses_other_families_knobs(self, knob, tmp_path):
+        """As the JAX package's ``build_model`` does for DANet, with its
+        message."""
+        cfg = config.apply_overrides(config.Config(), TINY + [
+            knob, f"work_dir={tmp_path}"])
+        name, value = knob.split("=")
+        kw = {name.split(".")[1]: json.loads(value)}
+        with pytest.raises(ValueError) as want:
+            jax_build_model("danet", nclass=1, backbone="resnet18", **kw)
+        with pytest.raises(ValueError) as got:
+            Trainer(cfg, device="cpu")
+        assert str(got.value) == str(want.value)
+        assert name.split(".")[1] in str(got.value)
 
     def test_unknown_field_raises(self):
         with pytest.raises(KeyError):
