@@ -73,7 +73,9 @@ it), printing no result.  The phases, each raising on failure:
              first step line (exit 0, ``preempted``, a committed step with
              ``interrupted_epoch``), then ``resume=auto``: the straight
              run's final step, no batch twice, weights within the stated
-             tolerance of a straight run's, launches one per train step
+             tolerance of a straight run's (``resume_check``: the spread
+             measured over three straight runs, one started beside the
+             resumed run), launches one per train step
              and validation sample over both runs, and
              ``Predictor.from_run`` serving it in bf16 on float32 weights,
              bitwise the checkpoint's model; (g) a ``Trainer`` warm-started
@@ -101,19 +103,41 @@ it), printing no result.  The phases, each raising on failure:
              line and resumed: the straight run's final step, no batch
              twice, no process of either fit's process group left.
 
+8. dist    — data parallelism (``parallel/``): (a) world size 1 over NCCL
+             through the launcher's torchrun path (its environment set
+             here), DDP, cross-replica BatchNorm and ZeRO-1 engaged; (b)
+             two ranks over gloo on the one card (NCCL refuses two ranks on
+             one device), ``dp``, ``dp_zero1`` and
+             ``train.reduce_buckets=4``: DANet-R101 at 512², bf16, global
+             batch 16, every weight drawn from seed 0, dropout off, two
+             steps at lr 1e-3 each held to the single-process step from the
+             same weights (each step's loss, each tensor's update, within
+             6d's bf16 bound: 2e-2 of the reference's own size or the bf16
+             reference's distance from float32, plus 4 ulps of the
+             weight), each rank launching each kernel once per step, then
+             ms per step with the share an all_reduce of the gradients
+             alone takes; (c) a 2-rank CLI fit (ResNet-18 at 64², gloo)
+             whose rank 1 alone gets SIGTERM: both ranks stop at one step
+             and save once (``num_shards`` 2), ``resume=auto`` reaches the
+             straight runs' final step within 6f's rule, and no process of
+             any fit's group is left.  The wrong-device case of the kernels'
+             device guard needs a host with two cards and is not run.
+
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2 and grain are installed).  The launch counters
 are zeroed just before phase 3 and read after phase 5 (the serving path),
 zeroed by the trainer when its fit starts and read from its
 ``fit_summary.json`` (the training paths, f32, bf16 and worker-fed, the
 latter two summed over the preempted and resumed runs), and zeroed just
-before the bf16 run is served (the bf16 serving path): every kernel must
-have run on each.  Every bounded check of phases 6f-6j records its
+before the bf16 run is served (the bf16 serving path), and zeroed by each
+rank of phase 8 (a) and (b) before each of its steps (the data-parallel
+path, rank 0's counts summed): every kernel must have run on each.  Every
+bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host``) runs part of the script for development and
-then prints neither record.
+``kernels,serve,train,host,dist``) runs part of the script for development
+and then prints neither record.
 """
 
 from __future__ import annotations
@@ -181,6 +205,8 @@ def card_peaks(name: str) -> tuple[str, tuple[float, float, float, float]]:
 
 #: calls per CUDA-event pair of the back-to-back timing
 RUN = 20
+#: step times of earlier phases that later ones print beside their own
+STEP_MS: dict[str, float] = {}
 
 
 def median_ms(fns, inner: int = 1, reps: int = 21, warmup: int = 3) -> list[float]:
@@ -1270,6 +1296,7 @@ def phase_train_step_bf16(torch, ca, dataset, batch_size: int = 16,
             for m in s.values() if torch.is_tensor(m)):
         raise AssertionError("bf16 training left float32 parameters or momentum")
     ms = {label: statistics.median(t) for label, t in times.items()}
+    STEP_MS["6e bf16 kernels"] = ms["bf16 kernels"]
     for label in paths:
         log(f"train step bf16: B={batch_size} 512^2 with {label} {ms[label]:.2f} ms "
             f"median of {rounds} (all {', '.join(f'{t:.2f}' for t in times[label])}), "
@@ -1316,10 +1343,12 @@ BF16_GRAD_TOL = 2e-2
 #: not bitwise repeatable (cuDNN's default weight-gradient algorithms and
 #: the bilinear upsample's backward add in no fixed order, and bf16
 #: magnifies it): max |diff| per tensor within this share of the straight
-#: run's own movement from its initial weights, or within this factor of a
-#: second straight run's max |diff| from the first (the card's own spread),
-#: plus this many float32 ulps of the tensor's largest value (not for the
-#: PAM key bias, whose gradient is zero in exact arithmetic); and the whole
+#: run's own movement from its initial weights, or within this factor of
+#: the card's run-to-run spread (the largest max |diff| between any two of
+#: three straight runs, one of them run beside the resumed run, so that
+#: the spread is measured under the resumed run's conditions too), plus
+#: this many float32 ulps of the tensor's largest value (not for the PAM
+#: key bias, whose gradient is zero in exact arithmetic); and the whole
 #: model's L2 distance within this share of the straight run's L2
 #: movement.  A batch skipped or trained twice moves the weights by about a
 #: tenth of a 10-step run's movement, and a state not restored by more.
@@ -1350,6 +1379,56 @@ def _run_record(run: Path) -> dict:
             "vals": [r for r in records if "val/jaccard" in r]}
 
 
+def resume_check(torch, init: dict, straights: list[dict], resumed: dict,
+                 tag: str = "6f", scale_of: dict | None = None
+                 ) -> tuple[list[str], list, dict]:
+    """Hold a resumed run's final ``state_dict`` to straight runs' (the
+    first is the reference; every pair of them measures the run-to-run
+    spread) with the ``RESUME_*`` rule above; records the margins under
+    ``tag``.  Returns (failures, per-tensor rows, L2 distances)."""
+    scale_of = GRAD_SCALE_OF if scale_of is None else scale_of
+    ref = straights[0]
+    rows, failures = [], []
+    sq = {"resumed": 0.0, "moved": 0.0}
+    pairs = [(i, j) for i in range(len(straights)) for j in range(i + 1, len(straights))]
+    pair_sq = [0.0] * len(pairs)
+    for key, want_t in ref.items():
+        got_t = resumed[key]
+        if not want_t.is_floating_point():
+            if not torch.equal(got_t, want_t):
+                failures.append(f"{key}: {got_t} != {want_t}")
+            continue
+        w, g = want_t.double(), got_t.double()
+        others = [s[key].double() for s in straights]
+        spread = 0.0
+        for n, (i, j) in enumerate(pairs):
+            d = others[i] - others[j]
+            spread = max(spread, d.abs().max().item())
+            pair_sq[n] += float((d ** 2).sum())
+        sq["resumed"] += float(((g - w) ** 2).sum())
+        sq["moved"] += float(((w - init[key].double()) ** 2).sum())
+        diff = (g - w).abs().max().item()
+        moved = (w - init[key].double()).abs().max().item()
+        ulps = RESUME_ULPS * torch.finfo(torch.float32).eps * w.abs().max().item()
+        if key in scale_of:
+            continue
+        rows.append((diff / max(moved, 1e-300), diff, key))
+        limit = max(RESUME_MOVE_TOL * moved, RESUME_SPREAD_FACTOR * spread) + ulps
+        note_margin(f"{tag} resumed vs straight, per tensor", diff, limit)
+        if not diff <= limit:
+            failures.append(f"{key}: {diff:.3e} > {limit:.3e} ({RESUME_MOVE_TOL} x "
+                            f"its movement {moved:.3e}, {RESUME_SPREAD_FACTOR} x the "
+                            f"straight runs' spread {spread:.3e}, + {ulps:.3e})")
+    l2 = {k: v ** 0.5 for k, v in sq.items()}
+    l2["spread"] = max(pair_sq) ** 0.5
+    note_margin(f"{tag} resumed vs straight, L2", l2["resumed"],
+                RESUME_L2_TOL * l2["moved"])
+    if not l2["resumed"] <= RESUME_L2_TOL * l2["moved"]:
+        failures.append(f"L2 distance {l2['resumed']:.3e} > {RESUME_L2_TOL} x the "
+                        f"straight run's movement {l2['moved']:.3e}")
+    return failures, rows, l2
+
+
 def phase_train_resume(torch, ca, Predictor,
                        device: str = "cuda") -> tuple[dict, dict]:
     """6f and 6g: the bf16 CLI fit preempted by SIGTERM and resumed with
@@ -1370,16 +1449,20 @@ def phase_train_resume(torch, ca, Predictor,
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
     procs = []
     straight_log = open(root / "straight.log", "w+")
+
+    def straight_run(name: str) -> subprocess.Popen:
+        proc = subprocess.Popen(_fit_cmd(root / name), cwd=REPO, text=True,
+                                stdout=straight_log, stderr=subprocess.STDOUT)
+        procs.append(proc)
+        return proc
+
     try:
-        straight_dir, work = root / "straight", root / "preempted"
+        work = root / "preempted"
         log(f"train resume: {' '.join(_fit_cmd(work)[1:])}")
-        # two straight runs alongside the preempted one: the reference and
-        # the card's own run-to-run spread
-        straight = subprocess.Popen(_fit_cmd(straight_dir), cwd=REPO, text=True,
-                                    stdout=straight_log, stderr=subprocess.STDOUT)
-        again = subprocess.Popen(_fit_cmd(root / "again"), cwd=REPO, text=True,
-                                 stdout=straight_log, stderr=subprocess.STDOUT)
-        procs += [straight, again]
+        # three straight runs: the reference and the card's run-to-run
+        # spread, two alongside the preempted run, one alongside the
+        # resumed run
+        straights = [straight_run("straight"), straight_run("again")]
         t0 = time.perf_counter()
         first = subprocess.Popen(_fit_cmd(work), cwd=REPO, text=True,
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -1405,19 +1488,21 @@ def phase_train_resume(torch, ca, Predictor,
         log(f"train resume: preempted at step {a['summary']['final_step']}, committed "
             f"{mgr_a.committed_steps()} with interrupted_epoch "
             f"{meta_a['interrupted_epoch']}, epoch_steps_done {meta_a['epoch_steps_done']}")
+        straights.append(straight_run("third"))
         proc = subprocess.run(_fit_cmd(work, "resume=auto"), cwd=REPO,
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise AssertionError(f"the resumed fit exited {proc.returncode}:\n"
                                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        if straight.wait(timeout=600) != 0 or again.wait(timeout=600) != 0:
+        if any(p.wait(timeout=600) != 0 for p in straights):
             straight_log.seek(0)
-            raise AssertionError(f"the straight fit exited {straight.returncode}:\n"
+            raise AssertionError(f"a straight fit exited "
+                                 f"{[p.returncode for p in straights]}:\n"
                                  f"{straight_log.read()[-3000:]}")
         fit_s = time.perf_counter() - t0
         (run_b,) = set(work.glob("run_*")) - {run_a}
-        (run_s,) = straight_dir.glob("run_*")
-        (run_s2,) = (root / "again").glob("run_*")
+        runs_s = [next((root / n).glob("run_*")) for n in ("straight", "again", "third")]
+        run_s = runs_s[0]
         b, s = _run_record(run_b), _run_record(run_s)
         steps_per_epoch = len(s["epochs"][0]["train/step_losses"])
         done = meta_a["epoch_steps_done"]
@@ -1442,61 +1527,29 @@ def phase_train_resume(torch, ca, Predictor,
         log(f"train resume: resumed at epoch {b['summary']['start_epoch']} batch "
             f"{done} of {steps_per_epoch}, final step {b['summary']['final_step']} as "
             f"the straight run's; {trained} steps trained over both runs; launches "
-            f"over both {launches}; {fit_s:.1f} s wall for the three fits")
+            f"over both {launches}; {fit_s:.1f} s wall for the five fits")
 
         final = s["summary"]["final_step"]
-        straight_w, _ = CheckpointManager(str(run_s / "checkpoints")).load(final)
-        again_w, _ = CheckpointManager(str(run_s2 / "checkpoints")).load(final)
+        straight_ws = [CheckpointManager(str(r / "checkpoints")).load(final)[0]["model"]
+                       for r in runs_s]
         resumed_w, meta_b = CheckpointManager(str(run_b / "checkpoints")).load(final)
         cfg = from_json(str(run_b / "config.json"))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             init = build_model(cfg.model.name, backbone=cfg.model.backbone).state_dict()
-        rows, failures = [], []
-        sq = {"resumed": 0.0, "again": 0.0, "moved": 0.0}
-        for key, want_t in straight_w["model"].items():
-            got_t = resumed_w["model"][key]
-            if not want_t.is_floating_point():
-                if not torch.equal(got_t, want_t):
-                    failures.append(f"{key}: {got_t} != {want_t}")
-                continue
-            w, g = want_t.double(), got_t.double()
-            spread = again_w["model"][key].double() - w
-            sq["resumed"] += float(((g - w) ** 2).sum())
-            sq["again"] += float((spread ** 2).sum())
-            sq["moved"] += float(((w - init[key].double()) ** 2).sum())
-            diff = (g - w).abs().max().item()
-            moved = (w - init[key].double()).abs().max().item()
-            ulps = RESUME_ULPS * torch.finfo(torch.float32).eps * w.abs().max().item()
-            if key in GRAD_SCALE_OF:
-                continue
-            rows.append((diff / max(moved, 1e-300), diff, key))
-            limit = max(RESUME_MOVE_TOL * moved,
-                        RESUME_SPREAD_FACTOR * spread.abs().max().item()) + ulps
-            note_margin("6f resumed vs straight, per tensor", diff, limit)
-            note_margin("6f resumed vs straight, per tensor, movement term alone",
-                        diff, RESUME_MOVE_TOL * moved + ulps)
-            if not diff <= limit:
-                failures.append(f"{key}: {diff:.3e} > {limit:.3e} ({RESUME_MOVE_TOL} x "
-                                f"its movement {moved:.3e}, {RESUME_SPREAD_FACTOR} x the "
-                                f"straight runs' spread, + {ulps:.3e})")
-        l2 = {k: v ** 0.5 for k, v in sq.items()}
+        failures, rows, l2 = resume_check(torch, init, straight_ws,
+                                          resumed_w["model"])
         equal = sum(1 for _, d, _ in rows if d == 0.0)
         log(f"train resume: final weights, resumed vs straight: {equal} of "
             f"{len(rows)} float tensors bitwise equal; largest max|diff| "
             f"{max(r[1] for r in rows):.3e}; largest max|diff| over the tensor's own "
             f"movement: " + ", ".join(f"{r:.3e} ({k})" for r, _, k in sorted(rows)[-5:])
             + f"; L2 distance {l2['resumed']:.3e} against the straight run's L2 "
-            f"movement {l2['moved']:.3e}; a second straight run's L2 distance from "
-            f"the first {l2['again']:.3e}")
-        note_margin("6f resumed vs straight, L2", l2["resumed"],
-                    RESUME_L2_TOL * l2["moved"])
+            f"movement {l2['moved']:.3e}; the largest L2 distance between two "
+            f"straight runs {l2['spread']:.3e}")
         log("train resume: margins (limit / value, smallest over the tensors): " +
             ", ".join(f"{k[len('6f resumed vs straight, '):]} {v:.3g}"
                       for k, v in MARGINS.items() if k.startswith("6f")))
-        if not l2["resumed"] <= RESUME_L2_TOL * l2["moved"]:
-            failures.append(f"L2 distance {l2['resumed']:.3e} > {RESUME_L2_TOL} x the "
-                            f"straight run's movement {l2['moved']:.3e}")
         if failures:
             raise AssertionError("resumed vs straight weights: " + "; ".join(failures[:8]))
 
@@ -2170,8 +2223,434 @@ def phase_host(torch, ca) -> dict:
     return {"train_workers": launches}
 
 
+#: the dist phase's optimizer (lr large enough that two steps move the
+#: weights past their float32 ulps, small enough that the second step's
+#: gradients stay near the first's, as 6d's gradients are compared), its
+#: global batch and the steps compared and then timed
+DIST_LR, DIST_BATCH, DIST_STEPS, DIST_TIMED = 1e-4, 16, 2, 3
+#: the 2-rank CLI fit of (c): ResNet-18 at 64^2 on the fake fixture, global
+#: batch 4 (2 per rank: 3 steps per epoch over a rank's 6 of the 11
+#: objects), float32 on gloo
+DIST_FIT_ARGS = ["--dist-backend", "gloo", "--fake-data", "model.backbone=resnet18",
+                 "data.crop_size=[64,64]", "data.relax=10", "data.area_thres=0",
+                 "data.train_batch=4", "epochs=2", "optim.lr=1e-3",
+                 "log_every_steps=1", "checkpoint.preempt_check_every=1"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment for ``rank`` of a one-host group."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(port)}
+
+
+def dist_rank(spec: dict) -> None:
+    """A rank of (a) or (b): joins the group its torchrun environment
+    describes through the launcher's path (``initialize_distributed``),
+    then, for each strategy, builds the trainer's data-parallel state
+    (DANet-R101 in bf16 on float32 weights, cross-replica BatchNorm, DDP,
+    ZeRO-1 under dp_zero1) from the saved weights and runs its rows of the
+    global batches: the compared steps, then the timed ones.  Rank 0
+    writes the results."""
+    import os
+
+    os.environ.update(spec["env"])
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.ops import cuda_attention as ca
+    from distributedpytorch_tpu_torch.parallel import mesh
+    from distributedpytorch_tpu_torch.parallel.step import (
+        create_train_state,
+        make_train_step,
+        wrap_data_parallel,
+    )
+    from distributedpytorch_tpu_torch.parallel.zero import shard_optimizer
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import apply_policy
+
+    device = mesh.initialize_distributed(backend=spec["backend"])
+    rank, world = mesh.process_index(), mesh.data_axis_size()
+    policy = apply_policy("bfloat16")
+    init = torch.load(spec["init"])
+    batches = torch.load(spec["batches"], weights_only=False)
+    per = DIST_BATCH // world
+    mine = [{k: v[rank * per:(rank + 1) * per] for k, v in b.items()} for b in batches]
+    out = {"world": world, "backend": dist.get_backend(), "device": str(device)}
+    for strategy in spec["strategies"]:
+        model = build_model("danet", dtype="bfloat16", dropout_rate=0.0,
+                            bn_cross_replica=True)
+        model.load_state_dict(init)
+        opt, sched = make_optimizer(OptimConfig(lr=DIST_LR), model, 100)
+        state = create_train_state(model, opt, sched, 0, device)
+        if strategy == "dp_zero1":
+            state.optimizer = shard_optimizer(opt)
+        buckets = 4 if strategy == "reduce_buckets=4" else 0
+        wrap_data_parallel(state, buckets)
+        step = make_train_step(precision=policy, global_balance=not buckets)
+        losses, launches, times = [], [], []
+        for i in range(DIST_STEPS + DIST_TIMED):
+            ca.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(state, mine[i % len(mine)]).item()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(ca.launches))
+            losses.append(loss)
+            if i == DIST_STEPS - 1 and rank == 0:
+                torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                           Path(spec["out"]) / f"{strategy}.pt")
+        out[strategy] = {"losses": losses[:DIST_STEPS], "launches": launches,
+                         "ms": times[DIST_STEPS:], "first_ms": times[0]}
+        if strategy == spec["strategies"][0]:
+            n = sum(p.numel() for p in model.parameters())
+            flat = torch.zeros(n, device=device)
+            ar = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dist.all_reduce(flat)
+                torch.cuda.synchronize()
+                ar.append((time.perf_counter() - t0) * 1e3)
+            out["allreduce_ms"], out["grad_mib"] = ar[1:], n * 4 / 2**20
+            del flat
+        del state, model, opt, step
+        torch.cuda.empty_cache()
+    gathered = [None] * world
+    dist.all_gather_object(gathered, out)
+    if rank == 0:
+        with open(Path(spec["out"]) / "results.json", "w") as f:
+            json.dump(gathered, f)
+    mesh.destroy_distributed()
+
+
+def _run_ranks(specs: list[dict], timeout: float = 600) -> None:
+    """Spawn one process per spec running :func:`dist_rank`; fail if any
+    exits non-zero or outlives ``timeout``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(spec,)) for spec in specs]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"dist ranks exited {codes}")
+
+
+def _dist_reference(torch, init: dict, batches: list, precision: str | None,
+                    attention_impl: str = "auto"):
+    """The single-process step (no group: the plain layers) from ``init``
+    on the global batches: losses and the weights after DIST_STEPS."""
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.parallel.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import apply_policy
+
+    policy = apply_policy(precision or "float32")
+    model = build_model("danet", dtype=precision or "float32", dropout_rate=0.0,
+                        attention_impl=attention_impl)
+    model.load_state_dict(init)
+    opt, sched = make_optimizer(OptimConfig(lr=DIST_LR), model, 100)
+    state = create_train_state(model, opt, sched, 0, torch.device("cuda"))
+    step = make_train_step(precision=policy)
+    losses = [step(state, batches[i]).item() for i in range(DIST_STEPS)]
+    weights = {k: v.cpu() for k, v in model.state_dict().items()}
+    del state, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, weights
+
+
+def dist_compare(torch, what: str, got: dict, init: dict, refs: dict) -> list[str]:
+    """A data-parallel bf16 run's losses and weights after DIST_STEPS
+    against the single-process steps ``refs`` (``bf16`` with the kernels,
+    ``plain`` bf16 on the plain forms, ``f32``: (losses, weights) each),
+    with the bounds of 6d: within BF16_GRAD_TOL of the bf16 step's own
+    size (each step's loss; each tensor's update, its max |update|), or
+    within a bf16 step's own distance from the float32 step, plus
+    RESUME_ULPS float32 ulps of max(1, the weight) (the tests' max(1,
+    |leaf|): flax's zero-initialised last BatchNorm scales leave the layers
+    before them an update that is zero in exact arithmetic at step 1 and
+    second-order at step 2).  The data-parallel run is a bf16 computation
+    of its own (its BatchNorm sums in float32 where cuDNN's does not), so
+    it is measured against whichever reference is nearest."""
+    failures = []
+    bf16, f32 = refs["bf16"], refs["f32"]
+    for i, g in enumerate(got["losses"]):
+        b, f = bf16[0][i], f32[0][i]
+        limit = max(BF16_GRAD_TOL * abs(b),
+                    *(abs(r[0][i] - f) for r in refs.values()))
+        diff = min(abs(g - r[0][i]) for r in refs.values())
+        note_margin(f"dist {what}, loss", diff, limit)
+        if not diff <= limit:
+            failures.append(f"step {i + 1} loss {g:.6f} vs {b:.6f} (limit {limit:.3e})")
+    rows = []
+    for key, w0 in init.items():
+        b, g = bf16[1][key], got["weights"][key]
+        if not w0.is_floating_point():
+            if not torch.equal(g, b):
+                failures.append(f"{key}: {g} != {b}")
+            continue
+        deltas = {name: r[1][key].double() - w0.double() for name, r in refs.items()}
+        dg = g.double() - w0.double()
+        scale_key = GRAD_SCALE_OF.get(key, key)
+        scale = (bf16[1][scale_key].double() - init[scale_key].double()).abs().max().item()
+        own = max((d - deltas["f32"]).abs().max().item() for d in deltas.values())
+        diff = min((dg - d).abs().max().item() for d in deltas.values())
+        ulps = RESUME_ULPS * torch.finfo(torch.float32).eps * max(
+            1.0, b.abs().max().item())
+        limit = max(BF16_GRAD_TOL * scale, own) + ulps
+        note_margin(f"dist {what}, weights", diff, limit)
+        rows.append((diff / limit, key))
+        if not diff <= limit:
+            failures.append(f"{key}: update differs by {diff:.3e} > {limit:.3e}")
+    rows.sort()
+    log(f"dist {what}: losses {['%.6f' % x for x in got['losses']]} against the "
+        f"single-process bf16 {['%.6f' % x for x in bf16[0]]} (plain forms "
+        f"{['%.6f' % x for x in refs['plain'][0]]}, float32 "
+        f"{['%.6f' % x for x in f32[0]]}); weights after {DIST_STEPS} steps, "
+        f"update difference over its limit: median {rows[len(rows) // 2][0]:.3g}, "
+        f"largest " + ", ".join(f"{r:.3g} ({k})" for r, k in rows[-3:]))
+    return failures
+
+
+def phase_dist(torch, dataset) -> dict:
+    """(a) world size 1 over NCCL, (b) two ranks over gloo on the one card,
+    (c) a 2-rank CLI fit SIGTERMed on rank 1 and resumed.  Returns the
+    kernels' launches of the data-parallel steps (rank 0, (a) and (b))."""
+    import shutil
+    import tempfile
+
+    from distributedpytorch_tpu_torch.data import pipeline
+    from distributedpytorch_tpu_torch.models import build_model
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        loader = pipeline.DataLoader(Cycled(dataset, DIST_STEPS * DIST_BATCH),
+                                     DIST_BATCH, shuffle=True, drop_last=True, seed=1)
+        batches = list(loader)
+        torch.save(batches, root / "batches.pt")
+        # the trainer's initial weights (seed 0, flax's initialisers): every
+        # weight drawn from a seed as 6a/6d draw them makes a net so
+        # ill-conditioned that its bf16 loss is 2% off float32's, and two
+        # bf16 computations' updates differ by as much as either is off
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            init = build_model("danet", dropout_rate=0.0).state_dict()
+        torch.save(init, root / "init.pt")
+        refs = {"bf16": _dist_reference(torch, init, batches, "bfloat16"),
+                "plain": _dist_reference(torch, init, batches, "bfloat16", "xla"),
+                "f32": _dist_reference(torch, init, batches, None)}
+        log(f"dist: single-process references (B={DIST_BATCH}, lr {DIST_LR}) at "
+            f"{time.perf_counter() - t0:.1f} s")
+        launches = {k: 0 for k in TPU_KERNELS}
+        failures = []
+        for label, world, backend, strategies in (
+                ("a", 1, "nccl", ["dp_zero1"]),
+                ("b", 2, "gloo", ["dp", "dp_zero1", "reduce_buckets=4"])):
+            out = root / label
+            out.mkdir()
+            port = _free_port()
+            specs = [{"env": _rank_env(r, world, port), "backend": backend,
+                      "strategies": strategies, "init": str(root / "init.pt"),
+                      "batches": str(root / "batches.pt"), "out": str(out)}
+                     for r in range(world)]
+            t1 = time.perf_counter()
+            _run_ranks(specs)
+            with open(out / "results.json") as f:
+                ranks = json.load(f)
+            for r, res in enumerate(ranks):
+                if res["world"] != world or res["backend"] != backend:
+                    raise AssertionError(f"({label}) rank {r}: {res['world']} ranks "
+                                         f"over {res['backend']}")
+            for strategy in strategies:
+                what = f"({label}) W={world} {backend} {strategy}"
+                per_rank = [res[strategy] for res in ranks]
+                for r, res in enumerate(per_rank):
+                    if any(n != {k: 1 for k in TPU_KERNELS} for n in res["launches"]):
+                        raise AssertionError(f"{what}: rank {r} launches per step "
+                                             f"{res['launches']} (want 1 per kernel)")
+                for k in TPU_KERNELS:
+                    launches[k] += sum(n[k] for n in per_rank[0]["launches"])
+                got = {"losses": per_rank[0]["losses"],
+                       "weights": torch.load(out / f"{strategy}.pt")}
+                failures += dist_compare(torch, what, got, init, refs)
+                ms = statistics.median(per_rank[0]["ms"])
+                line = (f"dist {what}: {ms:.2f} ms per step of {DIST_BATCH} "
+                        f"({DIST_BATCH // world} per rank; median of {DIST_TIMED}: "
+                        f"{', '.join('%.2f' % t for t in per_rank[0]['ms'])}; first "
+                        f"step {per_rank[0]['first_ms']:.1f} ms), "
+                        f"{DIST_BATCH / ms * 1e3:.2f} images/s")
+                if label == "a":
+                    line += (f"; the single-process bf16 step of 6e "
+                             f"{STEP_MS.get('6e bf16 kernels', float('nan')):.2f} ms")
+                else:
+                    ar = statistics.median(ranks[0]["allreduce_ms"])
+                    line += (f"; an all_reduce of the {ranks[0]['grad_mib']:.1f} MiB "
+                             f"of gradients alone {ar:.2f} ms ({ar / ms:.3f} of the step)")
+                log(line)
+            log(f"dist ({label}): {time.perf_counter() - t1:.1f} s")
+        if failures:
+            raise AssertionError("dist vs single-process: " + "; ".join(failures[:8]))
+        phase_dist_fit(torch, root)
+        log(f"dist: phase wall time {time.perf_counter() - t0:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _start_fit(work: Path, port: int, *extra: str, stdout=None) -> list:
+    """The two ranks of a CLI fit, each in a new process group of its own,
+    torchrun's environment set; rank 0's output to ``stdout`` if given."""
+    import os
+
+    procs = []
+    for r in range(2):
+        cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *DIST_FIT_ARGS,
+               f"work_dir={work}", *extra]
+        to = stdout if r == 0 and stdout is not None else subprocess.DEVNULL
+        procs.append(subprocess.Popen(
+            cmd, cwd=REPO, text=True, env={**os.environ, **_rank_env(r, 2, port)},
+            stdout=to, stderr=subprocess.STDOUT if to is not subprocess.DEVNULL
+            else subprocess.DEVNULL, start_new_session=True))
+    return procs
+
+
+def _finish_fit(procs: list, what: str, timeout: float = 600) -> None:
+    """Wait for both ranks: exit 0 each, and no process of either rank's
+    group alive 10 s later."""
+    codes = [p.wait(timeout=timeout) for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"{what}: ranks exited {codes}")
+    deadline = time.perf_counter() + 10
+    while (left := [m for p in procs for m in group_members(p.pid)]) and \
+            time.perf_counter() < deadline:
+        time.sleep(0.2)
+    if left:
+        raise AssertionError(f"{what}: processes of its groups alive after it "
+                             f"exited: {left}")
+
+
+def phase_dist_fit(torch, root: Path) -> None:
+    """(c): a 2-rank CLI fit (gloo, one card) whose rank 1 alone gets
+    SIGTERM after rank 0's first step line: both ranks stop at one step and
+    save once; ``resume=auto`` continues it to the straight 2-rank run's
+    final step, its weights held to three straight runs with 6f's rule;
+    no process of any fit's group is left."""
+    import signal
+
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    groups = []
+    try:
+        straights = [_start_fit(root / f"straight{i}", _free_port()) for i in (0, 1)]
+        groups += straights
+        work = root / "preempted"
+        first = _start_fit(work, _free_port(), stdout=subprocess.PIPE)
+        groups.append(first)
+        out = []
+        for line in first[0].stdout:
+            out.append(line)
+            if line.startswith("[step 1] train/loss="):
+                first[1].send_signal(signal.SIGTERM)
+                log(f"dist (c): SIGTERM to rank 1 alone after rank 0's first step "
+                    f"line, {time.perf_counter() - t0:.1f} s after start")
+                break
+        out.extend(first[0].stdout)
+        try:
+            _finish_fit(first, "the preempted 2-rank fit")
+        except AssertionError as e:
+            raise AssertionError(f"{e}\n{''.join(out)[-3000:]}") from None
+        (run_a,) = work.glob("run_*")
+        a = _run_record(run_a)
+        _, meta_a = CheckpointManager(str(run_a / "checkpoints")).load()
+        stop = a["summary"]["final_step"]
+        if not a["summary"]["preempted"] or \
+                a["summary"]["final_step_by_rank"] != [stop, stop] or \
+                meta_a.get("num_shards") != 2 or meta_a["step"] != stop:
+            raise AssertionError(f"preempted 2-rank fit: summary {a['summary']}, "
+                                 f"meta {meta_a}")
+        log(f"dist (c): both ranks stopped at step {stop} "
+            f"(final_step_by_rank {a['summary']['final_step_by_rank']}), one save "
+            f"with num_shards {meta_a['num_shards']}, epoch_steps_done "
+            f"{meta_a['epoch_steps_done']}")
+        third = _start_fit(root / "straight2", _free_port())
+        groups.append(third)
+        resumed = _start_fit(work, _free_port(), "resume=auto")
+        groups.append(resumed)
+        for procs, what in ((resumed, "the resumed 2-rank fit"),
+                            (straights[0], "straight 0"), (straights[1], "straight 1"),
+                            (third, "straight 2")):
+            _finish_fit(procs, what)
+        (run_b,) = set(work.glob("run_*")) - {run_a}
+        b = _run_record(run_b)
+        runs_s = [next((root / f"straight{i}").glob("run_*")) for i in range(3)]
+        s = _run_record(runs_s[0])
+        final = s["summary"]["final_step"]
+        trained = stop + b["summary"]["final_step"] - b["summary"]["start_step"]
+        if b["summary"]["final_step"] != final or trained != final or \
+                b["summary"]["final_step_by_rank"] != [final, final] or \
+                b["epochs"][0].get("train/resumed_at_batch") != meta_a["epoch_steps_done"]:
+            raise AssertionError(f"2-rank resume: straight {s['summary']}, resumed "
+                                 f"{b['summary']}, first epoch {b['epochs'][0]}")
+        straight_ws = [CheckpointManager(str(r / "checkpoints")).load(final)[0]["model"]
+                       for r in runs_s]
+        resumed_w = CheckpointManager(str(run_b / "checkpoints")).load(final)[0]["model"]
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            init = build_model("danet", backbone="resnet18").state_dict()
+        failures, rows, l2 = resume_check(torch, init, straight_ws, resumed_w,
+                                          tag="dist (c)")
+        log(f"dist (c): resumed at batch {meta_a['epoch_steps_done']} to step "
+            f"{final} as the straight runs; final weights {sum(d == 0 for _, d, _ in rows)}"
+            f" of {len(rows)} float tensors bitwise equal, largest max|diff| "
+            f"{max(r[1] for r in rows):.3e}, L2 distance {l2['resumed']:.3e} against an "
+            f"L2 movement of {l2['moved']:.3e} (straight runs' largest L2 spread "
+            f"{l2['spread']:.3e}); margins " + ", ".join(
+                f"{k[len('dist (c) resumed vs straight, '):]} {v:.3g}"
+                for k, v in MARGINS.items() if k.startswith("dist (c)"))
+            + f"; no process of the 5 fits' groups left; {time.perf_counter() - t0:.1f} s")
+        if failures:
+            raise AssertionError("2-rank resumed vs straight: " + "; ".join(failures[:8]))
+    finally:
+        for procs in groups:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
 #: the phases of a whole run, in order
-PHASES = ("kernels", "serve", "train", "host")
+PHASES = ("kernels", "serve", "train", "host", "dist")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2233,6 +2712,8 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(phase_train(torch, ca, Predictor))
     if "host" in phases:
         paths.update(phase_host(torch, ca))
+    if "dist" in phases:
+        paths["dist"] = phase_dist(torch, train_dataset())
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")

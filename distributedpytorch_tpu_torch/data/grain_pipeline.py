@@ -17,7 +17,12 @@ dict batches of :func:`.pipeline.collate`) on the standard library's
   passing over a worker whose slice is spent: grain's composition and
   order.  ``num_workers=0`` batches the whole order in-process, as
   ``DataLoader`` does;
-* ``__len__`` sums the per-worker batch counts.
+* ``__len__`` sums the per-worker batch counts;
+* with ``num_shards`` W > 1 each rank takes a contiguous shard of
+  ``len // W`` records of the epoch's order, the remainder dropped, as
+  grain's ``ShardOptions(..., drop_remainder=True)`` does in the JAX
+  loader; ``micro_batches`` lays its batches out over the ranks as the
+  threaded loader does (:func:`.pipeline.micro_batch_rows`).
 
 The record order is the port's own ``(seed, epoch)`` permutation, the
 threaded loader's (grain's ``IndexSampler`` order is grain's own, and the
@@ -31,7 +36,8 @@ method (a fresh interpreter: the parent, which may hold a CUDA context, is
 never forked) and stops them when it ends or is closed, killing any still
 running, so no worker outlives it; :meth:`GrainDataLoader.close` and
 interpreter exit stop any left.  At most one worker per CPU of the
-process's affinity.  A worker imports numpy and the port's data modules,
+process's affinity, shared among the ranks on the host (the affinity
+divided by the local world size), so ranks do not oversubscribe it.  A worker imports numpy and the port's data modules,
 never torch, and ignores SIGINT and SIGTERM (the parent owns preemption).
 A worker's exception is raised from the iterator; a worker that dies
 raises there, naming it and its exit code or signal.
@@ -60,7 +66,7 @@ from typing import Iterator
 import numpy as np
 
 from .. import native_ops
-from .pipeline import collate, sample_rng
+from .pipeline import collate, micro_batch_rows, sample_rng
 
 _SIZE = struct.Struct("<Q")
 
@@ -284,20 +290,32 @@ class GrainDataLoader:
     the same ``set_epoch`` / ``__len__`` / ``__iter__`` surface and dict
     batches (see the module docstring for batch composition).
 
-    ``num_workers`` is capped at the process's CPU affinity
-    (:attr:`num_workers` is the count used); 0 loads in-process.
-    ``prefetch`` bounds the batches that wait in the parent."""
+    ``num_workers`` is capped at the process's CPU affinity over the
+    ranks on its host (:attr:`num_workers` is the count used); 0 loads
+    in-process.  ``prefetch`` bounds the batches that wait in the
+    parent.  ``num_shards``/``shard_index``/``micro_batches``: see the
+    module docstring."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_workers: int = 0,
-                 prefetch: int = 2):
+                 prefetch: int = 2, num_shards: int = 1, shard_index: int = 0,
+                 micro_batches: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
-        self.num_workers = min(max(0, num_workers), cpu_count())
+        # imported here: a worker imports this module, and must not torch
+        from ..parallel.mesh import local_world_size
+
+        self.num_workers = min(max(0, num_workers),
+                               max(1, cpu_count() // local_world_size()))
         self.prefetch = max(1, prefetch)
+        self.num_shards = max(1, num_shards)
+        self.shard_index = shard_index
+        self.micro_batches = max(1, micro_batches)
+        if self.micro_batches > 1 and self.num_shards > 1 and not drop_last:
+            raise ValueError("micro_batches over shards needs drop_last")
         self._epoch = 0
         self._start_batch = 0
 
@@ -309,24 +327,24 @@ class GrainDataLoader:
         self._epoch = int(epoch)
         self._start_batch = int(start_batch)
 
-    def epoch_indices(self) -> np.ndarray:
+    def epoch_indices(self, shard_index: int | None = None) -> np.ndarray:
         """The dataset indices of the current epoch in order: the
-        ``(seed, epoch)`` permutation, or ``arange`` without ``shuffle``."""
+        ``(seed, epoch)`` permutation (``arange`` without ``shuffle``), or
+        this loader's shard of it (shard ``shard_index`` if given)."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        if self.num_shards > 1:
+            per = len(order) // self.num_shards
+            r = self.shard_index if shard_index is None else shard_index
+            order = order[r * per:(r + 1) * per]
         return order
 
-    def _worker_slices(self) -> list[np.ndarray]:
-        order = self.epoch_indices()
-        w = self.num_workers
-        return [order[i::w] for i in range(w)] if w else [order]
-
-    def batch_plan(self) -> list[tuple[int, np.ndarray]]:
-        """The whole epoch's batches in yield order, as (worker, indices)."""
-        b = self.batch_size
+    def _shard_plan(self, shard_index: int) -> list[tuple[int, np.ndarray]]:
+        order = self.epoch_indices(shard_index)
+        w, b = self.num_workers, self.batch_size
         per = []
-        for part in self._worker_slices():
+        for part in ([order[i::w] for i in range(w)] if w else [order]):
             n = len(part) // b if self.drop_last else -(-len(part) // b)
             per.append([part[i * b:(i + 1) * b] for i in range(n)])
         plan = []
@@ -334,8 +352,21 @@ class GrainDataLoader:
             plan += [(w, p[k]) for w, p in enumerate(per) if k < len(p)]
         return plan
 
+    def batch_plan(self) -> list[tuple[int, np.ndarray]]:
+        """The whole epoch's batches in yield order, as (worker, indices)."""
+        plan = self._shard_plan(self.shard_index)
+        if self.micro_batches == 1 or self.num_shards == 1:
+            return plan
+        plans = [plan if s == self.shard_index else self._shard_plan(s)
+                 for s in range(self.num_shards)]
+        return [(w, micro_batch_rows([p[k][1] for p in plans],
+                                     self.shard_index, self.micro_batches))
+                for k, (w, _) in enumerate(plan)]
+
     def __len__(self) -> int:
         n, w, b = len(self.dataset), self.num_workers, self.batch_size
+        if self.num_shards > 1:  # the remainder dropped
+            n //= self.num_shards
         counts = [n // w + (1 if i < n % w else 0) for i in range(w)] if w \
             else [n]
         if self.drop_last:

@@ -9,6 +9,16 @@ them into NCHW torch tensors on the device.  Every sample's RNG is
 ``default_rng((seed, epoch))``'s permutation, so data order and content do
 not depend on the worker count.  Only the ``nellipse_gaussians`` guidance
 family is ported.
+
+Under data parallelism each rank's loader walks its shard
+(:func:`shard_order`, the JAX rule: contiguous per-shard slices of the
+epoch's permutation, padded by wrap-around to equal lengths), so global
+batch k is the ranks' batch k in rank order.  With ``micro_batches`` m >
+1 each rank's batch k is instead its slice of each of the m global
+micro-batches of global batch k (rows ``[i·M + r·M/W, i·M + (r+1)·M/W)``
+of micro-batch i, M its size), as the JAX ``dp`` step splits the global
+batch before sharding each micro-batch; the step then splits the rank's
+rows locally into the same m parts.
 """
 
 from __future__ import annotations
@@ -109,6 +119,41 @@ def sample_rng(seed: int, epoch: int, index: int) -> np.random.Generator:
     return np.random.default_rng((seed, epoch, int(index)))
 
 
+def shard_order(order: np.ndarray, num_shards: int,
+                shard_index: int) -> np.ndarray:
+    """Shard ``shard_index`` of ``order``: the order padded by wrap-around
+    to a multiple of ``num_shards``, cut into equal contiguous slices
+    (every sample in some shard, no shard shorter than another)."""
+    if num_shards <= 1:
+        return order
+    n = len(order)
+    per_shard = -(-n // num_shards)
+    total = per_shard * num_shards
+    if total > n:
+        order = np.concatenate([order, order[:total - n]])
+    return order[shard_index * per_shard:(shard_index + 1) * per_shard]
+
+
+def micro_batch_rows(shard_batches: Sequence[np.ndarray], shard_index: int,
+                     micro_batches: int) -> np.ndarray:
+    """Rank ``shard_index``'s rows of one global batch laid out for
+    ``micro_batches`` accumulation steps: the global batch is the shards'
+    batches (``shard_batches``, in rank order) concatenated, cut into
+    ``micro_batches`` contiguous micro-batches, and each of those into
+    equal contiguous slices, one per rank; the rank's rows are its slices
+    of every micro-batch, in order."""
+    rows = np.concatenate(list(shard_batches))
+    w = len(shard_batches)
+    if len(rows) % (micro_batches * w):
+        raise ValueError(f"global batch {len(rows)} not divisible by "
+                         f"{w} shards x {micro_batches} micro-batches")
+    m = len(rows) // micro_batches
+    part = m // w
+    return np.concatenate([
+        rows[i * m + shard_index * part:i * m + (shard_index + 1) * part]
+        for i in range(micro_batches)])
+
+
 def collate(samples: Sequence[dict]) -> dict:
     """Stack dict samples into a batch: same-shape keys on a new leading
     axis, ragged keys (full-resolution ``gt``/``void_pixels``) and metadata
@@ -124,16 +169,22 @@ def collate(samples: Sequence[dict]) -> dict:
 
 
 class DataLoader:
-    """Shuffling, prefetching batch iterator over a random-access dataset
-    (``dataset.__getitem__(index, rng=...)``), one process.
+    """Sharded, shuffling, prefetching batch iterator over a random-access
+    dataset (``dataset.__getitem__(index, rng=...)``).
 
     ``num_workers`` threads load each batch's samples; up to ``prefetch``
     collated batches wait ahead of the consumer.  A worker's error is
-    raised from the iterator."""
+    raised from the iterator.  ``num_shards``/``shard_index`` walk one
+    shard of the epoch (one per rank); ``micro_batches`` lays each batch
+    out for accumulation over the shards (see the module docstring; it
+    needs ``drop_last``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_workers: int = 2,
-                 prefetch: int = 2):
+                 prefetch: int = 2, num_shards: int = 1, shard_index: int = 0,
+                 micro_batches: int = 1):
+        if micro_batches > 1 and num_shards > 1 and not drop_last:
+            raise ValueError("micro_batches over shards needs drop_last")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -141,6 +192,9 @@ class DataLoader:
         self.seed = seed
         self.num_workers = max(0, num_workers)
         self.prefetch = max(1, prefetch)
+        self.num_shards = max(1, num_shards)
+        self.shard_index = shard_index
+        self.micro_batches = max(1, micro_batches)
         self.epoch = 0
         self.start_batch = 0
 
@@ -152,26 +206,41 @@ class DataLoader:
         self.epoch = epoch
         self.start_batch = start_batch
 
-    def epoch_indices(self) -> np.ndarray:
-        """The dataset indices of the current epoch in order."""
+    def _permutation(self) -> np.ndarray:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(order)
         return order
 
+    def epoch_indices(self, shard_index: int | None = None) -> np.ndarray:
+        """The dataset indices of the current epoch in order: this
+        loader's shard (or shard ``shard_index``) of the permutation."""
+        return shard_order(self._permutation(), self.num_shards,
+                           self.shard_index if shard_index is None
+                           else shard_index)
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.epoch_indices())
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
+
+    def batch_indices(self) -> list[np.ndarray]:
+        """The dataset indices of every batch of the current epoch."""
+        b = self.batch_size
+        if self.micro_batches == 1 or self.num_shards == 1:
+            order = self.epoch_indices()
+            return [order[i * b:(i + 1) * b] for i in range(len(self))]
+        orders = [self.epoch_indices(s) for s in range(self.num_shards)]
+        return [micro_batch_rows([o[i * b:(i + 1) * b] for o in orders],
+                                 self.shard_index, self.micro_batches)
+                for i in range(len(self))]
 
     def _load_one(self, index: int) -> dict:
         return self.dataset.__getitem__(
             int(index), rng=sample_rng(self.seed, self.epoch, index))
 
     def __iter__(self) -> Iterator[dict]:
-        order = self.epoch_indices()
-        batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
-                   for i in range(self.start_batch, len(self))]
+        batches = self.batch_indices()[self.start_batch:]
         if self.num_workers == 0:
             for idxs in batches:
                 yield collate([self._load_one(i) for i in idxs])

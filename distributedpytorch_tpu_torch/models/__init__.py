@@ -11,7 +11,7 @@ import torch
 
 from ..train.precision import torch_dtype
 from .danet import DANet, DANetHead
-from .resnet import ResNet
+from .resnet import ResNet, set_cross_replica
 
 _BACKBONE_DEPTH = {"resnet18": 18, "resnet34": 34, "resnet50": 50,
                    "resnet101": 101, "resnet152": 152}
@@ -24,7 +24,8 @@ def build_model(name: str = "danet", nclass: int = 1,
                 dtype: str | torch.dtype | None = "float32",
                 pam_score_dtype: str | torch.dtype | None = None,
                 remat: bool = False, aux_head: bool = False,
-                encnet_codes: int = 32, ccnet_recurrence: int = 2) -> DANet:
+                encnet_codes: int = 32, ccnet_recurrence: int = 2,
+                bn_cross_replica: bool = False) -> DANet:
     """Construct a segmentation model by name (``danet`` only).
 
     ``attention_impl`` is the one knob for both attention branches:
@@ -34,7 +35,10 @@ def build_model(name: str = "danet", nclass: int = 1,
     ``dtype`` is the compute dtype (parameters stay float32),
     ``pam_score_dtype`` the dtype the plain position branch rounds its
     scores to, ``remat`` recomputes the backbone's blocks in the
-    backward.  ``aux_head``, ``encnet_codes`` and ``ccnet_recurrence``
+    backward.  ``bn_cross_replica`` makes every BatchNorm take its
+    train-mode statistics over the process group (the JAX
+    ``bn_cross_replica_axis``; ``ops/sync_bn.py``).
+    ``aux_head``, ``encnet_codes`` and ``ccnet_recurrence``
     belong to other families and raise away from their defaults, as in the
     JAX package."""
     if name != "danet":
@@ -54,13 +58,15 @@ def build_model(name: str = "danet", nclass: int = 1,
     if backbone not in _BACKBONE_DEPTH:
         raise ValueError(f"unknown backbone {backbone!r} "
                          f"({' | '.join(_BACKBONE_DEPTH)})")
-    return DANet(nclass=nclass, backbone_depth=_BACKBONE_DEPTH[backbone],
-                 output_stride=output_stride or 8, in_channels=in_channels,
-                 attention_impl=attention_impl, dropout_rate=dropout_rate,
-                 dtype=None if dtype is None else torch_dtype(dtype),
-                 pam_score_dtype=None if pam_score_dtype is None
-                 else torch_dtype(pam_score_dtype),
-                 remat=remat)
+    model = DANet(nclass=nclass, backbone_depth=_BACKBONE_DEPTH[backbone],
+                  output_stride=output_stride or 8, in_channels=in_channels,
+                  attention_impl=attention_impl, dropout_rate=dropout_rate,
+                  dtype=None if dtype is None else torch_dtype(dtype),
+                  pam_score_dtype=None if pam_score_dtype is None
+                  else torch_dtype(pam_score_dtype),
+                  remat=remat)
+    set_cross_replica(model, bn_cross_replica)
+    return model
 
 
 __all__ = ["DANet", "DANetHead", "ResNet", "build_model"]

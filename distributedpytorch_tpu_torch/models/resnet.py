@@ -22,6 +22,11 @@ normalised in float32) and returns the compute dtype.
 
 ``remat=True`` recomputes each residual block in the backward
 (``torch.utils.checkpoint``, non-reentrant), flax's per-block ``nn.remat``.
+
+:func:`set_cross_replica` makes every BatchNorm take its train-mode
+statistics over the ranks of the process group (``ops/sync_bn.py``, flax's
+``axis_name``), as data-parallel training needs; without a group formed
+the layer stays the one-process layer, bit for bit.
 """
 
 from __future__ import annotations
@@ -30,9 +35,12 @@ import contextlib
 import threading
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..ops.sync_bn import cross_replica_batch_norm
 
 #: block counts per stage
 RESNET_DEPTHS = {
@@ -145,14 +153,22 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     bf16 values, float32 arithmetic, rounded once on output) and the
     result is in ``compute_dtype`` (the input's dtype when ``None``).
     Inside a remat recompute the running statistics are left alone: the
-    forward that is being recomputed already moved them."""
+    forward that is being recomputed already moved them.
+
+    With ``cross_replica`` set and a process group formed, the train-mode
+    statistics are the whole group's batch
+    (:func:`~..ops.sync_bn.cross_replica_batch_norm`) and the running
+    statistics move towards them, identically on every rank."""
 
     compute_dtype: torch.dtype | None = None
+    cross_replica: bool = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or x.dtype
         if not self.training:
             return super().forward(x).to(dtype)
+        if self.cross_replica and dist.is_available() and dist.is_initialized():
+            return self._cross_replica_forward(x, dtype)
         n = x.numel() // x.shape[1]
         # torch updates copies (its backward may keep the buffers it was
         # given), which are then written back with flax's variance step
@@ -169,6 +185,18 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return y.to(dtype)
 
+    def _cross_replica_forward(self, x: torch.Tensor,
+                               dtype: torch.dtype) -> torch.Tensor:
+        y, mean, var = cross_replica_batch_norm(x, self.weight, self.bias,
+                                                self.eps, out_dtype=dtype)
+        if not recomputing():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        return y
+
 
 def norm(channels: int) -> nn.BatchNorm2d:
     """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` as a torch layer."""
@@ -183,6 +211,14 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
     for module in model.modules():
         if isinstance(module, (Conv2d, FlaxBatchNorm2d)):
             module.compute_dtype = dtype
+
+
+def set_cross_replica(model: nn.Module, on: bool = True) -> None:
+    """Make every BatchNorm of ``model`` take its train-mode statistics
+    over the process group (flax's ``bn_cross_replica_axis``), or not."""
+    for module in model.modules():
+        if isinstance(module, FlaxBatchNorm2d):
+            module.cross_replica = on
 
 
 def flax_init_(model: nn.Module) -> nn.Module:

@@ -18,6 +18,9 @@ its launches in :data:`launches` (one per call that reached the kernel), so
 a run can show that its main path went through the kernels.  Inputs are
 float32 or bfloat16 and must be contiguous; outputs are allocated here with
 ``torch.empty`` on the caller's current stream, and nothing synchronises.
+Every launch runs with its tensors' device made current (:func:`_on_device`):
+the ``ctypes`` entry points launch into the calling thread's current
+device, which under data parallelism need not be the tensor's.
 
 The two attention functions are ``torch.autograd.Function``s, the
 counterparts of the JAX ``custom_vjp``s: the forward is the kernels (the
@@ -125,6 +128,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on_device(t: torch.Tensor):
+    """The context a launch for ``t`` runs in: ``t``'s device current, the
+    caller's restored after."""
+    return torch.cuda.device(t.device)
+
+
 #: the profiler range around every backward recompute
 RECOMPUTE_RANGE = "attention_backward_recompute"
 
@@ -206,10 +215,11 @@ def _pam_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, n, cv), dtype=v.dtype, device=v.device)
     if n == 0 or b == 0:
         return out
-    err = _lib().dptpu_pam_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, ck, cv,
-        0.0 if scale is None else float(scale), int(scale is not None),
-        _DTYPES[v.dtype], _stream(v))
+    with _on_device(v):
+        err = _lib().dptpu_pam_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, ck,
+            cv, 0.0 if scale is None else float(scale), int(scale is not None),
+            _DTYPES[v.dtype], _stream(v))
     _check(err, "position-attention")
     launches["position_attention"] += 1
     return out
@@ -248,9 +258,11 @@ def _launch_gram(x: torch.Tensor, partial: torch.Tensor) -> None:
     """The energy kernel's first launch: ``partial`` (B, S, C, C) <- the
     Gram matrices of S slices of N."""
     b, n, c = x.shape
-    _check(_lib().dptpu_cam_gram(x.data_ptr(), partial.data_ptr(), b, n, c,
-                                 partial.shape[1], _DTYPES[x.dtype], _stream(x)),
-           "channel-energy Gram")
+    with _on_device(x):
+        err = _lib().dptpu_cam_gram(x.data_ptr(), partial.data_ptr(), b, n, c,
+                                    partial.shape[1], _DTYPES[x.dtype],
+                                    _stream(x))
+    _check(err, "channel-energy Gram")
 
 
 def _launch_softmax(partial: torch.Tensor, attn: torch.Tensor) -> None:
@@ -258,9 +270,10 @@ def _launch_softmax(partial: torch.Tensor, attn: torch.Tensor) -> None:
     ``rowmax - E``, E the partials summed in slice order.  ``attn`` may be
     ``partial`` itself when there is one slice."""
     b, splits, c, _ = partial.shape
-    _check(_lib().dptpu_cam_softmax(partial.data_ptr(), attn.data_ptr(), b * c,
-                                    c, splits, _stream(attn)),
-           "channel-energy softmax")
+    with _on_device(attn):
+        err = _lib().dptpu_cam_softmax(partial.data_ptr(), attn.data_ptr(),
+                                       b * c, c, splits, _stream(attn))
+    _check(err, "channel-energy softmax")
 
 
 def _gram_buffers(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -304,8 +317,10 @@ def cam_apply(attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    err = _lib().dptpu_cam_apply(attn.data_ptr(), x.data_ptr(), out.data_ptr(),
-                                 b, n, c, _DTYPES[x.dtype], _stream(x))
+    with _on_device(x):
+        err = _lib().dptpu_cam_apply(attn.data_ptr(), x.data_ptr(),
+                                     out.data_ptr(), b, n, c, _DTYPES[x.dtype],
+                                     _stream(x))
     _check(err, "channel-apply")
     launches["cam_apply"] += 1
     return out

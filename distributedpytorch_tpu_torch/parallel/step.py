@@ -1,5 +1,6 @@
-"""The train and eval steps on one device, the counterpart of
-``distributedpytorch_tpu/parallel/step.py`` without the mesh.
+"""The train and eval steps, the counterpart of
+``distributedpytorch_tpu/parallel/step.py``: on one device, or one
+process per card under ``DistributedDataParallel``.
 
 A host batch — the loader's dict of HWC float32 numpy arrays — becomes
 NCHW torch tensors on the device once, here (:func:`device_batch`).  A
@@ -19,20 +20,40 @@ the loss dtype after it.  The model itself must be built in the compute
 dtype; its parameters are float32, so their gradients, the clip norm and
 the SGD momentum are float32 with nothing here to cast.
 
-Mesh sharding, the uint8/packbits/coalesced wires, multi-step dispatch and
-bucketed reduces are not ported yet.
+Data parallelism (:func:`wrap_data_parallel`, ``TrainState.ddp``): each
+rank holds its rows of the global batch; the model's BatchNorms take the
+group's statistics (``ops/sync_bn.py``) and DDP averages the gradients.
+With ``global_balance`` (the ``dp``/``dp_zero1`` step, one GSPMD program
+over the global batch in the JAX package) the class balance and the
+normaliser are the global micro-batch's: a rank backpropagates W times
+its share of the global loss, so DDP's mean is the global loss's
+gradient, and the loss returned is the global one.  Without it (the
+bucketed ``shard_map`` step, ``train.reduce_buckets > 0``) each rank's
+loss is its own rows', the gradient is that of their mean over the ranks
+and so is the loss returned.  Micro-batches under accumulation are the
+rank's rows in order; DDP reduces on the last one only (``no_sync``).
+How the rows are laid out over the ranks is the loader's business
+(``data/pipeline.py``).  ``train.reduce_buckets`` sets DDP's bucket size
+from the JAX package's byte-balanced buckets (:func:`bucket_cap_mb`).
+
+The uint8/packbits/coalesced wires and multi-step dispatch are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
 from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
-from ..ops.losses import multi_output_loss
+from ..ops.losses import balance_counts, multi_output_loss
 from ..train.optim import Schedule, apply_update
 from ..train.precision import Policy
 
@@ -46,13 +67,16 @@ VOID_KEY = "crop_void"
 class TrainState:
     """Everything that evolves in training: the model (parameters and
     BatchNorm statistics), the optimizer (momentum), the number of updates
-    made, and the generator that draws the dropout masks."""
+    made, and the generator that draws the dropout masks; under data
+    parallelism ``ddp``, the DDP module around ``model`` that the train
+    step runs."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Schedule
     generator: torch.Generator
     step: int = 0
+    ddp: DistributedDataParallel | None = None
 
     @property
     def device(self) -> torch.device:
@@ -68,6 +92,65 @@ def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
     model.to(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     return TrainState(model, optimizer, schedule, generator)
+
+
+def bucket_grad_leaves(sizes: Sequence[int], n_buckets: int) -> list[list[int]]:
+    """Partition gradient-leaf indices into ``n_buckets`` byte-balanced
+    buckets in reverse order (a copy of the JAX function's rule, over the
+    leaves' byte ``sizes``): the last leaves, whose gradients the backward
+    produces first, fill bucket 0."""
+    if n_buckets < 1:
+        raise ValueError(f"reduce_buckets must be >= 1 (got {n_buckets})")
+    order = list(range(len(sizes)))[::-1]
+    total = sum(int(sizes[i]) for i in order)
+    n_buckets = min(n_buckets, len(order)) or 1
+    per = max(1, total // n_buckets)
+    buckets: list[list[int]] = []
+    cur: list[int] = []
+    acc = 0
+    for i in order:
+        cur.append(i)
+        acc += int(sizes[i])
+        if acc >= per and len(buckets) < n_buckets - 1:
+            buckets.append(cur)
+            cur, acc = [], 0
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def bucket_cap_mb(model: nn.Module, n_buckets: int) -> float:
+    """DDP's ``bucket_cap_mb`` for ``train.reduce_buckets = n_buckets``:
+    the largest of the JAX package's byte-balanced buckets over the
+    trainable parameters, in MiB, so DDP (which also cuts in reverse
+    parameter order) closes about as many buckets."""
+    sizes = [p.numel() * p.element_size() for p in model.parameters()
+             if p.requires_grad]
+    buckets = bucket_grad_leaves(sizes, n_buckets)
+    return max(sum(sizes[i] for i in b) for b in buckets) / 2**20
+
+
+#: DDP's switch for the forward's buffer broadcast (renamed in torch 2.13)
+_NO_BUFFER_SYNC = "forward_sync_buffers" if "forward_sync_buffers" in \
+    inspect.signature(DistributedDataParallel).parameters else "broadcast_buffers"
+
+
+def wrap_data_parallel(state: TrainState, reduce_buckets: int = 0,
+                       group=None) -> TrainState:
+    """Put ``state.model`` under ``DistributedDataParallel`` over
+    ``group`` (the default group): parameters broadcast from rank 0, the
+    gradients averaged over the ranks.  BatchNorm's buffers are not
+    broadcast (the cross-replica layers keep them equal).
+    ``reduce_buckets > 0`` sizes the buckets from the JAX package's
+    (:func:`bucket_cap_mb`); 0 keeps DDP's default."""
+    device = state.device
+    kwargs = {_NO_BUFFER_SYNC: False}
+    if reduce_buckets:
+        kwargs["bucket_cap_mb"] = bucket_cap_mb(state.model, reduce_buckets)
+    state.ddp = DistributedDataParallel(
+        state.model, device_ids=[device] if device.type == "cuda" else None,
+        process_group=group, **kwargs)
+    return state
 
 
 def _nchw(arr, device: torch.device) -> torch.Tensor:
@@ -99,42 +182,55 @@ def _forward(model: nn.Module, inputs: torch.Tensor,
 
 
 def _compute_loss(outputs: Sequence[torch.Tensor], batch: Mapping,
-                  weights: Sequence[float] | None) -> torch.Tensor:
+                  weights: Sequence[float] | None,
+                  counts: torch.Tensor | None = None) -> torch.Tensor:
     """``multi_sigmoid``: the weighted balanced BCE of every output against
-    the one target."""
+    the one target, balanced and normalised by ``counts`` when given."""
     if weights is not None and len(weights) != len(outputs):
         raise ValueError(
             f"model.loss_weights has {len(weights)} entries but the model "
             f"emits {len(outputs)} outputs — give every output a weight")
     return multi_output_loss(outputs, batch[TARGET_KEY], batch.get(VOID_KEY),
-                             weights=weights)
+                             weights=weights, counts=counts)
 
 
 def make_train_step(loss_weights: Sequence[float] | None = None,
                     accum_steps: int = 1, loss_scale: float = 1.0,
                     grad_clip_norm: float | None = None,
-                    precision: Policy | None = None
+                    precision: Policy | None = None,
+                    global_balance: bool = True
                     ) -> Callable[[TrainState, Mapping], torch.Tensor]:
     """``(state, host batch) -> loss``: one optimizer update of ``state``
     in place; ``grad_clip_norm`` clips the trainable gradients' global norm
-    (optax's ``clip_by_global_norm``) before the update."""
+    (optax's ``clip_by_global_norm``) before the update.  Under
+    ``state.ddp`` the batch is this rank's rows, and ``global_balance``
+    picks the global loss (see the module docstring)."""
 
     def step(state: TrainState, batch: Mapping) -> torch.Tensor:
-        model = state.model.train()
+        ddp = state.ddp
+        model = state.model.train() if ddp is None else ddp.train()
         data = device_batch(batch, state.device)
         b = data[INPUT_KEY].shape[0]
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps "
                              f"{accum_steps}")
         micro = b // accum_steps
+        world = 1 if ddp is None else dist.get_world_size(ddp.process_group)
         state.optimizer.zero_grad(set_to_none=True)
         losses = []
         for i in range(accum_steps):
             part = {k: v[i * micro:(i + 1) * micro] for k, v in data.items()}
-            outputs = _forward(model, part[INPUT_KEY], precision,
-                               state.generator)
-            loss = _compute_loss(outputs, part, loss_weights)
-            (loss * loss_scale).backward()
+            counts = None
+            if ddp is not None and global_balance:
+                counts = balance_counts(part[TARGET_KEY], part.get(VOID_KEY))
+                dist.all_reduce(counts, group=ddp.process_group)
+            last = ddp is None or i == accum_steps - 1
+            with contextlib.nullcontext() if last else ddp.no_sync():
+                outputs = _forward(model, part[INPUT_KEY], precision,
+                                   state.generator)
+                loss = _compute_loss(outputs, part, loss_weights, counts)
+                scale = loss_scale * (world if counts is not None else 1)
+                (loss * scale).backward()
             losses.append(loss.detach())
         if loss_scale != 1.0 or accum_steps != 1:
             for group in state.optimizer.param_groups:
@@ -144,7 +240,12 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
         apply_update(state.optimizer, state.schedule, state.step,
                      grad_clip_norm)
         state.step += 1
-        return torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        if ddp is not None:
+            dist.all_reduce(loss, group=ddp.process_group)
+            if not global_balance:
+                loss = loss / world
+        return loss
 
     return step
 

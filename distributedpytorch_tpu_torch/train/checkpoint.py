@@ -20,7 +20,16 @@ and records the skipped steps in ``last_restore_fallback``.
 The meta dict of a save carries ``step`` and ``best_metric``, and what the
 trainer adds: ``epoch`` (the last completed epoch), and for a save made on
 preemption ``interrupted_epoch``, ``epoch_steps_done``, ``train_batch``,
-``seed`` and ``echo`` — what a resume reads to continue mid-epoch.
+``seed``, ``echo`` and ``num_shards`` — what a resume reads to continue
+mid-epoch — and the parallel plan's block.
+
+Under data parallelism every rank calls :meth:`CheckpointManager.save`
+and :meth:`~CheckpointManager.restore`; only rank 0 writes, and the other
+ranks wait for it at a barrier.  A ZeRO-1 optimizer's shards are gathered
+on rank 0 first (``consolidate_state_dict``, on every rank) into the plain
+SGD ``state_dict``, so a checkpoint restores under either strategy; every
+rank's dropout generator is saved (``generators``, by rank) and a restore
+into the same world size gives each rank its own back.
 """
 
 from __future__ import annotations
@@ -33,6 +42,10 @@ import re
 import shutil
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import mesh
+from ..parallel.zero import is_sharded
 
 _LEDGER = "COMMITTED.json"
 
@@ -159,11 +172,19 @@ class CheckpointManager:
         is_best = metric is not None and metric > self.best_metric
         if is_best:
             self.best_metric = float(metric)
+        if is_sharded(state.optimizer):
+            state.optimizer.consolidate_state_dict(to=0)
+        generators = _gather_generators(state.generator)
+        if mesh.process_index() != 0:
+            mesh.barrier()
+            return is_best
         model_state = state.model.state_dict()
         payload = {"model": model_state,
                    "optimizer": state.optimizer.state_dict(),
                    "step": int(state.step),
                    "generator": state.generator.get_state()}
+        if generators is not None:
+            payload["generators"] = generators
         meta = {"step": int(step), "best_metric": self.best_metric}
         if metric is not None:
             meta["metric"] = float(metric)
@@ -177,6 +198,7 @@ class CheckpointManager:
         atomic_write_json(os.path.join(self.directory, _LEDGER),
                           {"latest": _steps(self._slot(False)),
                            "best": _steps(self._slot(True))})
+        mesh.barrier()
         return is_best
 
     def latest_step(self) -> int | None:
@@ -230,5 +252,18 @@ class CheckpointManager:
         state.model.load_state_dict(payload["model"], strict=True)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
-        state.generator.set_state(payload["generator"].cpu())
+        rank, generators = mesh.process_index(), payload.get("generators")
+        if generators is not None and len(generators) == mesh.data_axis_size():
+            state.generator.set_state(generators[rank].cpu())
+        elif rank == 0:
+            state.generator.set_state(payload["generator"].cpu())
         return meta
+
+
+def _gather_generators(generator: torch.Generator) -> list | None:
+    """Every rank's generator state, by rank (None at one process)."""
+    if mesh.data_axis_size() == 1:
+        return None
+    out: list = [None] * mesh.data_axis_size()
+    dist.all_gather_object(out, generator.get_state())
+    return out

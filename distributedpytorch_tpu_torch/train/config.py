@@ -341,12 +341,10 @@ UNPORTED = (
     "model.name", "model.remat_policy", "model.bn_fp32_stats",
     "model.pam_block_size", "model.pam_impl", "model.quantization",
     "model.moe_experts", "model.guidance_inject",
-    "train.reduce_buckets",
     "optim.name",
-    "parallel.strategy", "parallel.data", "parallel.model",
-    "parallel.hbm_budget_gb",
-    "mesh.data", "mesh.model", "mesh.slices", "mesh.process_is_granule",
-    "mesh.shard_params", "mesh.shard_opt_state",
+    "parallel.model", "parallel.hbm_budget_gb",
+    "mesh.model", "mesh.slices", "mesh.process_is_granule",
+    "mesh.shard_params",
     "sentinel.enabled", "sentinel.monitor_grads",
     "task", "val_overlap", "eval_tta_scales", "eval_tta_flip",
     "eval_full_res", "profile_epoch",
@@ -356,6 +354,8 @@ UNPORTED = (
 PORTED_VALUES = {
     "model.dtype": ("float32", "bfloat16"),
     "model.pam_score_dtype": (None, "float32", "bfloat16"),
+    # the data-only rungs; dp_tp, dp_tp_zero1 and auto are not ported
+    "parallel.strategy": ("", "dp", "dp_zero1"),
 }
 
 

@@ -1,6 +1,5 @@
 """Validation: threshold-swept Jaccard with full-resolution paste-back, the
-counterpart of ``distributedpytorch_tpu/train/evaluate.py``'s ``evaluate``
-(one process).
+counterpart of ``distributedpytorch_tpu/train/evaluate.py``'s ``evaluate``.
 
 Per sample: the sigmoid of the fused logits is pasted back into the full
 image (``crop2fullmask`` with the crop's recorded bbox and the relax
@@ -8,6 +7,12 @@ border shaved), binarised at each threshold and scored against the
 full-resolution ground truth with void pixels excluded.  An empty ground
 truth scores 1 where the crop prediction is empty at that threshold, else
 0.  The metric is the best threshold's mean IoU.
+
+Under data parallelism each rank scores its shard of the validation set
+(the loader's wrap-padded shard), then ``(jac_sum, n_samples, loss_sum,
+n_batches)`` is summed over the ranks with one ``all_reduce``, as the JAX
+function sums them over processes, so every rank holds the same metrics
+and the best-checkpoint gate cannot diverge.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.metrics import np_jaccard_thresholds
 from ..parallel.step import INPUT_KEY
@@ -77,9 +83,19 @@ def evaluate(eval_step: Callable, state, loader,
                                  zero_pad=zero_pad, relax=relax)
             jac_sum += np_jaccard_thresholds(full, thresholds, gt > 0.5, void)
     loss_sum = float(torch.stack(losses).sum()) if losses else 0.0
+    n_batches = len(losses)
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        packed = torch.tensor([*jac_sum, n_samples, loss_sum, n_batches],
+                              dtype=torch.float64, device=state.device)
+        dist.all_reduce(packed)
+        summed = packed.tolist()
+        jac_sum = np.asarray(summed[:len(thresholds)])
+        n_samples, loss_sum = int(summed[-3]), summed[-2]
+        n_batches = int(summed[-1])
     jac_avg = (jac_sum / max(n_samples, 1)).tolist()
     best = int(np.argmax(jac_avg))
-    return {"loss": loss_sum / max(len(losses), 1),
+    return {"loss": loss_sum / max(n_batches, 1),
             "jaccard_per_threshold": dict(zip(map(str, thresholds), jac_avg)),
             "jaccard": jac_avg[best],
             "best_threshold": thresholds[best],

@@ -1,12 +1,15 @@
 """Graceful preemption, the counterpart of
-``distributedpytorch_tpu/train/preemption.py`` for one process.
+``distributedpytorch_tpu/train/preemption.py``.
 
 A termination signal (SIGTERM, SIGINT) sets a flag instead of killing the
 process; the trainer reads it between steps, leaves the loop, saves the
 whole train state once and returns, and the next run resumes where it
-stopped.  The JAX guard takes the stop decision by consensus across
-hosts; with one process the decision is the local flag.  It publishes no
-telemetry (the port has none yet).
+stopped.  Under data parallelism the decision is a consensus, as in the
+JAX guard: at each check every rank's flag is gathered and the ranks stop
+if any is set (``replicated_decision(..., reduce="any")``), so a signal to
+one rank stops every rank at the same step.  With one process the
+decision is the local flag.  It publishes no telemetry (the port has none
+yet).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import contextlib
 import signal
 import threading
+
+from ..parallel.consensus import replicated_decision
 
 
 class PreemptionGuard:
@@ -104,7 +109,10 @@ class PreemptionGuard:
     def should_stop(self, step: int | None = None) -> bool:
         """The stop decision, read every ``check_every`` steps: a ``step``
         off the cadence returns False; ``None`` (an epoch boundary)
-        always reads the flag."""
+        always reads it.  A read is a collective under a process group:
+        every rank reads at the same steps, and all stop if any rank's
+        flag is set."""
         if step is not None and step % self.check_every != 0:
             return False
-        return self.triggered
+        return bool(replicated_decision(self.triggered, reduce="any",
+                                        label="preemption/should_stop"))

@@ -30,8 +30,21 @@ run continues at that batch.
 It runs on CUDA unless ``device`` says otherwise.  A knob this port does
 not run yet, set away from its default, raises at construction
 (``config.unported_knobs``).  Left out for now: the sentinel, the feed
-governor, telemetry, overlapped validation, and everything multi-process
-(the stop consensus, plan crossings).
+governor, telemetry, overlapped validation, elastic membership.
+
+Data parallelism: constructed in every process of a group
+(``parallel/mesh.py``; ``python -m distributedpytorch_tpu_torch`` forms
+it), the trainer resolves the plan (``parallel.strategy`` dp | dp_zero1,
+``parallel/plan.py``), checks that the global ``data.train_batch``
+divides over the ranks and their micro-batches, gives each rank a loader
+of ``train_batch // W`` rows over its shard, builds the model with
+cross-replica BatchNorm, wraps it in DDP (and the optimizer in ZeRO-1
+under ``dp_zero1``), seeds each rank's dropout generator from ``(seed,
+rank)`` and validates each rank's shard into one set of metrics.  Rank 0
+alone writes the run's files, logs and prints; the stop after a signal to
+any rank is a consensus, and its save records ``num_shards``, so a
+resume under another world size replays the interrupted epoch.  The
+plan's block goes to ``fit_summary.json`` and every checkpoint's meta.
 """
 
 from __future__ import annotations
@@ -49,7 +62,16 @@ from ..data.pipeline import DataLoader, build_eval_transform, build_train_transf
 from ..data.voc import VOCInstanceSegmentation
 from ..models import build_model
 from ..ops import cuda_attention
-from ..parallel.step import create_train_state, make_eval_step, make_train_step
+from ..parallel import mesh
+from ..parallel import plan as plan_lib
+from ..parallel.consensus import replicated_decision
+from ..parallel.step import (
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    wrap_data_parallel,
+)
+from ..parallel.zero import shard_optimizer
 from ..predict import resolve_device
 from . import config as config_lib
 from ..utils import weights
@@ -66,6 +88,15 @@ from .precision import apply_policy, precision_block
 from .preemption import PreemptionGuard
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The dropout generator's seed of ``rank``: ``seed`` itself on rank 0
+    (the single-process run's), one drawn from ``(seed, rank)`` on the
+    others, so the ranks draw different masks."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
 class Trainer:
     """Build once, ``fit()`` to train, ``validate()`` to evaluate."""
 
@@ -80,10 +111,21 @@ class Trainer:
                              f"{cfg.model.nclass}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        #: the data axis: the processes of the group, this one's rank
+        self.world, self.rank = mesh.data_axis_size(), mesh.process_index()
+        self.is_main = self.rank == 0
+        self.distributed = mesh.is_distributed()
+        mesh.resolve_data_axis(cfg.mesh.data)
+        self.plan = plan_lib.plan_from_config(cfg, n_devices=self.world)
+        if cfg.train.reduce_buckets and \
+                self.plan.strategy not in plan_lib.BUCKET_COMPATIBLE:
+            raise plan_lib.reduce_buckets_conflict(self.plan.strategy)
         self.precision = apply_policy(cfg.train.precision)
-        self.run_dir = next_run_dir(cfg.work_dir)
+        self.run_dir = mesh.broadcast_object(
+            next_run_dir(cfg.work_dir) if self.is_main else None)
         self.writer = MultiWriter(*[make_writer(name, self.run_dir)
-                                    for name in cfg.log_writers])
+                                    for name in cfg.log_writers]) \
+            if self.is_main else MultiWriter()
 
         d = cfg.data
         root = make_fake_voc(n_images=8, size=(96, 128), n_val=3,
@@ -102,27 +144,49 @@ class Trainer:
         self.val_set = VOCInstanceSegmentation(
             root, split=d.val_split, transform=val_tf, area_thres=d.area_thres,
             decode_cache=d.decode_cache)
-        if d.train_batch % cfg.optim.accum_steps:
-            raise ValueError(f"train batch {d.train_batch} not divisible by "
-                             f"accum_steps {cfg.optim.accum_steps}")
+        # batch sizes are global: each rank loads its 1/W share of every
+        # batch, which must divide over the ranks and the micro-batches
+        tb, w, accum = d.train_batch, self.world, cfg.optim.accum_steps
+        if tb % w:
+            raise ValueError(f"global train batch {tb} not divisible by "
+                             f"{w} processes")
+        if tb % (w * accum):
+            raise ValueError(
+                f"global train batch {tb} not divisible by data axis "
+                f"{w} x accum_steps {accum}")
+        vb = max(1, -(-d.val_batch // w))  # per rank, ceil, >= 1
+        if self.is_main and vb * w != d.val_batch:
+            print(f"note: global val batch rounded {d.val_batch} -> "
+                  f"{vb * w} ({vb}/rank x {w} ranks)", flush=True)
+        shard = {"num_shards": w, "shard_index": self.rank,
+                 # the dp step's global micro-batches; the bucketed step
+                 # splits each rank's own rows
+                 "micro_batches": 1 if cfg.train.reduce_buckets else accum}
         if d.loader == "grain":
             self.train_loader = GrainDataLoader(
-                self.train_set, d.train_batch, shuffle=True, drop_last=True,
-                seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch)
+                self.train_set, tb // w, shuffle=True, drop_last=True,
+                seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch,
+                **shard)
         elif d.loader == "threads":
             self.train_loader = DataLoader(
-                self.train_set, d.train_batch, shuffle=True, drop_last=True,
-                seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch)
+                self.train_set, tb // w, shuffle=True, drop_last=True,
+                seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch,
+                **shard)
         else:
             raise ValueError(f"unknown data.loader: {d.loader!r} "
                              "(threads | grain)")
         self.val_loader = DataLoader(
-            self.val_set, d.val_batch, shuffle=False, drop_last=False,
-            seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch)
-        if len(self.train_loader) == 0:
+            self.val_set, vb, shuffle=False, drop_last=False,
+            seed=cfg.seed, num_workers=d.num_workers, prefetch=d.prefetch,
+            num_shards=w, shard_index=self.rank)
+        # one rank raising alone would leave the others waiting at their
+        # first collective: the emptiness decision is a consensus
+        if replicated_decision(len(self.train_loader), reduce="min",
+                               label="trainer/train_loader_len") == 0:
             raise ValueError(
-                f"train loader is empty: {len(self.train_set)} samples, "
-                f"batch {d.train_batch} with drop_last — lower "
+                f"train loader is empty: {len(self.train_set)} samples "
+                f"(~{len(self.train_set) // w} on this rank's shard), batch "
+                f"{tb // w} per rank with drop_last — lower "
                 "data.train_batch or enlarge the dataset")
 
         with torch.random.fork_rng(devices=[]):
@@ -138,18 +202,25 @@ class Trainer:
                 pam_score_dtype=cfg.model.pam_score_dtype,
                 remat=cfg.model.remat, aux_head=cfg.model.aux_head,
                 encnet_codes=cfg.model.encnet_codes,
-                ccnet_recurrence=cfg.model.ccnet_recurrence)
+                ccnet_recurrence=cfg.model.ccnet_recurrence,
+                bn_cross_replica=self.distributed)
         total_steps = len(self.train_loader) * cfg.epochs
         optimizer, self.schedule = make_optimizer(cfg.optim, self.model,
                                                   total_steps)
         self.state = create_train_state(self.model, optimizer, self.schedule,
-                                        cfg.seed, self.device)
+                                        rank_seed(cfg.seed, self.rank),
+                                        self.device)
+        if self.distributed:
+            if self.plan.shard_opt_state:  # on the device: ZeRO keeps it
+                self.state.optimizer = shard_optimizer(optimizer)
+            wrap_data_parallel(self.state, cfg.train.reduce_buckets)
         self.train_step = make_train_step(
             loss_weights=cfg.model.loss_weights,
             accum_steps=cfg.optim.accum_steps,
             loss_scale=cfg.optim.loss_scale,
             grad_clip_norm=cfg.optim.grad_clip_norm,
-            precision=self.precision)
+            precision=self.precision,
+            global_balance=not cfg.train.reduce_buckets)
         self.eval_step = make_eval_step(loss_weights=cfg.model.loss_weights,
                                         precision=self.precision)
         self.ckpt = CheckpointManager(
@@ -168,10 +239,12 @@ class Trainer:
             self._warm_start(cfg.checkpoint.warm_start,
                              cfg.checkpoint.warm_start_partial)
         if cfg.resume == "auto":
-            src = latest_checkpoint_dir(cfg.work_dir, exclude_run=self.run_dir)
+            src = mesh.broadcast_object(latest_checkpoint_dir(
+                cfg.work_dir, exclude_run=self.run_dir)
+                if self.is_main else None)
             if src is None:
-                print(f"resume=auto: no prior checkpoints under "
-                      f"{cfg.work_dir}; starting fresh", flush=True)
+                self._print(f"resume=auto: no prior checkpoints under "
+                            f"{cfg.work_dir}; starting fresh")
             else:
                 self._resume(src)
         elif cfg.resume:
@@ -179,12 +252,28 @@ class Trainer:
 
         flat = config_lib.flatten(cfg)
         flat.update(n_params=self.n_params, device=str(self.device),
-                    train_set=str(self.train_set), val_set=str(self.val_set))
-        with open(os.path.join(self.run_dir, f"{cfg.experiment_name}.txt"),
-                  "w") as f:
-            f.writelines(f"{k}: {v}\n" for k, v in flat.items())
-        config_lib.to_json(cfg, os.path.join(self.run_dir, "config.json"))
+                    train_set=str(self.train_set), val_set=str(self.val_set),
+                    world_size=self.world, resolved_plan=self.plan.describe())
+        if self.is_main:
+            with open(os.path.join(self.run_dir,
+                                   f"{cfg.experiment_name}.txt"), "w") as f:
+                f.writelines(f"{k}: {v}\n" for k, v in flat.items())
+            config_lib.to_json(cfg, os.path.join(self.run_dir, "config.json"))
         self.writer.hparams(flat)
+
+    def _print(self, msg: str) -> None:
+        """Print on rank 0 only."""
+        if self.is_main:
+            print(msg, flush=True)
+
+    @property
+    def order_meta(self) -> dict:
+        """What fixes the batch order a preemption save's batch offset
+        indexes: ``num_shards`` (the world size), ``echo``,
+        ``train_batch``, ``seed`` and the worker loader's worker count."""
+        return {"num_shards": self.world, "echo": self.cfg.data.echo,
+                "train_batch": self.cfg.data.train_batch,
+                "seed": self.cfg.seed, "loader_workers": self.loader_workers}
 
     @property
     def loader_workers(self) -> int:
@@ -219,8 +308,8 @@ class Trainer:
             sd = weights.inflate_stem_channels(sd, self.cfg.model.in_channels)
             rename = weights.torchvision_resnet_rename(depth)
             partial = True
-            print(f"warm start: torchvision ResNet naming detected in {path}; "
-                  "importing as pretrained backbone", flush=True)
+            self._print(f"warm start: torchvision ResNet naming detected in "
+                        f"{path}; importing as pretrained backbone")
         imported, kept = weights.import_state_dict(
             self.model, sd, rename=rename, allow_missing=partial,
             allow_unused=partial)
@@ -235,17 +324,19 @@ class Trainer:
             raise ValueError(f"warm start from {path} imported 0 of "
                              f"{len(kept)} tensors — checkpoint keys do not "
                              "match this model; check the architecture/naming")
-        print(f"warm-started {len(imported)} tensors from {path} "
-              f"({len(kept)} kept from fresh init)", flush=True)
+        self._print(f"warm-started {len(imported)} tensors from {path} "
+                    f"({len(kept)} kept from fresh init)")
 
     def _resume(self, source: str) -> None:
         """Restore the whole train state from the checkpoints in
         ``source`` and position the fit: the epoch after the saved one,
         or, for a save made on preemption, the interrupted epoch at the
         batch where it stopped — unless ``checkpoint.exact_resume`` is off
-        or the batch order changed since (train batch, seed, echo, or the
-        worker-process loader's worker count), when the epoch replays from
-        its start."""
+        or the batch order changed since (the world size, train batch,
+        seed, echo, or the worker-process loader's worker count), when the
+        epoch replays from its start.  A checkpoint of another plan (a
+        ``dp_zero1`` save under ``dp``, another world size) restores all
+        the same; the crossing is announced."""
         mgr = CheckpointManager(source)
         meta = mgr.restore(self.state)
         self.resume_meta = dict(meta)
@@ -253,18 +344,20 @@ class Trainer:
         self.start_epoch = int(meta.get("epoch", 0)) + 1
         self.ckpt.best_metric = float(meta.get("best_metric",
                                                self.ckpt.best_metric))
+        if plan_lib.plans_differ(meta.get("plan"), self.plan.block(),
+                                 self.world):
+            self._print(f"plan crossing: checkpoint saved under "
+                        f"{meta.get('plan')}, restored under "
+                        f"{self.plan.block()}")
         interrupted = meta.get("interrupted_epoch")
         if interrupted is not None and self.cfg.checkpoint.exact_resume:
-            now = {"echo": self.cfg.data.echo,
-                   "train_batch": self.cfg.data.train_batch,
-                   "seed": self.cfg.seed,
-                   "loader_workers": self.loader_workers}
-            stale = {k: (meta.get(k, v), v) for k, v in now.items()
+            stale = {k: (meta.get(k, v), v) for k, v in self.order_meta.items()
                      if int(meta.get(k, v)) != v}
             if stale:
-                print("exact_resume: data-order config changed (" + ", ".join(
-                    f"{k}: {a} -> {b}" for k, (a, b) in stale.items())
-                    + ") — replaying the interrupted epoch instead", flush=True)
+                self._print(
+                    "exact_resume: data-order config changed (" + ", ".join(
+                        f"{k}: {a} -> {b}" for k, (a, b) in stale.items())
+                    + ") — replaying the interrupted epoch instead")
             else:
                 done = int(meta.get("epoch_steps_done", 0)) \
                     // max(1, self.cfg.data.echo)
@@ -276,8 +369,8 @@ class Trainer:
         at = f"epoch {self.start_epoch}"
         if self._resume_start_batch:
             at += f" batch {self._resume_start_batch}"
-        print(f"resumed from {source} step {self.state.step} at {at} "
-              f"(best={self.ckpt.best_metric:.4f})", flush=True)
+        self._print(f"resumed from {source} step {self.state.step} at {at} "
+                    f"(best={self.ckpt.best_metric:.4f})")
 
     def train_epoch(self, epoch: int, guard: PreemptionGuard | None = None,
                     start_batch: int = 0) -> float:
@@ -320,7 +413,7 @@ class Trainer:
                    f"non-finite train losses in epoch {epoch}")
             if cfg.debug_asserts:
                 raise FloatingPointError(msg)
-            print(f"warning: {msg}", flush=True)
+            self._print(f"warning: {msg}")
         if interrupted:
             return float(loss_arr.mean())
         scalars = {"train/epoch_loss": float(loss_arr.mean()),
@@ -395,10 +488,8 @@ class Trainer:
                                 "epoch": epoch - 1,
                                 "interrupted_epoch": epoch,
                                 "epoch_steps_done": sb + (step - estep0),
-                                "echo": cfg.data.echo,
-                                "train_batch": cfg.data.train_batch,
-                                "seed": cfg.seed,
-                                "loader_workers": self.loader_workers,
+                                **self.order_meta,
+                                "plan": self.plan.block(),
                                 "preempted": True})
                     self.writer.scalars({"preempted_at_epoch": epoch}, step)
                     break
@@ -408,26 +499,35 @@ class Trainer:
                     history["val"].append(dict(metrics, epoch=epoch))
                     if self.ckpt.save(step, self.state,
                                       metric=metrics["jaccard"],
-                                      extra={"epoch": epoch}):
+                                      extra={"epoch": epoch,
+                                             "plan": self.plan.block()}):
                         self.writer.scalars({"val/new_best_jaccard":
                                              metrics["jaccard"],
                                              "val/epoch": epoch}, step)
                 elif cfg.checkpoint.snapshot_every and \
                         (epoch + 1) % cfg.checkpoint.snapshot_every == 0:
-                    self.ckpt.save(step, self.state, extra={"epoch": epoch})
+                    self.ckpt.save(step, self.state, extra={
+                        "epoch": epoch, "plan": self.plan.block()})
                 self.writer.scalars({"epoch": epoch, "epoch_total_seconds":
                                      time.perf_counter() - t0}, step)
                 epoch += 1
         preempted = bool(history.get("preempted"))
-        atomic_write_json(os.path.join(self.run_dir, "fit_summary.json"), {
-            "completed": not preempted, "preempted": preempted,
-            "start_step": start_step, "final_step": self.state.step,
-            "start_epoch": self.start_epoch, "epochs": cfg.epochs,
-            "epochs_recorded": len(history["train_loss"]),
-            "resumed_from_step": self.resume_meta.get("step"),
-            "device": str(self.device),
-            "precision": precision_block(self.precision),
-            "kernel_launches": dict(cuda_attention.launches)})
+        # every rank's step, gathered: the ranks must stop together
+        steps = replicated_decision(self.state.step, reduce=list,
+                                    label="trainer/final_steps")
+        if self.is_main:
+            atomic_write_json(os.path.join(self.run_dir, "fit_summary.json"), {
+                "completed": not preempted, "preempted": preempted,
+                "start_step": start_step, "final_step": self.state.step,
+                "start_epoch": self.start_epoch, "epochs": cfg.epochs,
+                "epochs_recorded": len(history["train_loss"]),
+                "resumed_from_step": self.resume_meta.get("step"),
+                "device": str(self.device),
+                "world_size": self.world,
+                "final_step_by_rank": steps,
+                "plan": self.plan.block(),
+                "precision": precision_block(self.precision),
+                "kernel_launches": dict(cuda_attention.launches)})
         self.writer.flush()
         return history
 

@@ -126,6 +126,62 @@ class TestWrapperChecks:
         with pytest.raises(ValueError, match="different devices"):
             ca.flash_position_attention(q, k, v.to("meta"))
 
+    @pytest.mark.parametrize("splits", [1, 3])
+    def test_every_launch_runs_under_its_tensors_device(self, monkeypatch,
+                                                        splits):
+        """The ``ctypes`` entry points launch into the calling thread's
+        current device, so each of the four launches must run inside
+        ``_on_device`` for the tensor it launches on.  The library and the
+        guard are replaced by recorders; the tensors lie on the CPU with
+        the CPU check bypassed, so the launch paths run here."""
+        guards: list[torch.Tensor] = []
+        calls: list[tuple[str, int | None, tuple]] = []
+
+        class Guard:
+            def __init__(self, tensor):
+                self.tensor = tensor
+
+            def __enter__(self):
+                guards.append(self.tensor)
+
+            def __exit__(self, *exc):
+                guards.pop()
+
+        class Lib:
+            def __getattr__(self, name):
+                def launch(*args):
+                    calls.append((name, guards[-1].data_ptr() if guards
+                                  else None, args))
+                    return 0
+                return launch
+
+        monkeypatch.setattr(ca, "_on_device", Guard)
+        monkeypatch.setattr(ca, "_lib", Lib)
+        monkeypatch.setattr(ca, "_on_cpu", lambda *ts: False)
+        monkeypatch.setattr(ca, "_stream", lambda t: 0)
+        monkeypatch.setattr(ca, "gram_splits", lambda *a: splits)
+        monkeypatch.setattr(ca, "_sm_count", lambda device: 132)
+        before = dict(ca.launches)
+        q, k, v = t(*qkv(n=64))
+        ca.flash_position_attention(q, k, v)
+        x = torch.from_numpy(tokens(n=64))
+        ca.cam_apply(ca.cam_energy(x), x)
+        assert [c[0] for c in calls] == ["dptpu_pam_forward", "dptpu_cam_gram",
+                                         "dptpu_cam_softmax", "dptpu_cam_apply"]
+        for name, guarded, args in calls:
+            # the guard's tensor is one the launch reads or writes
+            assert guarded is not None and guarded in args, name
+        assert not guards
+        assert {n: ca.launches[n] - before[n] for n in before} == \
+            {"position_attention": 1, "cam_energy": 1, "cam_apply": 1}
+        ca.launches.update(before)
+
+    def test_device_guard_is_the_tensors_device(self, monkeypatch):
+        seen = []
+        monkeypatch.setattr(torch.cuda, "device", lambda d: seen.append(d))
+        ca._on_device(torch.zeros(2, device="meta"))
+        assert seen == [torch.device("meta")]
+
     @pytest.mark.parametrize("batch,channels,n_tok,sms,splits", [
         (1, 512, 4096, 132, 13),  # serving shape at B = 1: 10 tiles x 13
         (8, 512, 4096, 132, 3),   # 80 tiles: 240 blocks, two to most SMs

@@ -69,6 +69,15 @@ def test_source_imports_nothing_of_jax(path):
                 f"{path} imports {name}"
 
 
+def test_data_parallel_modules_are_checked():
+    """The data-parallel slice's modules stand alone like the rest: the
+    two checks above cover them (they walk the package)."""
+    for name in ("parallel.mesh", "parallel.consensus", "parallel.plan",
+                 "parallel.zero", "parallel.launch", "ops.sync_bn"):
+        assert f"distributedpytorch_tpu_torch.{name}" in MODULES
+        assert PORT / (name.replace(".", "/") + ".py") in SOURCES
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
                          capture_output=True, text=True, timeout=240,

@@ -308,6 +308,41 @@ def test_predictor_serves_the_bf16_run(runs):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _chip_smoke():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_rules", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_resume_rule_refuses_a_wrong_batch(runs, tmp_path):
+    """``chip_smoke.py``'s resumed-vs-straight rule (6f and dist (c): per
+    tensor against the movement or the straight runs' spread, and the
+    whole model's L2) passes the exact resume and refuses one that lands
+    one batch early (batch 1 of epoch 1 trained twice).  On the CPU the
+    straight runs are bitwise repeatable, so their spread is 0."""
+    rules = _chip_smoke()
+    src = os.path.join(runs.stopped.run_dir, "checkpoints")
+    wrong = Trainer(tiny(tmp_path / "wrong", f"resume={src}"), device="cpu")
+    assert wrong._resume_start_batch == 2
+    wrong._resume_start_batch = 1
+    wrong.fit()
+    wrong.close()
+    init = Trainer(tiny(tmp_path / "init"), device="cpu").model.state_dict()
+    straight = runs.straight.model.state_dict()
+    ok, rows, _ = rules.resume_check(torch, init, [straight] * 3,
+                                     runs.resumed.model.state_dict(), tag="cpu")
+    assert ok == [] and all(d == 0.0 for _, d, _ in rows)
+    bad, _, l2 = rules.resume_check(torch, init, [straight] * 3,
+                                    wrong.model.state_dict(), tag="cpu")
+    assert any(f.startswith("L2 distance") for f in bad)
+    assert l2["resumed"] > rules.RESUME_L2_TOL * l2["moved"] and l2["spread"] == 0
+
+
 @pytest.fixture(scope="module")
 def jax_export(tmp_path_factory):
     """A JAX DANet-R18's randomized variables and their torch export."""
