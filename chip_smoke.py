@@ -122,6 +122,32 @@ it), printing no result.  The phases, each raising on failure:
              straight runs' final step within 6f's rule, and no process of
              any fit's group is left.  The wrong-device case of the kernels'
              device guard needs a host with two cards and is not run.
+9. semantic — the semantic task and the DeepLab family (no attention
+             kernel lies on this path; their counters must not move):
+             (a) DeepLabV3, DeepLabV3+ and FCN on ResNet-101 at 513², 21
+             classes, aux head, every weight drawn from seed 0, eval mode,
+             B = 1: the card's float32 logits (TF32 off) within 1e-3 x
+             max(1, max |logit|) of the CPU's; (b) one DeepLabV3-R101 step
+             at B = 2 from the trainer's initial weights, dropout off,
+             labels with a void border: the loss within 1e-5 of the CPU's
+             on the card's logits, every gradient within 1e-3 x its max |g|
+             of the card's float64 step or within 4x the CPU's float32
+             step's own distance from it (float32 itself is off by more on
+             some tensors: cancelling sums over 2 x 257² positions, and the
+             image-pool BatchNorm over two values), and an all-void batch
+             giving loss 0 and zero gradients; (c) BASELINE config 4, the
+             B = 8 DeepLabV3-R101 train step, bf16 and float32 in turns
+             (median of 5, CUDA events), images/s, peak memory, a profiler
+             split (convolutions, BatchNorm, loss, resize, the rest) and the
+             idle share; (d) the semantic CLI fit (``task=semantic``
+             DeepLabV3-R101 513² bf16, train batch 4, full-res validation
+             under 3-scale + flip TTA, 2 steps): finite losses, mIoU and
+             pixel accuracy in [0, 1] with 21 per-class entries, a committed
+             checkpoint, then ``SemanticPredictor.from_run``'s resize map
+             bitwise the argmax of the trainer's eval forward, ``slide``,
+             and ``--predict`` writing a PNG; (e) ``fullres_argmax`` on the
+             card against the host full-res protocol on the same
+             probabilities, >= 99.9% of pixels agreeing.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2 and grain are installed).  The launch counters
@@ -136,7 +162,7 @@ bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -2649,8 +2675,435 @@ def phase_dist_fit(torch, root: Path) -> None:
                     p.wait()
 
 
+#: the profiler's names for the semantic step's loss and resizes
+SEM_LOSS = ("aten::logsumexp", "aten::gather",
+            "autograd::engine::evaluate_function: LogsumexpBackward0",
+            "autograd::engine::evaluate_function: GatherBackward0")
+SEM_RESIZE = ("aten::upsample_bilinear2d", "aten::upsample_bilinear2d_backward")
+#: the semantic path: BASELINE config 4's shape
+SEM_SIZE, SEM_CLASSES = 513, 21
+
+
+def randomize_segmenter(torch, model, seed: int = 0):
+    """Every parameter and BatchNorm statistic of a DeepLab/FCN model drawn
+    from ``seed`` (the last-BN scales included, which flax zero-inits), at
+    scales that keep a 101-layer net finite; the classifiers' weights 100x
+    wider, for logits of order 10."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, module in model.named_modules():
+            if isinstance(module, torch.nn.Conv2d):
+                fan_in = module.weight[0].numel()
+                gain = 100.0 if name.endswith(("classifier", "Conv_1")) \
+                    and module.weight.shape[2] == 1 else 2.0
+                module.weight.normal_(0.0, (gain / fan_in) ** 0.5, generator=gen)
+                if module.bias is not None:
+                    module.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(module, torch.nn.BatchNorm2d):
+                module.weight.uniform_(0.2, 0.6, generator=gen)
+                module.bias.normal_(0.0, 0.1, generator=gen)
+                module.running_mean.normal_(0.0, 0.1, generator=gen)
+                module.running_var.uniform_(0.5, 2.0, generator=gen)
+    return model
+
+
+def _semantic_image(seed: int, size: int = SEM_SIZE):
+    import numpy as np
+
+    return np.random.default_rng(seed).uniform(
+        0, 255, (1, size, size, 3)).astype(np.float32)
+
+
+def semantic_forward(torch) -> None:
+    """9a: the three families' eval forward on the card against the CPU."""
+    from distributedpytorch_tpu_torch.models import build_model
+
+    x = torch.from_numpy(_semantic_image(1)).permute(0, 3, 1, 2).contiguous()
+    for name in ("deeplabv3", "deeplabv3plus", "fcn"):
+        model = randomize_segmenter(torch, build_model(
+            name, nclass=SEM_CLASSES, backbone="resnet101", aux_head=True,
+            in_channels=3)).eval()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want = model(x)
+        cpu_s = time.perf_counter() - t0
+        model.to("cuda")
+        with torch.inference_mode():
+            got = model(x.to("cuda"))
+        torch.cuda.synchronize()
+        if [tuple(g.shape) for g in got] != [(1, SEM_CLASSES, SEM_SIZE, SEM_SIZE)] * 2:
+            raise AssertionError(f"{name}: output shapes {[g.shape for g in got]}")
+        for label, g, w in zip(("primary", "aux"), got, want):
+            g = g.float().cpu()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} {label}: non-finite logits")
+            scale = max(1.0, w.abs().max().item())
+            check(f"semantic (a) {name} {label}, card vs CPU float32, max|diff|",
+                  (g - w).abs().max().item(), 1e-3 * scale)
+        log(f"semantic (a): {name}-R101 {SEM_SIZE}^2 OS {model.output_stride}, "
+            f"{SEM_CLASSES} classes, aux on, B=1, max|logit| "
+            f"{want[0].abs().max().item():.3f}; CPU forward {cpu_s:.1f} s")
+        del model, got
+        torch.cuda.empty_cache()
+
+
+def _semantic_grads(torch, model, saved, batch, dtype, device="cuda"):
+    """One forward and backward of ``model`` (weights ``saved``) in
+    ``dtype`` on ``device`` on ``batch``: (loss, the outputs, the batch on
+    the device, every parameter's gradient in float64 on the card)."""
+    from distributedpytorch_tpu_torch.parallel.step import _compute_loss, device_batch
+
+    model.to(device=device, dtype=dtype).load_state_dict(saved)
+    model.zero_grad(set_to_none=True)
+    data = {k: v.to(dtype) for k, v in
+            device_batch(batch, torch.device(device)).items()}
+    outputs = model(data["concat"])
+    loss = _compute_loss(outputs, data, (1.0, 0.4), loss_type="multi_softmax")
+    loss.backward()
+    grads = {n: p.grad.detach().to("cuda", torch.float64)
+             for n, p in model.named_parameters()}
+    return loss.item(), [o.detach() for o in outputs], data, grads
+
+
+def semantic_step_checks(torch) -> None:
+    """9b: a DeepLabV3-R101 step's loss and gradients on the card."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.ops.losses import softmax_xent_ignore
+
+    rng = np.random.default_rng(2)
+    labels = rng.integers(0, SEM_CLASSES, (2, SEM_SIZE, SEM_SIZE, 1)).astype(np.float32)
+    labels[:, :24] = labels[:, -24:] = 255.0  # a void border
+    labels[:, :, :24] = labels[:, :, -24:] = 255.0
+    batch = {"concat": np.concatenate([_semantic_image(3), _semantic_image(4)]),
+             "crop_gt": labels}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)  # the trainer's initial weights
+        model = build_model("deeplabv3", nclass=SEM_CLASSES, backbone="resnet101",
+                            aux_head=True, in_channels=3, dropout_rate=0.0)
+    model.train()
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss32, outputs, data, g32 = _semantic_grads(torch, model, saved, batch,
+                                                     torch.float32)
+        labels_cpu = data["crop_gt"][:, 0].cpu()
+        cpu_loss = sum(w * softmax_xent_ignore(o.cpu(), labels_cpu)
+                       for w, o in zip((1.0, 0.4), outputs)).item()
+        check("semantic (b) loss, card vs CPU on the card's logits, relative",
+              abs(loss32 - cpu_loss) / abs(cpu_loss), 1e-5)
+        del outputs, data
+        loss64, _, _, g64 = _semantic_grads(torch, model, saved, batch, torch.float64)
+        t0 = time.perf_counter()
+        loss_cpu, _, _, gcpu = _semantic_grads(torch, model, saved, batch,
+                                               torch.float32, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # float32 arithmetic itself is off float64 by more than 1e-3 of some
+    # tensors' max|g| here (cancelling sums over 2 x 257^2 positions, and
+    # the image-pool BatchNorm over two values, whose input gradient is
+    # rounding over the batch's spread); the CPU's float32 step, another
+    # implementation, measures that distance
+    ratios, failures, by_cpu = [], [], []
+    for name, want in g64.items():
+        scale = want.abs().max().item()
+        diff = (g32[name] - want).abs().max().item()
+        cpu_off = (gcpu[name] - want).abs().max().item()
+        limit = max(1e-3 * scale, 4.0 * cpu_off)
+        note_margin("semantic (b) gradients, card float32 vs float64 per tensor",
+                    diff, limit)
+        ratios.append((diff / scale if scale else 0.0, name))
+        if not diff <= limit:
+            failures.append(f"{name}: {diff:.3e} > 1e-3 x {scale:.3e} and > 4 x "
+                            f"the CPU float32 step's distance {cpu_off:.3e}")
+        elif diff > 1e-3 * scale:
+            by_cpu.append((diff / cpu_off, diff / scale, name))
+    ratios.sort()
+    by_cpu.sort()
+    log(f"semantic (b): DeepLabV3-R101 {SEM_SIZE}^2 B=2, the trainer's initial "
+        f"weights, dropout off, void border 24 px; loss card float32 {loss32:.9f}, "
+        f"float64 {loss64:.9f}, CPU float32 {loss_cpu:.9f} ({cpu_s:.1f} s); "
+        f"{len(ratios)} parameter tensors, card float32 vs float64 max|diff| / "
+        f"max|g|: median {ratios[len(ratios) // 2][0]:.3e}, largest "
+        f"{ratios[-1][0]:.3e} ({ratios[-1][1]}); {len(by_cpu)} above 1e-3 and "
+        f"within 4x the CPU float32 step's distance from float64, the largest at "
+        f"{max((r[0] for r in by_cpu), default=0.0):.3f}x it")
+    for of_cpu, ratio, name in by_cpu[-4:]:
+        log(f"semantic (b):   {name}: {ratio:.3e} of max|g|, {of_cpu:.3f}x the "
+            f"CPU float32 distance")
+    if failures:
+        raise AssertionError("semantic (b) gradients, float32 vs float64: "
+                             + "; ".join(failures[:8]))
+    del g32, g64, gcpu
+
+    void = dict(batch, crop_gt=np.full_like(labels, 255.0))
+    loss, _, _, grads = _semantic_grads(torch, model, saved, void, torch.float32)
+    gmax = max(g.abs().max().item() for g in grads.values())
+    log(f"semantic (b): all-void batch, loss {loss!r}, largest |g| {gmax!r}")
+    if loss != 0.0 or gmax != 0.0:
+        raise AssertionError(f"all-void batch: loss {loss}, max |g| {gmax}")
+    del model, grads
+    torch.cuda.empty_cache()
+
+
+def semantic_step_timed(torch, batch_size: int = 8, rounds: int = 5) -> None:
+    """9c: BASELINE config 4's train step, bf16 and float32, timed in turns."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.parallel.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    rng = np.random.default_rng(5)
+    labels = rng.integers(0, SEM_CLASSES, (batch_size, SEM_SIZE, SEM_SIZE, 1))
+    labels[rng.random(labels.shape) < 0.05] = 255
+    batch = {"concat": rng.uniform(0, 255, (batch_size, SEM_SIZE, SEM_SIZE, 3)
+                                   ).astype(np.float32),
+             "crop_gt": labels.astype(np.float32)}
+    paths = {}
+    for label, precision in (("bf16", "bfloat16"), ("f32", None)):
+        policy = precision_policy(precision) if precision else None
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = build_model("deeplabv3", nclass=SEM_CLASSES,
+                                backbone="resnet101", aux_head=True,
+                                in_channels=3, dtype=precision or "float32")
+        optimizer, schedule = make_optimizer(OptimConfig(lr=1e-4), model, 100)
+        state = create_train_state(model, optimizer, schedule, 0,
+                                   torch.device("cuda"))
+        paths[label] = (state, make_train_step(
+            loss_weights=(1.0, 0.4), precision=policy, loss_type="multi_softmax"))
+    peak_gb = {}
+    for label, (state, step) in paths.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = step(state, batch).item()
+        step(state, batch)
+        torch.cuda.synchronize()
+        peak_gb[label] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"semantic (c): first two {label} steps {time.perf_counter() - t0:.3f} s, "
+            f"loss {first:.6f}, peak memory {peak_gb[label]:.2f} GiB")
+    times = {label: [] for label in paths}
+    losses = []
+    for _ in range(rounds):
+        for label, (state, step) in paths.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(step(state, batch))
+            end.record()
+            end.synchronize()
+            times[label].append(start.elapsed_time(end))
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise AssertionError(f"non-finite semantic train losses: "
+                             f"{torch.stack(losses).tolist()}")
+    ms = {label: statistics.median(t) for label, t in times.items()}
+    for label in paths:
+        STEP_MS[f"semantic {label}"] = ms[label]
+        log(f"semantic (c): config 4, DeepLabV3-R101 {SEM_SIZE}^2 OS 16 B={batch_size} "
+            f"{SEM_CLASSES} classes aux on, {label}: {ms[label]:.2f} ms median of "
+            f"{rounds} (all {', '.join(f'{t:.2f}' for t in times[label])}), "
+            f"{batch_size / ms[label] * 1e3:.2f} images/s, peak memory "
+            f"{peak_gb[label]:.2f} GiB")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, (state, step) in paths.items():
+        with torch.profiler.profile(activities=acts) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+        kernels = _device_events(prof)
+        busy = sum(e.device_time_total for e in kernels) / 1e3
+        parts = {"convolutions, forward and backward":
+                 _op_device_ms(prof, CONV_FORWARD + CONV_BACKWARD),
+                 "batch norm, forward and backward": _op_device_ms(prof, BATCH_NORM),
+                 "loss (logsumexp, gather), forward and backward":
+                 _op_device_ms(prof, SEM_LOSS),
+                 "bilinear resize, forward and backward": _op_device_ms(prof, SEM_RESIZE)}
+        log(f"semantic (c) profile: {label} B={batch_size}, device busy {busy:.2f} ms "
+            f"over {len(kernels)} kernels and copies; idle share "
+            f"{1.0 - busy / ms[label]:.4f} of the {ms[label]:.2f} ms median step")
+        for what, t in parts.items():
+            log(f"semantic (c) profile:   {t:9.2f} ms  {what}")
+        log(f"semantic (c) profile:   {busy - sum(parts.values()):9.2f} ms  the rest")
+    del paths
+    torch.cuda.empty_cache()
+
+
+SEM_FIT_ARGS = ["--fake-data", "task=semantic", "model.name=deeplabv3",
+                "model.nclass=21", "model.in_channels=3", "model.aux_head=true",
+                "model.loss_weights=[1.0,0.4]", "data.crop_size=[513,513]",
+                "train.precision=bfloat16", "data.train_batch=4", "data.val_batch=2",
+                "eval_full_res=true", "eval_tta_scales=[0.75,1.0,1.25]",
+                "eval_tta_flip=true", "epochs=2"]
+
+
+def semantic_fit(torch) -> None:
+    """9d: the semantic CLI fit, then its run served."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch import imaging
+    from distributedpytorch_tpu_torch.parallel.step import TrainState, make_eval_step
+    from distributedpytorch_tpu_torch.predict import (
+        SemanticPredictor,
+        load_run_config,
+        load_run_model,
+    )
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_semantic_"))
+    try:
+        cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *SEM_FIT_ARGS,
+               f"work_dir={work}"]
+        log(f"semantic (d): {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the semantic fit exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        fit_s = time.perf_counter() - t0
+        (run,) = work.glob("run_*")
+        with open(run / "fit_summary.json") as f:
+            summary = json.load(f)
+        records = _read_jsonl(run / "metrics.jsonl")
+        step_losses = [x for r in records for x in r.get("train/step_losses", [])]
+        vals = [r for r in records if "val/miou" in r]
+        final = summary["final_step"]
+        if final < 2 or len(step_losses) != final or \
+                not all(x is not None and math.isfinite(x) for x in step_losses):
+            raise AssertionError(f"semantic fit: {final} steps, losses {step_losses}")
+        for r in vals:
+            if not (0.0 <= r["val/miou"] <= 1.0 and 0.0 <= r["val/pixel_acc"] <= 1.0
+                    and len(r["val/per_class_iou"]) == SEM_CLASSES
+                    and r["val/jaccard"] == r["val/miou"]):
+                raise AssertionError(f"semantic validation record {r}")
+        if len(vals) != 2:
+            raise AssertionError(f"semantic fit validations: {vals}")
+        with open(run / "checkpoints" / "COMMITTED.json") as f:
+            ledger = json.load(f)
+        if final not in ledger["latest"]:
+            raise AssertionError(f"COMMITTED.json {ledger} does not name step {final}")
+        log(f"semantic (d): {fit_s:.1f} s wall, {final} steps, losses "
+            f"{[round(x, 6) for x in step_losses]}; val mIoU "
+            f"{[round(r['val/miou'], 6) for r in vals]}, pixel accuracy "
+            f"{[round(r['val/pixel_acc'], 6) for r in vals]} over "
+            f"{[int(r['val/n_samples']) for r in vals]} images (full-res, TTA 3 "
+            f"scales x flip); COMMITTED.json {ledger}; kernel launches "
+            f"{summary['kernel_launches']}")
+
+        pred = SemanticPredictor.from_run(str(run), device="cuda")
+        cfg = load_run_config(str(run))
+        model, _ = load_run_model(str(run), cfg)
+        state = TrainState(model.to("cuda"), None, None, None)
+        eval_step = make_eval_step(loss_weights=cfg.model.loss_weights,
+                                   precision=precision_policy(cfg.train.precision),
+                                   loss_type="multi_softmax")
+        image = np.random.default_rng(6).uniform(0, 255, (375, 500, 3))
+        resized = imaging.resize(np.clip(image.astype(np.float32), 0, 255),
+                                 (SEM_SIZE, SEM_SIZE), imaging.CUBIC)
+        outputs, _ = eval_step(state, {
+            "concat": resized[None],
+            "crop_gt": np.zeros((1, SEM_SIZE, SEM_SIZE, 1), np.float32)})
+        want = imaging.resize(outputs[0].argmax(dim=1)[0].cpu().numpy().astype(
+            np.float32), image.shape[:2], imaging.NEAREST).astype(np.uint8)
+        got = pred.predict(image, mode="resize")
+        if got.dtype != np.uint8 or not np.array_equal(got, want):
+            raise AssertionError(f"SemanticPredictor resize: {got.dtype}, "
+                                 f"{int((got != want).sum())} pixels differ from "
+                                 "the trainer's eval forward")
+        t0 = time.perf_counter()
+        slid = pred.predict(image, mode="slide")
+        slide_s = time.perf_counter() - t0
+        if slid.shape != image.shape[:2] or slid.max() >= SEM_CLASSES:
+            raise AssertionError(f"slide: {slid.shape}, max class {slid.max()}")
+        from PIL import Image
+
+        Image.fromarray(image.astype(np.uint8)).save(work / "image.png")
+        out = work / "classes.png"
+        proc = subprocess.run(
+            [sys.executable, "-m", "distributedpytorch_tpu_torch", "--predict",
+             str(work / "image.png"), "--run-dir", str(run), "--out", str(out)],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError(f"--predict exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        with Image.open(out) as im:
+            png = np.asarray(im)
+        if png.shape != image.shape[:2]:
+            raise AssertionError(f"--predict wrote a {png.shape} PNG")
+        log(f"semantic (d): SemanticPredictor.from_run resize == the trainer's "
+            f"bf16 eval forward's argmax, bit for bit ({got.size} pixels, classes "
+            f"{sorted(set(np.unique(got).tolist()))}); slide {slide_s:.2f} s for "
+            f"375x500; --predict wrote a {png.shape} PNG: "
+            f"{proc.stdout.strip().splitlines()[-1][:160]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def semantic_fullres(torch) -> None:
+    """9e: ``fullres_argmax`` on the card against the host protocol."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch import imaging
+    from distributedpytorch_tpu_torch.ops.warp import fullres_argmax
+    from distributedpytorch_tpu_torch.utils.helpers import fixed_resize
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    logits = torch.randn(2, SEM_CLASSES, SEM_SIZE, SEM_SIZE, generator=gen,
+                         device="cuda") * 4
+    probs = torch.softmax(logits, dim=1)
+    sizes = np.array([[375, 500], [500, 333]], np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = fullres_argmax(probs, torch.from_numpy(sizes), (500, 500)).cpu().numpy()
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    host = probs.permute(0, 2, 3, 1).cpu().numpy()
+    agree, total = 0, 0
+    t0 = time.perf_counter()
+    for j, (h, w) in enumerate(sizes):
+        want = np.argmax(fixed_resize(host[j], (int(h), int(w)),
+                                      flagval=imaging.LINEAR), axis=-1)
+        agree += int((maps[j, :h, :w] == want).sum())
+        total += int(h * w)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    share = agree / total
+    note_margin("semantic (e) full-res agreement, disagreeing share",
+                1.0 - share, 1e-3)
+    log(f"check semantic (e) fullres_argmax vs the host protocol: {share:.6f} of "
+        f"{total} pixels agree >= 0.999 (the card {dev_ms:.1f} ms with readback, "
+        f"the host {host_ms:.1f} ms)")
+    if share < 0.999:
+        raise AssertionError(f"full-res agreement {share:.6f} < 0.999")
+
+
+def phase_semantic(torch, ca) -> None:
+    """Phase 9: the semantic task and the DeepLab family (9a-9e); no
+    attention kernel lies on this path, so their counters must not move."""
+    ca.reset_launches()
+    t0 = time.perf_counter()
+    semantic_forward(torch)
+    semantic_step_checks(torch)
+    semantic_step_timed(torch)
+    semantic_fit(torch)
+    semantic_fullres(torch)
+    if any(ca.launches.values()):
+        raise AssertionError(f"attention kernels launched on the semantic path: "
+                             f"{dict(ca.launches)}")
+    log(f"semantic: no attention kernel launched; phase {time.perf_counter() - t0:.1f} s")
+
+
 #: the phases of a whole run, in order
-PHASES = ("kernels", "serve", "train", "host", "dist")
+PHASES = ("kernels", "serve", "train", "host", "dist", "semantic")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2714,6 +3167,8 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(phase_host(torch, ca))
     if "dist" in phases:
         paths["dist"] = phase_dist(torch, train_dataset())
+    if "semantic" in phases:
+        phase_semantic(torch, ca)
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")

@@ -8,6 +8,13 @@ protocol once.  ``--serve ...`` hands the rest of the command line to
 ``python -m distributedpytorch_tpu_torch.serve``.  It runs on CUDA unless
 ``--device cpu`` is given; with no card and no such flag it raises.
 
+``--predict IMAGE --run-dir RUN [--points "x,y x,y x,y x,y"] [--out
+mask.png] [--overlay o.png] [--slide] [--threshold t]`` serves a run
+instead (``predict.predict_cli``): an instance run needs the 4 clicks, a
+semantic run segments the whole image (``--slide`` for the
+sliding-window protocol).  The run's ``config.json`` is its
+configuration, so training flags and overrides are refused.
+
 Data parallelism, one process per card:
 
 * under ``torchrun`` (its ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/
@@ -53,6 +60,26 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                         help="process-group backend (default nccl on CUDA, "
                              "gloo on the CPU)")
+    parser.add_argument("--predict", metavar="IMAGE",
+                        help="inference mode: segment IMAGE with the run in "
+                             "--run-dir")
+    parser.add_argument("--run-dir",
+                        help="training run dir (config.json + checkpoints/) "
+                             "for --predict")
+    parser.add_argument("--points",
+                        help='4 extreme-point clicks "x1,y1 x2,y2 x3,y3 '
+                             'x4,y4" for --predict on instance-task runs '
+                             "(semantic runs segment the whole image)")
+    parser.add_argument("--out", default="mask.png",
+                        help="output PNG for --predict")
+    parser.add_argument("--overlay",
+                        help="also write an RGB overlay PNG (--predict)")
+    parser.add_argument("--slide", action="store_true",
+                        help="semantic runs: sliding-window full-resolution "
+                             "inference instead of whole-image resize")
+    parser.add_argument("--threshold", type=float, default=None,
+                        help="binarization threshold for --predict on "
+                             "instance-task runs (default 0.5)")
     parser.add_argument("overrides", nargs="*",
                         help="dotted config overrides, e.g. optim.lr=1e-7")
     return parser
@@ -93,12 +120,38 @@ def _run_rank(args) -> int:
         mesh.destroy_distributed()
 
 
+def _predict(parser: argparse.ArgumentParser, args) -> int:
+    if not args.run_dir:
+        parser.error("--predict requires --run-dir (--points too for "
+                     "instance-task runs)")
+    if args.config or args.fake_data or args.validate_only \
+            or args.dist_backend or args.overrides:
+        parser.error(
+            "--predict reads its configuration from <run-dir>/config.json; "
+            "--config/--fake-data/--validate-only/--dist-backend/overrides "
+            f"do not apply (got {args.overrides or 'training-mode flags'})")
+    from .predict import predict_cli
+
+    try:
+        summary = predict_cli(args.run_dir, args.predict, args.points,
+                              args.out, threshold=args.threshold,
+                              overlay_path=args.overlay, slide=args.slide,
+                              device=args.device)
+    except ValueError as e:  # missing clicks, bad clicks, the wrong task
+        parser.error(str(e))
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--serve"]:
         from .serve.__main__ import main as serve_main
         return serve_main(argv[1:])
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.predict:  # one process, never a group
+        return _predict(parser, args)
 
     from .parallel.mesh import launched_by_torchrun
 

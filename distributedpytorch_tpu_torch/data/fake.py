@@ -65,7 +65,7 @@ class FakeVOC:
         self.splits = splits
         self.arrays = arrays
 
-    def split_ids(self, split: str) -> list[str]:
+    def split_ids(self, split: str, kinds=None) -> list[str]:
         return list(self.splits[split])
 
     def image(self, im_id: str) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Input pipelines, the counterpart of ``distributedpytorch_tpu/data/pipeline.py``:
-the default train and val transform stacks, the per-sample RNG policy,
-``collate`` and the threaded, prefetching ``DataLoader``.
+the default train and val transform stacks of the instance and semantic
+tasks, the per-sample RNG policy, ``collate`` and the threaded,
+prefetching ``DataLoader``.
 
 Batches are dicts of stacked HWC float32 numpy arrays (ragged keys and
 metadata stay lists), exactly as in the JAX package; the train step turns
@@ -106,6 +107,45 @@ def build_eval_transform(crop_size: tuple[int, int] = (512, 512),
         T.FixedResize(resolutions=resolutions),
         T.ClampRange(("crop_image",)),
         *_guidance_stage(guidance, alpha, is_val=True),
+        T.ToArray(),
+    ])
+
+
+def build_semantic_train_transform(
+        crop_size: tuple[int, int] = (513, 513),
+        rots: tuple[float, float] = (-10, 10),
+        scales: tuple[float, float] = (0.5, 2.0)) -> T.Compose:
+    """The semantic training stack (one sample per image): flip ->
+    scale/rotate (class ids nearest, 255 border) -> resize to
+    ``crop_size`` (the image by its values' rule, the class ids nearest so
+    ids and the 255 void stay exact) -> clamp -> ``concat``/``crop_gt``."""
+    return T.Compose([
+        T.RandomHorizontalFlip(),
+        T.ScaleNRotate(rots=rots, scales=scales, semseg=True),
+        T.FixedResize(resolutions={"image": crop_size, "gt": crop_size},
+                      flagvals={"image": None, "gt": 0}),
+        T.ClampRange(("image",)),
+        T.Rename({"image": "concat", "gt": "crop_gt"}),
+        T.ToArray(),
+    ])
+
+
+def build_semantic_eval_transform(crop_size: tuple[int, int] = (513, 513),
+                                  keep_fullres: bool = False) -> T.Compose:
+    """The semantic validation stack: resize only (the class ids nearest),
+    clamp, ``concat``/``crop_gt``; ``keep_fullres`` keeps the native
+    ``gt`` as ``gt_full`` for the full-resolution protocol."""
+    res: dict = {"image": crop_size, "gt": crop_size}
+    flags: dict = {"image": None, "gt": 0}
+    chain: list[T.Transform] = []
+    if keep_fullres:
+        chain.append(T.Duplicate({"gt": "gt_full"}))
+        res["gt_full"] = None
+        flags["gt_full"] = 0
+    return T.Compose(chain + [
+        T.FixedResize(resolutions=res, flagvals=flags),
+        T.ClampRange(("image",)),
+        T.Rename({"image": "concat", "gt": "crop_gt"}),
         T.ToArray(),
     ])
 

@@ -77,9 +77,12 @@ class RandomHorizontalFlip(Transform):
         return f"RandomHorizontalFlip(p={self.p})"
 
 
-def _warp_interpolation(arr: np.ndarray) -> int:
-    """Nearest for arrays valued in {0, 1, 255} (masks), cubic otherwise."""
+def _warp_interpolation(key: str, arr: np.ndarray, semseg: bool) -> int:
+    """Nearest for arrays valued in {0, 1, 255} (masks) and, with
+    ``semseg``, for the class-id ``gt`` keys; cubic otherwise."""
     if ((arr == 0) | (arr == 1) | (arr == 255)).all():
+        return imaging.NEAREST
+    if semseg and "gt" in key:
         return imaging.NEAREST
     return imaging.CUBIC
 
@@ -88,13 +91,17 @@ class ScaleNRotate(Transform):
     """Random rotation and isotropic zoom about the image centre: tuples
     draw uniformly from the range (rotation first), lists pick an entry.
     Every array key is cast to uint8 and warped with a 0 border, a
-    ``bb_mask`` key with a 255 border."""
+    ``bb_mask`` key with a 255 border.  With ``semseg`` the class-id
+    ``gt`` keys warp nearest with a 255 (void) border, so the padding the
+    warp brings in is ignored by the loss, not learnt as class 0."""
 
-    def __init__(self, rots=(-30, 30), scales=(0.75, 1.25)):
+    def __init__(self, rots=(-30, 30), scales=(0.75, 1.25),
+                 semseg: bool = False):
         if isinstance(rots, tuple) != isinstance(scales, tuple):
             raise TypeError("rots and scales must both be ranges or both be lists")
         self.rots = rots
         self.scales = scales
+        self.semseg = semseg
 
     def _draw(self, rng: np.random.Generator) -> tuple[float, float]:
         if isinstance(self.rots, tuple):
@@ -113,9 +120,11 @@ class ScaleNRotate(Transform):
             arr = sample[key]
             h, w = arr.shape[:2]
             m = imaging.rotation_matrix((w / 2, h / 2), rot, sc)
+            void_border = "bb_mask" in key or (self.semseg and "gt" in key)
             sample[key] = imaging.warp_affine(
-                arr.astype(np.uint8), m, (h, w), _warp_interpolation(arr),
-                255 if "bb_mask" in key else 0)
+                arr.astype(np.uint8), m, (h, w),
+                _warp_interpolation(key, arr, self.semseg),
+                255 if void_border else 0)
         return sample
 
     def __repr__(self):
@@ -125,12 +134,19 @@ class ScaleNRotate(Transform):
 class FixedResize(Transform):
     """Resize each key to ``resolutions[key]``: ``None`` passes a key
     through untouched (the val stack's full-resolution ``gt``/
-    ``void_pixels``), and keys absent from ``resolutions`` are deleted.
+    ``void_pixels``/``gt_full``), and keys absent from ``resolutions`` are
+    deleted.  ``flagvals[key]`` fixes a key's interpolation (the semantic
+    stacks' nearest ``gt``), else it follows the array's values.
     ``meta``/``bbox``/``crop_relax`` keys are exempt."""
 
     def __init__(self, resolutions: Mapping[str, tuple[int, int] | None]
-                 | None = None):
+                 | None = None,
+                 flagvals: Mapping[str, int | None] | None = None):
+        if flagvals is not None and resolutions is not None \
+                and set(flagvals) != set(resolutions):
+            raise ValueError("flagvals must name the keys of resolutions")
         self.resolutions = resolutions
+        self.flagvals = flagvals
 
     def __call__(self, sample, rng=None):
         if self.resolutions is None:
@@ -143,7 +159,8 @@ class FixedResize(Transform):
                 continue
             res = self.resolutions[key]
             if res is not None:
-                sample[key] = helpers.fixed_resize(sample[key], res)
+                flag = None if self.flagvals is None else self.flagvals[key]
+                sample[key] = helpers.fixed_resize(sample[key], res, flag)
         return sample
 
     def __repr__(self):
@@ -282,6 +299,40 @@ class ConcatInputs(Transform):
 
     def __repr__(self):
         return f"ConcatInputs({self.elems})"
+
+
+class Duplicate(Transform):
+    """Copy keys (``{src: dst}``): the semantic val stack keeps the
+    full-resolution ``gt`` as ``gt_full`` before the resize takes ``gt``."""
+
+    def __init__(self, mapping: Mapping[str, str]):
+        self.mapping = dict(mapping)
+
+    def __call__(self, sample, rng=None):
+        for src, dst in self.mapping.items():
+            if src in sample:
+                sample[dst] = sample[src]
+        return sample
+
+    def __repr__(self):
+        return f"Duplicate({self.mapping})"
+
+
+class Rename(Transform):
+    """Rename keys (``{old: new}``): the semantic stacks' ``image``/``gt``
+    onto the step's ``concat``/``crop_gt``."""
+
+    def __init__(self, mapping: Mapping[str, str]):
+        self.mapping = dict(mapping)
+
+    def __call__(self, sample, rng=None):
+        for old, new in self.mapping.items():
+            if old in sample:
+                sample[new] = sample.pop(old)
+        return sample
+
+    def __repr__(self):
+        return f"Rename({self.mapping})"
 
 
 class ClampRange(Transform):

@@ -1,5 +1,5 @@
-"""Instance-level Pascal VOC 2012, the counterpart of
-``distributedpytorch_tpu/data/voc.py``'s ``VOCInstanceSegmentation``.
+"""Pascal VOC 2012, the counterpart of ``distributedpytorch_tpu/data/voc.py``'s
+``VOCInstanceSegmentation`` and ``VOCSemanticSegmentation``.
 
 One sample per (image, object) pair that survives the area filter, with
 the reference's sample contract::
@@ -8,6 +8,10 @@ the reference's sample contract::
      'gt':          float32 (H, W) binary mask of ONE object,
      'void_pixels': float32 (H, W) mask of 255-labelled pixels,
      'meta':        {'image', 'object', 'category', 'im_size'}}
+
+:class:`VOCSemanticSegmentation` gives one sample per image instead:
+``image`` and ``gt``, the (H, W) float32 class ids with void kept in band
+as 255, and ``meta`` ``{'image', 'im_size'}``.
 
 The tree is read from a directory with the VOC2012 layout (JPEG/PNG
 decoded by PIL, imported at the first read: the card's machine may not
@@ -45,13 +49,16 @@ class VOCTree:
                       "classes": os.path.join(voc, "SegmentationClass"),
                       "sets": os.path.join(voc, "ImageSets", "Segmentation")}
 
-    def split_ids(self, split: str) -> list[str]:
+    def split_ids(self, split: str,
+                  kinds: tuple[str, ...] = ("image", "instances", "classes")
+                  ) -> list[str]:
+        """The ids of ``split``; raises if a file of ``kinds`` is missing."""
         with open(os.path.join(self._dirs["sets"], split + ".txt")) as f:
             ids = f.read().splitlines()
+        ext = {"image": ".jpg", "instances": ".png", "classes": ".png"}
         for im_id in ids:
-            for kind, ext in (("image", ".jpg"), ("instances", ".png"),
-                              ("classes", ".png")):
-                path = os.path.join(self._dirs[kind], im_id + ext)
+            for kind in kinds:
+                path = os.path.join(self._dirs[kind], im_id + ext[kind])
                 if not os.path.isfile(path):
                     raise FileNotFoundError(path)
         return ids
@@ -186,3 +193,54 @@ class VOCInstanceSegmentation:
 
     def __str__(self) -> str:
         return f"VOC2012(split={self.split},area_thres={self.area_thres})"
+
+
+class VOCSemanticSegmentation:
+    """Random-access per-image samples with class-id masks
+    (``SegmentationClass``), for the semantic task.
+
+    ``root`` is a VOC directory or a tree object (:class:`VOCTree`,
+    :class:`~.fake.FakeVOC`, whose ``classes`` are the fixture's class
+    maps).  Void stays in band as 255: the softmax loss ignores it and
+    the confusion counts drop it.  ``decode_cache`` > 0 keeps that many
+    decoded images (:class:`_DecodeCache`)."""
+
+    def __init__(self, root, split="val", transform=None,
+                 retname: bool = True, decode_cache: int = 0):
+        self.tree = VOCTree(root) if isinstance(root, (str, os.PathLike)) \
+            else root
+        self.transform = transform
+        self.retname = retname
+        self.split = sorted([split] if isinstance(split, str) else list(split))
+        self._cache = _DecodeCache(decode_cache) if decode_cache > 0 else None
+        self.im_ids = [i for s in self.split
+                       for i in self.tree.split_ids(s, ("image", "classes"))]
+
+    def __len__(self) -> int:
+        return len(self.im_ids)
+
+    def decode_raw(self, index: int) -> tuple[np.ndarray, np.ndarray]:
+        """The decoded (uint8 RGB, raw class-id mask) of image ``index``,
+        through the decode cache when there is one."""
+        def decode():
+            im_id = self.im_ids[index]
+            return self.tree.image(im_id), self.tree.classes(im_id)
+
+        return self._cache.get(index, decode) if self._cache is not None \
+            else decode()
+
+    def __getitem__(self, index: int,
+                    rng: np.random.Generator | None = None) -> dict:
+        img8, gt_raw = self.decode_raw(index)
+        # astype copies: a cached decode is never mutated
+        img = img8.astype(np.float32)
+        sample = {"image": img, "gt": gt_raw.astype(np.float32)}
+        if self.retname:
+            sample["meta"] = {"image": self.im_ids[index],
+                              "im_size": (img.shape[0], img.shape[1])}
+        if self.transform is not None:
+            sample = self.transform(sample, rng)
+        return sample
+
+    def __str__(self) -> str:
+        return f"VOC2012Semantic(split={self.split})"

@@ -170,6 +170,8 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if self.cross_replica and dist.is_available() and dist.is_initialized():
             return self._cross_replica_forward(x, dtype)
         n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._single_value_forward(x, dtype)
         # torch updates copies (its backward may keep the buffers it was
         # given), which are then written back with flax's variance step
         mean, var = self.running_mean.clone(), self.running_var.clone()
@@ -183,6 +185,25 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
             self.running_mean.copy_(mean)
             self.num_batches_tracked.add_(1)
+        return y.to(dtype)
+
+    def _single_value_forward(self, x: torch.Tensor,
+                              dtype: torch.dtype) -> torch.Tensor:
+        """Train mode over one value per channel (the ASPP image-pool
+        branch at batch 1), which torch's batch norm refuses: flax's
+        arithmetic, variance 0, so the output is the bias."""
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]
+        if not recomputing():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
         return y.to(dtype)
 
     def _cross_replica_forward(self, x: torch.Tensor,
@@ -329,10 +350,13 @@ class ResNet(nn.Module):
     ``forward(x)`` (B, in_channels, H, W) -> dict of stage outputs
     ``{'c1', 'c2', 'c3', 'c4'}``; ``c4`` is at H / output_stride.  With
     ``remat`` a training forward keeps only each residual block's input
-    and recomputes the block in the backward."""
+    and recomputes the block in the backward.  ``multi_grid`` multiplies
+    the dilation of stage 4's blocks in turn, its last entry repeating
+    (DeepLabV3's ``(1, 2, 4)``)."""
 
     def __init__(self, depth: int = 50, output_stride: int = 16,
-                 in_channels: int = 4, width: int = 64, remat: bool = False):
+                 in_channels: int = 4, width: int = 64, remat: bool = False,
+                 multi_grid: tuple[int, ...] | None = None):
         super().__init__()
         self.remat = remat
         if depth not in RESNET_DEPTHS:
@@ -346,9 +370,12 @@ class ResNet(nn.Module):
         cin, filters, idx = width, width, 0
         for stage, n_blocks in enumerate(RESNET_DEPTHS[depth]):
             for i in range(n_blocks):
+                dilation = dilations[stage]
+                if stage == 3 and multi_grid is not None:
+                    dilation *= multi_grid[min(i, len(multi_grid) - 1)]
                 block = block_cls(cin, filters,
                                   stride=strides[stage] if i == 0 else 1,
-                                  dilation=dilations[stage])
+                                  dilation=dilation)
                 self.add_module(f"{block_cls.__name__}_{idx}", block)
                 cin = filters * block_cls.expansion
                 idx += 1

@@ -1,6 +1,7 @@
-"""Segmentation losses, the counterpart of ``distributedpytorch_tpu/ops/losses.py``
-for the instance task: the class-balanced sigmoid BCE from logits and its
-weighted sum over DANet's three outputs.
+"""Segmentation losses, the counterpart of ``distributedpytorch_tpu/ops/losses.py``:
+for the instance task the class-balanced sigmoid BCE from logits and its
+weighted sum over DANet's three outputs; for the semantic task the
+softmax cross-entropy with an ignore index (:func:`softmax_xent_ignore`).
 
 Logits are NCHW, (B, 1, H, W); the caller gives the target and void masks
 the same shape (a (B, H, W) target against (B, 1, H, W) logits would
@@ -13,7 +14,9 @@ and the normaliser are global too: :func:`balance_counts` gives a rank's
 (positives, valid pixels), which the train step sums over the ranks, and
 the loss of a rank's rows divided by the *global* valid count is its
 share of the global loss (the shares sum to it).  Without ``counts`` the
-batch is its own whole, bit for bit the single-process loss.
+batch is its own whole, bit for bit the single-process loss.  The
+softmax loss takes its global valid count the same way
+(:func:`valid_count`).
 """
 
 from __future__ import annotations
@@ -88,4 +91,57 @@ def multi_output_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
     for out, w in zip(outputs, weights):
         total = total + w * sigmoid_balanced_bce(out, labels, void, balanced,
                                                  counts)
+    return total
+
+
+def valid_count(labels: torch.Tensor, ignore_index: int = 255) -> torch.Tensor:
+    """The number of labels that are not ``ignore_index``, as a float32
+    one-element tensor on ``labels``' device: the softmax loss's
+    normaliser, which the data-parallel step sums over the ranks."""
+    with torch.no_grad():
+        return (labels != ignore_index).sum().to(torch.float32).reshape(1)
+
+
+def softmax_xent_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                        ignore_index: int = 255,
+                        n_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-class softmax cross-entropy over the class axis (dim 1 of
+    NCHW ``logits``), the pixels labelled ``ignore_index`` contributing
+    nothing; the sum over the valid pixels divided by ``max(valid, 1)``,
+    so an all-void batch gives 0 (where ``F.cross_entropy``'s mean gives
+    NaN).  ``labels`` are integer class ids of the logits' shape without
+    the class axis.  The label's logit is gathered with the ignored
+    labels pointed at class 0 and the product masked, so a non-finite
+    logit in a class that is not the label's never reaches the loss.
+    ``n_valid`` (:func:`valid_count`, summed over the batch these rows
+    belong to) replaces this batch's own count.  float32 (float64 for
+    float64 logits)."""
+    if labels.shape != logits.shape[:1] + logits.shape[2:]:
+        raise ValueError(f"labels {tuple(labels.shape)} do not match logits "
+                         f"{tuple(logits.shape)} without the class axis")
+    dtype = torch.promote_types(logits.dtype, torch.float32)
+    logits = logits.to(dtype)
+    labels = labels.long()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    gold = logits.gather(1, safe.unsqueeze(1)).squeeze(1)
+    per_pix = (torch.logsumexp(logits, dim=1) - gold) * valid.to(dtype)
+    n = valid.sum().to(dtype) if n_valid is None else n_valid.to(dtype).sum()
+    return per_pix.sum() / n.clamp(min=1.0)
+
+
+def multi_softmax_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
+                       weights: Sequence[float] | None = None,
+                       ignore_index: int = 255,
+                       n_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Weighted sum of :func:`softmax_xent_ignore` over the model's
+    outputs, all against one label map and one ``n_valid``; ``weights``
+    defaults to 1 for the primary output and 0.4 for each auxiliary one
+    (the DeepLab recipe)."""
+    if weights is None:
+        weights = (1.0,) + (0.4,) * (len(outputs) - 1)
+    total = 0.0
+    for out, w in zip(outputs, weights):
+        total = total + w * softmax_xent_ignore(out, labels, ignore_index,
+                                                n_valid)
     return total

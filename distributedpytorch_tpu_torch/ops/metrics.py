@@ -1,11 +1,16 @@
-"""Host-side Jaccard (IoU) with a threshold sweep, the counterpart of
-``distributedpytorch_tpu/ops/metrics.py``'s numpy forms: per-sample IoU of
-the binarised prediction against the ground truth, void pixels excluded,
-an empty union scoring 1."""
+"""Segmentation metrics, the counterpart of ``distributedpytorch_tpu/ops/metrics.py``.
+
+Instance task: host-side Jaccard (IoU) with a threshold sweep — per-sample
+IoU of the binarised prediction against the ground truth, void pixels
+excluded, an empty union scoring 1.  Semantic task: the (C, C) confusion
+counts (:func:`confusion_matrix`, one ``bincount`` on the tensors'
+device) and the per-class IoU, mean IoU and pixel accuracy made from them
+(:func:`miou_from_confusion`)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 #: the reference's eval threshold sweep
 DEFAULT_THRESHOLDS = (0.3, 0.5, 0.8)
@@ -51,3 +56,37 @@ def np_jaccard_thresholds(prob: np.ndarray, thresholds, gt: np.ndarray,
     inv = np.empty(k, np.intp)
     inv[order] = np.arange(k)
     return out[inv]
+
+
+def confusion_matrix(pred: torch.Tensor, label: torch.Tensor, nclass: int,
+                     ignore_index: int = 255) -> torch.Tensor:
+    """(C, C) int64 confusion counts, rows the true class and columns the
+    predicted one, of two integer tensors of one shape; pixels labelled
+    ``ignore_index`` are dropped.  One ``bincount`` over ``true * C +
+    pred`` on the tensors' device."""
+    pred = pred.reshape(-1).long()
+    label = label.reshape(-1).long()
+    valid = label != ignore_index
+    idx = torch.where(valid, label * nclass + pred,
+                      torch.full_like(label, nclass * nclass))
+    counts = torch.bincount(idx, minlength=nclass * nclass + 1)
+    return counts[:nclass * nclass].reshape(nclass, nclass)
+
+
+def miou_from_confusion(conf) -> dict:
+    """Per-class IoU, mean IoU and pixel accuracy of a (C, C) confusion.
+    A class absent from both prediction and ground truth (union 0) is
+    left out of the mean (``None`` in ``per_class_iou``), the VOC
+    convention."""
+    conf = np.asarray(conf, dtype=np.float64)
+    inter = np.diag(conf)
+    union = conf.sum(0) + conf.sum(1) - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = np.where(union > 0, inter / union, np.nan)
+    miou = float(np.nanmean(iou)) if np.any(union > 0) else 0.0
+    total = conf.sum()
+    return {
+        "miou": miou,
+        "per_class_iou": [None if np.isnan(v) else float(v) for v in iou],
+        "pixel_acc": float(inter.sum() / total) if total > 0 else 0.0,
+    }

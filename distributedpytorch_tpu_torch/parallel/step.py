@@ -4,8 +4,12 @@ process per card under ``DistributedDataParallel``.
 
 A host batch — the loader's dict of HWC float32 numpy arrays — becomes
 NCHW torch tensors on the device once, here (:func:`device_batch`).  A
-train step is forward, the multi-output balanced BCE, backward and one SGD
-update; with ``accum_steps > 1`` the batch is split into that many
+train step is forward, the loss, backward and one SGD update.  The loss
+is ``loss_type``'s: ``multi_sigmoid``, the instance task's multi-output
+balanced BCE, or ``multi_softmax``, the semantic task's per-output
+softmax cross-entropy with ignore index 255 against the class ids in
+``crop_gt`` (auxiliary outputs weighted 0.4 unless ``loss_weights``
+says otherwise); with ``accum_steps > 1`` the batch is split into that many
 micro-batches in order, BatchNorm's running statistics move once per
 micro-batch, the loss is the mean of the micro-batch losses and the
 gradients are averaged, as the JAX step's scan does.  ``loss_scale``
@@ -27,7 +31,10 @@ With ``global_balance`` (the ``dp``/``dp_zero1`` step, one GSPMD program
 over the global batch in the JAX package) the class balance and the
 normaliser are the global micro-batch's: a rank backpropagates W times
 its share of the global loss, so DDP's mean is the global loss's
-gradient, and the loss returned is the global one.  Without it (the
+gradient, and the loss returned is the global one; the softmax loss is
+normalised the same way, by the global micro-batch's count of valid
+pixels, so ranks that hold different numbers of void pixels still
+compute one global mean.  Without it (the
 bucketed ``shard_map`` step, ``train.reduce_buckets > 0``) each rank's
 loss is its own rows', the gradient is that of their mean over the ranks
 and so is the loss returned.  Micro-batches under accumulation are the
@@ -53,7 +60,12 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
-from ..ops.losses import balance_counts, multi_output_loss
+from ..ops.losses import (
+    balance_counts,
+    multi_output_loss,
+    multi_softmax_loss,
+    valid_count,
+)
 from ..train.optim import Schedule, apply_update
 from ..train.precision import Policy
 
@@ -181,24 +193,49 @@ def _forward(model: nn.Module, inputs: torch.Tensor,
         model(precision.cast_to_compute(inputs), generator))
 
 
+def _labels(batch: Mapping) -> torch.Tensor:
+    """The semantic task's (B, H, W) class ids from ``crop_gt``."""
+    return batch[TARGET_KEY][:, 0]
+
+
+def loss_counts(batch: Mapping, loss_type: str) -> torch.Tensor:
+    """What the loss of ``batch`` counts, to be summed over the ranks:
+    (positives, valid pixels) for ``multi_sigmoid``, valid pixels for
+    ``multi_softmax``."""
+    if loss_type == "multi_softmax":
+        return valid_count(_labels(batch))
+    return balance_counts(batch[TARGET_KEY], batch.get(VOID_KEY))
+
+
 def _compute_loss(outputs: Sequence[torch.Tensor], batch: Mapping,
                   weights: Sequence[float] | None,
-                  counts: torch.Tensor | None = None) -> torch.Tensor:
-    """``multi_sigmoid``: the weighted balanced BCE of every output against
-    the one target, balanced and normalised by ``counts`` when given."""
+                  counts: torch.Tensor | None = None,
+                  loss_type: str = "multi_sigmoid") -> torch.Tensor:
+    """``loss_type``'s loss of the outputs: ``multi_sigmoid``, the weighted
+    balanced BCE of every output against the one target; or
+    ``multi_softmax``, the weighted softmax cross-entropy against the
+    class ids; balanced and normalised by ``counts``
+    (:func:`loss_counts`) when given."""
     if weights is not None and len(weights) != len(outputs):
         raise ValueError(
             f"model.loss_weights has {len(weights)} entries but the model "
             f"emits {len(outputs)} outputs — give every output a weight")
-    return multi_output_loss(outputs, batch[TARGET_KEY], batch.get(VOID_KEY),
-                             weights=weights, counts=counts)
+    if loss_type == "multi_sigmoid":
+        return multi_output_loss(outputs, batch[TARGET_KEY],
+                                 batch.get(VOID_KEY), weights=weights,
+                                 counts=counts)
+    if loss_type == "multi_softmax":
+        return multi_softmax_loss(outputs, _labels(batch), weights=weights,
+                                  n_valid=counts)
+    raise ValueError(f"unknown loss_type: {loss_type!r}")
 
 
 def make_train_step(loss_weights: Sequence[float] | None = None,
                     accum_steps: int = 1, loss_scale: float = 1.0,
                     grad_clip_norm: float | None = None,
                     precision: Policy | None = None,
-                    global_balance: bool = True
+                    global_balance: bool = True,
+                    loss_type: str = "multi_sigmoid"
                     ) -> Callable[[TrainState, Mapping], torch.Tensor]:
     """``(state, host batch) -> loss``: one optimizer update of ``state``
     in place; ``grad_clip_norm`` clips the trainable gradients' global norm
@@ -222,13 +259,14 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
             part = {k: v[i * micro:(i + 1) * micro] for k, v in data.items()}
             counts = None
             if ddp is not None and global_balance:
-                counts = balance_counts(part[TARGET_KEY], part.get(VOID_KEY))
+                counts = loss_counts(part, loss_type)
                 dist.all_reduce(counts, group=ddp.process_group)
             last = ddp is None or i == accum_steps - 1
             with contextlib.nullcontext() if last else ddp.no_sync():
                 outputs = _forward(model, part[INPUT_KEY], precision,
                                    state.generator)
-                loss = _compute_loss(outputs, part, loss_weights, counts)
+                loss = _compute_loss(outputs, part, loss_weights, counts,
+                                     loss_type)
                 scale = loss_scale * (world if counts is not None else 1)
                 (loss * scale).backward()
             losses.append(loss.detach())
@@ -251,11 +289,12 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
 
 
 def make_eval_step(loss_weights: Sequence[float] | None = None,
-                   precision: Policy | None = None
+                   precision: Policy | None = None,
+                   loss_type: str = "multi_sigmoid"
                    ) -> Callable[[TrainState, Mapping],
                                  tuple[tuple[torch.Tensor, ...], torch.Tensor]]:
     """``(state, host batch) -> (logits, loss)`` in eval mode: the model's
-    three NCHW logit maps and the loss, as device tensors.  Under
+    NCHW logit maps and ``loss_type``'s loss, as device tensors.  Under
     ``precision`` the forward runs in the compute dtype, the loss on the
     outputs upcast to the loss dtype."""
 
@@ -264,6 +303,7 @@ def make_eval_step(loss_weights: Sequence[float] | None = None,
         data = device_batch(batch, state.device)
         with torch.inference_mode():
             outputs = _forward(model, data[INPUT_KEY], precision)
-            return outputs, _compute_loss(outputs, data, loss_weights)
+            return outputs, _compute_loss(outputs, data, loss_weights,
+                                          loss_type=loss_type)
 
     return step

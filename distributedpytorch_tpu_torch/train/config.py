@@ -338,7 +338,7 @@ UNPORTED = (
     "data.steps_per_dispatch", "data.echo",
     "data.governor", "data.governor_target", "data.governor_window",
     "data.max_echo",
-    "model.name", "model.remat_policy", "model.bn_fp32_stats",
+    "model.remat_policy", "model.bn_fp32_stats",
     "model.pam_block_size", "model.pam_impl", "model.quantization",
     "model.moe_experts", "model.guidance_inject",
     "optim.name",
@@ -346,12 +346,13 @@ UNPORTED = (
     "mesh.model", "mesh.slices", "mesh.process_is_granule",
     "mesh.shard_params",
     "sentinel.enabled", "sentinel.monitor_grads",
-    "task", "val_overlap", "eval_tta_scales", "eval_tta_flip",
-    "eval_full_res", "profile_epoch",
+    "val_overlap", "profile_epoch",
 )
 
 #: knobs the port runs for these values only; others are refused
 PORTED_VALUES = {
+    # pspnet, encnet and ccnet are not ported
+    "model.name": ("danet", "deeplabv3", "deeplabv3plus", "fcn"),
     "model.dtype": ("float32", "bfloat16"),
     "model.pam_score_dtype": (None, "float32", "bfloat16"),
     # the data-only rungs; dp_tp, dp_tp_zero1 and auto are not ported

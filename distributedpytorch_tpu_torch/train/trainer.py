@@ -7,9 +7,17 @@ val, with ``data.fake``), the model, the SGD optimizer and schedule, the
 train and eval steps and the checkpoint manager, applies the precision
 policy, and writes ``config.json``, ``hparams.json`` and the parameter
 report.  ``fit`` trains every epoch, validates every ``eval_every``
-epochs (saving the checkpoint, and the best one by Jaccard), saves a
-snapshot every ``checkpoint.snapshot_every`` epochs otherwise, and writes
-``fit_summary.json``.
+epochs (saving the checkpoint, and the best one by the ``jaccard``
+metric), saves a snapshot every ``checkpoint.snapshot_every`` epochs
+otherwise, and writes ``fit_summary.json``.
+
+``task`` picks the data, loss and validation: ``instance`` (one sample
+per object, click guidance, the balanced sigmoid loss, threshold-swept
+Jaccard; ``model.nclass=1``) or ``semantic`` (one sample per image,
+class ids with void 255, the softmax loss over every output with
+``model.loss_weights``, confusion-matrix mIoU with ``eval_full_res``,
+``eval_tta_scales`` and ``eval_tta_flip``; its ``jaccard`` is the mIoU,
+so the best checkpoint is chosen the same way).
 
 ``data.loader`` picks the train loader: ``threads`` (the threaded
 ``DataLoader``) or ``grain`` (worker processes,
@@ -58,8 +66,14 @@ import torch
 
 from ..data.fake import make_fake_voc
 from ..data.grain_pipeline import GrainDataLoader
-from ..data.pipeline import DataLoader, build_eval_transform, build_train_transform
-from ..data.voc import VOCInstanceSegmentation
+from ..data.pipeline import (
+    DataLoader,
+    build_eval_transform,
+    build_semantic_eval_transform,
+    build_semantic_train_transform,
+    build_train_transform,
+)
+from ..data.voc import VOCInstanceSegmentation, VOCSemanticSegmentation
 from ..models import build_model
 from ..ops import cuda_attention
 from ..parallel import mesh
@@ -81,7 +95,12 @@ from .checkpoint import (
     latest_checkpoint_dir,
     next_run_dir,
 )
-from .evaluate import batch_debug_asserts, evaluate
+from .evaluate import (
+    batch_debug_asserts,
+    evaluate,
+    evaluate_semantic,
+    semantic_batch_debug_asserts,
+)
 from .logging import MultiWriter, make_writer
 from .optim import make_optimizer
 from .precision import apply_policy, precision_block
@@ -106,9 +125,25 @@ class Trainer:
         if unported:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(unported))
-        if cfg.model.nclass != 1:
-            raise ValueError(f"task='instance' requires model.nclass=1, got "
-                             f"{cfg.model.nclass}")
+        if cfg.task not in ("instance", "semantic"):
+            raise ValueError(
+                f"unknown task: {cfg.task!r} (instance | semantic)")
+        if cfg.task == "instance" and cfg.model.nclass != 1:
+            raise ValueError(
+                f"task='instance' requires model.nclass=1 (binary sigmoid "
+                f"head), got {cfg.model.nclass}; use task='semantic' for "
+                "multi-class")
+        if (cfg.eval_tta_scales or cfg.eval_tta_flip) \
+                and cfg.task != "semantic":
+            raise ValueError(
+                "eval_tta_scales/eval_tta_flip apply to the semantic task "
+                "only (the instance protocol is the reference's fixed "
+                "threshold sweep)")
+        if cfg.eval_full_res and cfg.task != "semantic":
+            raise ValueError(
+                "eval_full_res applies to the semantic task only (the "
+                "instance protocol already scores at full resolution via "
+                "crop2fullmask paste-back)")
         self.cfg = cfg
         self.device = resolve_device(device)
         #: the data axis: the processes of the group, this one's rank
@@ -130,20 +165,35 @@ class Trainer:
         d = cfg.data
         root = make_fake_voc(n_images=8, size=(96, 128), n_val=3,
                              seed=cfg.seed) if d.fake else d.root
-        train_tf = build_train_transform(
-            crop_size=tuple(d.crop_size), relax=d.relax, zero_pad=d.zero_pad,
-            rots=tuple(d.rots), scales=tuple(d.scales),
-            alpha=d.guidance_alpha, guidance=d.guidance,
-            fused_crop_resize=d.fused_crop_resize)
-        val_tf = build_eval_transform(
-            crop_size=tuple(d.crop_size), relax=d.relax, zero_pad=d.zero_pad,
-            alpha=d.guidance_alpha, guidance=d.guidance)
-        self.train_set = VOCInstanceSegmentation(
-            root, split=d.train_split, transform=train_tf,
-            area_thres=d.area_thres, decode_cache=d.decode_cache)
-        self.val_set = VOCInstanceSegmentation(
-            root, split=d.val_split, transform=val_tf, area_thres=d.area_thres,
-            decode_cache=d.decode_cache)
+        if cfg.task == "semantic":
+            self.train_set = VOCSemanticSegmentation(
+                root, split=d.train_split,
+                transform=build_semantic_train_transform(
+                    crop_size=tuple(d.crop_size), rots=tuple(d.rots),
+                    scales=tuple(d.scales)),
+                decode_cache=d.decode_cache)
+            # one sample per image, read once per validation: no cache
+            self.val_set = VOCSemanticSegmentation(
+                root, split=d.val_split,
+                transform=build_semantic_eval_transform(
+                    crop_size=tuple(d.crop_size),
+                    keep_fullres=cfg.eval_full_res))
+        else:
+            train_tf = build_train_transform(
+                crop_size=tuple(d.crop_size), relax=d.relax,
+                zero_pad=d.zero_pad, rots=tuple(d.rots),
+                scales=tuple(d.scales), alpha=d.guidance_alpha,
+                guidance=d.guidance, fused_crop_resize=d.fused_crop_resize)
+            val_tf = build_eval_transform(
+                crop_size=tuple(d.crop_size), relax=d.relax,
+                zero_pad=d.zero_pad, alpha=d.guidance_alpha,
+                guidance=d.guidance)
+            self.train_set = VOCInstanceSegmentation(
+                root, split=d.train_split, transform=train_tf,
+                area_thres=d.area_thres, decode_cache=d.decode_cache)
+            self.val_set = VOCInstanceSegmentation(
+                root, split=d.val_split, transform=val_tf,
+                area_thres=d.area_thres, decode_cache=d.decode_cache)
         # batch sizes are global: each rank loads its 1/W share of every
         # batch, which must divide over the ranks and the micro-batches
         tb, w, accum = d.train_batch, self.world, cfg.optim.accum_steps
@@ -214,15 +264,19 @@ class Trainer:
             if self.plan.shard_opt_state:  # on the device: ZeRO keeps it
                 self.state.optimizer = shard_optimizer(optimizer)
             wrap_data_parallel(self.state, cfg.train.reduce_buckets)
+        self.loss_type = ("multi_softmax" if cfg.task == "semantic"
+                          else "multi_sigmoid")
         self.train_step = make_train_step(
             loss_weights=cfg.model.loss_weights,
             accum_steps=cfg.optim.accum_steps,
             loss_scale=cfg.optim.loss_scale,
             grad_clip_norm=cfg.optim.grad_clip_norm,
             precision=self.precision,
-            global_balance=not cfg.train.reduce_buckets)
+            global_balance=not cfg.train.reduce_buckets,
+            loss_type=self.loss_type)
         self.eval_step = make_eval_step(loss_weights=cfg.model.loss_weights,
-                                        precision=self.precision)
+                                        precision=self.precision,
+                                        loss_type=self.loss_type)
         self.ckpt = CheckpointManager(
             os.path.join(self.run_dir, "checkpoints"),
             keep_latest=cfg.checkpoint.keep_latest,
@@ -394,7 +448,7 @@ class Trainer:
                 if batch is None:
                     break
                 if cfg.debug_asserts:
-                    batch_debug_asserts(batch)
+                    self._debug_asserts(batch)
                 losses.append(self.train_step(self.state, batch))
                 step = self.state.step
                 if guard is not None and guard.should_stop(step):
@@ -430,24 +484,45 @@ class Trainer:
         self.writer.scalars(scalars, self.state.step)
         return float(loss_arr.mean())
 
+    def _debug_asserts(self, batch) -> None:
+        if self.cfg.task == "semantic":
+            semantic_batch_debug_asserts(batch, self.cfg.model.nclass)
+        else:
+            batch_debug_asserts(batch)
+
     def validate(self, epoch: int | None = None) -> dict:
-        """The validation protocol on the current state; logs and returns
-        its metrics."""
+        """The task's validation protocol on the current state; logs and
+        returns its metrics."""
+        cfg = self.cfg
         self.val_loader.set_epoch(0)
-        metrics = evaluate(self.eval_step, self.state, self.val_loader,
-                           thresholds=self.cfg.eval_thresholds,
-                           relax=self.cfg.data.relax,
-                           zero_pad=self.cfg.data.zero_pad,
-                           debug_asserts=self.cfg.debug_asserts,
-                           bf16_readback=self.cfg.eval_bf16_probs)
-        if self.cfg.debug_asserts and not np.isfinite(metrics["loss"]):
+        if cfg.task == "semantic":
+            metrics = evaluate_semantic(
+                self.eval_step, self.state, self.val_loader,
+                nclass=cfg.model.nclass, tta_scales=cfg.eval_tta_scales,
+                tta_flip=cfg.eval_tta_flip, debug_asserts=cfg.debug_asserts,
+                bf16_probs=cfg.eval_bf16_probs,
+                device_fullres=(tuple(cfg.data.val_max_im_size)
+                                if cfg.eval_device_fullres else None))
+        else:
+            metrics = evaluate(self.eval_step, self.state, self.val_loader,
+                               thresholds=cfg.eval_thresholds,
+                               relax=cfg.data.relax,
+                               zero_pad=cfg.data.zero_pad,
+                               debug_asserts=cfg.debug_asserts,
+                               bf16_readback=cfg.eval_bf16_probs)
+        if cfg.debug_asserts and not np.isfinite(metrics["loss"]):
             raise FloatingPointError(f"non-finite val loss {metrics['loss']} "
                                      f"at epoch {epoch}")
         flat = {"val/loss": metrics["loss"], "val/jaccard": metrics["jaccard"],
-                "val/best_threshold": metrics["best_threshold"],
-                "val/n_samples": metrics["n_samples"],
-                **{f"val/jaccard@{t}": v for t, v in
-                   metrics["jaccard_per_threshold"].items()}}
+                "val/n_samples": metrics["n_samples"]}
+        if "best_threshold" in metrics:
+            flat["val/best_threshold"] = metrics["best_threshold"]
+            flat.update({f"val/jaccard@{t}": v for t, v in
+                         metrics["jaccard_per_threshold"].items()})
+        if "miou" in metrics:
+            flat["val/miou"] = metrics["miou"]
+            flat["val/pixel_acc"] = metrics["pixel_acc"]
+            flat["val/per_class_iou"] = metrics["per_class_iou"]
         if epoch is not None:
             flat["val/epoch"] = epoch
         self.writer.scalars(flat, self.state.step)

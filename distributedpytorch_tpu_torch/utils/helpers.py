@@ -219,3 +219,17 @@ def make_gt(target: np.ndarray, labels, sigma: float = 10.0,
         for ii in range(labels.shape[0]):
             gt = np.maximum(gt, make_gaussian((h, w), center=labels[ii], sigma=sigma))
     return gt.astype(np.float32)
+
+
+def overlay_mask(img: np.ndarray, mask: np.ndarray, alpha: float = 0.5,
+                 color=(1.0, 0.0, 0.0)) -> np.ndarray:
+    """Blend a binary mask over an RGB image in [0, 1]: ``alpha`` of
+    ``color`` where ``mask > 0.5``."""
+    img = np.asarray(img, dtype=np.float32)
+    mask = np.asarray(mask, dtype=np.float32)
+    out = img.copy()
+    for c in range(3):
+        out[..., c] = np.where(mask > 0.5,
+                               (1 - alpha) * img[..., c] + alpha * color[c],
+                               img[..., c])
+    return out

@@ -191,6 +191,71 @@ def test_two_rank_trajectory_matches_jax(ranks, r18, strategy, accum):
           f"{leaf_worst:.2e} of max(1, |leaf|)")
 
 
+def test_two_rank_semantic_step_matches_jax(ranks, tmp_path):
+    """DeepLabV3-R18 under ``dp`` with the softmax loss: rank 0's rows are
+    mostly void and rank 1's hardly, so a mean of per-rank means would
+    differ from JAX's one global mean over the valid pixels."""
+    jmodel = jax_build_model("deeplabv3", nclass=5, backbone="resnet18",
+                             aux_head=True)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, HW, HW, 3)), train=False))
+    variables = randomize(shapes, seed=10)
+    port = build_model("deeplabv3", nclass=5, backbone="resnet18", aux_head=True,
+                       in_channels=3, dropout_rate=0.0)
+    load_jax_params(port, variables["params"], variables["batch_stats"])
+    init_path = str(tmp_path / "deeplab.pt")
+    torch.save(port.state_dict(), init_path)
+    r = np.random.default_rng(13)
+    batches = []
+    for _ in range(2):
+        gt = r.integers(0, 5, (B, HW, HW, 1)).astype(np.float32)
+        gt[:B // 2][r.random((B // 2, HW, HW, 1)) < 0.7] = 255.0
+        gt[B // 2:][r.random((B // 2, HW, HW, 1)) < 0.05] = 255.0
+        batches.append({"concat": r.uniform(0, 255, (B, HW, HW, 3)).astype(np.float32),
+                        "crop_gt": gt})
+    halves = [[{k: v[:B // 2] for k, v in b.items()} for b in batches],
+              [{k: v[B // 2:] for k, v in b.items()} for b in batches]]
+    ranks.start("semantic_trajectory", init_path, halves, LR)
+
+    mesh = _mesh()
+    tx, _ = jax_optim.make_optimizer(jax_config.OptimConfig(lr=LR), 10)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    jstate = jax.device_put(
+        JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                      batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
+                      opt_state=tx.init(params), rng=jax.random.PRNGKey(1)),
+        jax_mesh.replicated_sharding(mesh))
+    jstep = jax_make_train_step(jmodel, tx, loss_weights=(1.0, 0.4), mesh=mesh,
+                                donate=False, loss_type="multi_softmax")
+    jlosses = []
+    for batch in batches:
+        with fnn.intercept_methods(_no_dropout):
+            jstate, jloss = jstep(jstate, jax_mesh.shard_batch(mesh, batch))
+        jlosses.append(float(jloss))
+    got = ranks.results()
+
+    for a, b in zip(got[0]["state"].values(), got[1]["state"].values()):
+        assert torch.equal(a, b)
+    assert got[0]["losses"] == got[1]["losses"]
+    worst = max(abs(g - w) / abs(w) for g, w in zip(got[0]["losses"], jlosses))
+    assert worst <= 1e-4, (got[0]["losses"], jlosses)
+    got_params, got_stats = state_dict_to_jax(got[0]["state"])
+    leaf_worst = 0.0
+    for got_tree, want_tree in ((got_params, jstate.params),
+                                (got_stats, jstate.batch_stats)):
+        got_flat = jax.tree_util.tree_leaves_with_path(got_tree)
+        want_flat = jax.tree_util.tree_leaves_with_path(want_tree)
+        assert [p for p, _ in got_flat] == [p for p, _ in want_flat]
+        for (path, g), (_, w) in zip(got_flat, want_flat):
+            w = np.asarray(w)
+            bound = max(1.0, float(np.abs(w).max()))
+            diff = float(np.abs(np.asarray(g) - w).max())
+            leaf_worst = max(leaf_worst, diff / bound)
+            assert diff <= 1e-4 * bound, jax.tree_util.keystr(path)
+    print(f"semantic dp: worst loss rel {worst:.2e}, worst leaf "
+          f"{leaf_worst:.2e} of max(1, |leaf|)")
+
+
 def _halves(a):
     return [a[:len(a) // 2], a[len(a) // 2:]]
 

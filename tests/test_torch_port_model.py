@@ -144,8 +144,9 @@ class TestSamePadding:
 
 class TestBuildAndLoad:
     def test_other_models_raise(self):
-        with pytest.raises(ValueError, match="not ported"):
-            build_model("deeplabv3")
+        for name in ("pspnet", "encnet", "ccnet"):
+            with pytest.raises(ValueError, match="not ported"):
+                build_model(name)
         with pytest.raises(ValueError, match="attention_impl"):
             build_model("danet", backbone="resnet18", attention_impl="cuda")
 

@@ -16,6 +16,12 @@
   checkpoint; ``Predictor.from_run`` on that run, and the serve CLI's
   ``--run-dir``, give the trained model's logits bit for bit.
 * ``param_digest`` sees every tensor, 0-dim ones included.
+* The semantic task through the CLI on the CPU (DeepLabV3-R18 at 65²,
+  full-res validation): mIoU logged and used as the checkpoint gate, the
+  run served by ``SemanticPredictor`` and resumed; the JAX trainer's task
+  refusals with its messages, the families still refused by name;
+  ``--predict`` refusing training flags; a DeepLab warm start from a
+  torchvision ResNet-18 layout.
 """
 
 import argparse
@@ -253,3 +259,134 @@ def test_cli_needs_a_card_unless_asked(monkeypatch, tmp_path):
         cli.main(["--fake-data", *TINY, f"work_dir={tmp_path}"])
     assert cli.main(["--device", "cpu", "--validate-only", *TINY,
                      f"work_dir={tmp_path}"]) == 0
+
+
+#: the port's tiny semantic CPU run (5 fake train images: batch <= 5)
+SEMANTIC = ["--device", "cpu", "--fake-data", "task=semantic",
+            "model.name=deeplabv3", "model.nclass=21", "model.in_channels=3",
+            "model.backbone=resnet18", "model.aux_head=true",
+            "model.loss_weights=[1.0,0.4]", "data.crop_size=[65,65]",
+            "data.train_batch=4", "data.val_batch=2", "data.num_workers=0",
+            "eval_full_res=true", "epochs=1"]
+
+
+def test_semantic_fit_through_the_cli(tmp_path):
+    """``task=semantic`` trains, validates by mIoU at native resolution,
+    commits its checkpoint by the uniform ``jaccard`` gate (= mIoU),
+    ``SemanticPredictor.from_run`` serves the trained weights, and
+    ``resume=auto`` continues the run."""
+    from distributedpytorch_tpu_torch.predict import SemanticPredictor
+
+    assert cli.main([*SEMANTIC, f"work_dir={tmp_path}"]) == 0
+    run = tmp_path / "run_0"
+    with open(run / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    (val,) = [r for r in records if "val/miou" in r]
+    assert 0.0 <= val["val/miou"] <= 1.0 and 0.0 <= val["val/pixel_acc"] <= 1.0
+    assert val["val/jaccard"] == val["val/miou"]
+    assert len(val["val/per_class_iou"]) == 21 and val["val/n_samples"] == 3
+    losses = [x for r in records for x in r.get("train/step_losses", [])]
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    with open(run / "checkpoints" / "COMMITTED.json") as f:
+        committed = json.load(f)
+    assert committed["latest"] == [1]
+    pred = SemanticPredictor.from_run(str(run), device="cpu")
+    assert pred.resolution == (65, 65)
+    classes = pred.predict(np.full((40, 30, 3), 128.0))
+    assert classes.shape == (40, 30) and classes.dtype == np.uint8
+    # and resumes: a second epoch continues from the committed step
+    assert cli.main([*SEMANTIC, "epochs=2", "resume=auto",
+                     f"work_dir={tmp_path}"]) == 0
+    with open(tmp_path / "run_1" / "fit_summary.json") as f:
+        summary = json.load(f)
+    assert summary["resumed_from_step"] == 1 and summary["final_step"] == 2
+    assert summary["start_epoch"] == 1 and summary["completed"]
+
+
+@pytest.mark.parametrize("overrides,error,match", [
+    (["eval_tta_flip=true"], ValueError, "semantic task only"),
+    (["eval_tta_scales=[0.5,1.0]"], ValueError, "semantic task only"),
+    (["eval_full_res=true"], ValueError, "semantic task only"),
+    (["model.nclass=21"], ValueError,
+     r"requires model.nclass=1 \(binary sigmoid head\), got 21; use "
+     "task='semantic' for multi-class"),
+    (["task=panoptic"], ValueError, "unknown task"),
+    (["task=semantic", "model.name=pspnet", "model.nclass=21"],
+     NotImplementedError, "model.name='pspnet'"),
+    (["task=semantic", "model.name=deeplabv3", "model.nclass=21",
+      "model.attention_impl=flash"], ValueError, "DANet-only"),
+])
+def test_task_refusals(overrides, error, match, tmp_path):
+    """The JAX trainer's task checks, with its messages, and the families
+    still refused by name."""
+    cfg = config.apply_overrides(config.Config(), TINY + overrides + [
+        f"work_dir={tmp_path}"])
+    with pytest.raises(error, match=match):
+        Trainer(cfg, device="cpu")
+
+
+def test_predict_refuses_training_flags(tmp_path, capsys):
+    for extra in (["--fake-data"], ["--config", "c.json"], ["--validate-only"],
+                  ["--dist-backend", "gloo"], ["epochs=2"]):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["--predict", "x.png", "--run-dir", str(tmp_path), *extra])
+        assert e.value.code == 2
+        assert "do not apply" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main(["--predict", "x.png"])
+    assert "--run-dir" in capsys.readouterr().err
+
+
+def _torchvision_resnet18_state(seed: int = 0) -> dict:
+    """A state dict with torchvision's ResNet-18 key names and shapes, drawn
+    from ``seed`` (the head ``fc`` included)."""
+    from distributedpytorch_tpu_torch.utils import weights
+
+    model = build_model("deeplabv3", nclass=21, backbone="resnet18",
+                        in_channels=3)
+    shapes = model.state_dict()
+    keys = ["conv1.weight"] + [f"bn1.{p}" for p in
+                               ("weight", "bias", "running_mean", "running_var")]
+    for stage in range(1, 5):
+        for block in range(2):
+            base = f"layer{stage}.{block}"
+            keys += [f"{base}.conv1.weight", f"{base}.conv2.weight"]
+            keys += [f"{base}.bn{k}.{p}" for k in (1, 2) for p in
+                     ("weight", "bias", "running_mean", "running_var")]
+            if stage > 1 and block == 0:
+                keys += [f"{base}.downsample.0.weight"] + [
+                    f"{base}.downsample.1.{p}" for p in
+                    ("weight", "bias", "running_mean", "running_var")]
+    rename = weights.torchvision_resnet_rename(18)
+    r = np.random.default_rng(seed)
+    state = {k: torch.from_numpy(r.uniform(0.5, 1.5, tuple(shapes[rename(k)].shape))
+                                 .astype(np.float32)) for k in keys}
+    state["fc.weight"] = torch.zeros(1000, 512)
+    state["fc.bias"] = torch.zeros(1000)
+    return state
+
+
+def test_warm_start_deeplab_from_torchvision_resnet(tmp_path):
+    """A torchvision ResNet-18 state dict builds into DeepLabV3's backbone
+    (the 3-channel stem as it is); the heads keep their fresh values."""
+    from distributedpytorch_tpu_torch.utils import weights
+
+    state = _torchvision_resnet18_state()
+    path = tmp_path / "resnet18.pth"
+    torch.save(state, path)
+    cfg = config.apply_overrides(config.Config(), TINY + [
+        "task=semantic", "model.name=deeplabv3", "model.nclass=21",
+        "model.in_channels=3", f"checkpoint.warm_start={path}",
+        f"work_dir={tmp_path}"])
+    trainer = Trainer(cfg, device="cpu")
+    fresh = Trainer(config.apply_overrides(cfg, ["checkpoint.warm_start=null"]),
+                    device="cpu")
+    got, init = trainer.model.state_dict(), fresh.model.state_dict()
+    rename = weights.torchvision_resnet_rename(18)
+    for key, value in state.items():
+        if not key.startswith("fc."):
+            assert torch.equal(got[rename(key)], value), key
+    heads = [k for k in got if not k.startswith("backbone.")
+             and not k.endswith("num_batches_tracked")]
+    assert heads and all(torch.equal(got[k], init[k]) for k in heads)
+    assert trainer.state.step == 0

@@ -232,3 +232,21 @@ def stop_consensus(rank, world, signal_rank, signal_at, check_every):
             if guard.should_stop(step):
                 return {"stopped_at": step, "own_flag": guard.triggered}
     return {"stopped_at": None, "own_flag": guard.triggered}
+
+
+def semantic_trajectory(rank, world, init_path, batches, lr):
+    """Train steps of DeepLabV3-R18 (aux head, 5 classes, dropout off)
+    under ``dp`` with the softmax loss over the global count of valid
+    pixels, from the weights in ``init_path``; ``batches[rank]`` are this
+    rank's rows of each step.  Returns the losses and the final
+    state_dict."""
+    model = build_model("deeplabv3", nclass=5, backbone="resnet18",
+                        aux_head=True, in_channels=3, dropout_rate=0.0,
+                        bn_cross_replica=True)
+    model.load_state_dict(torch.load(init_path))
+    opt, sched = make_optimizer(config.OptimConfig(lr=lr), model, 10)
+    state = create_train_state(model, opt, sched, 0, torch.device("cpu"))
+    wrap_data_parallel(state)
+    step = make_train_step(loss_weights=(1.0, 0.4), loss_type="multi_softmax")
+    lossv = [float(step(state, b)) for b in batches[rank]]
+    return {"losses": lossv, "state": model.state_dict()}
