@@ -148,21 +148,49 @@ it), printing no result.  The phases, each raising on failure:
              and ``--predict`` writing a PNG; (e) ``fullres_argmax`` on the
              card against the host full-res protocol on the same
              probabilities, >= 99.9% of pixels agreeing.
+10. trainer — the rest of the trainer, DANet-R101 at 512² in bf16 on the
+             fake fixture: (a) a ``Trainer`` trains an epoch, validates a
+             snapshot on the ``val_overlap`` thread while the next epoch
+             trains, and a serial validation of the same snapshot at the
+             join gives the same Jaccard (1e-4) and loss (1e-6 relative);
+             the wall time of an epoch plus the overlapped validation
+             against an epoch plus a serial one; one launch per kernel per
+             step and val sample; (b) the look-ahead evaluator over the
+             fixture's val samples against a per-sample reference built
+             here from ``eval_step`` and the host protocol (same bounds),
+             its ms per sample and the device's idle share in a profiler
+             window; (c) the CLI fit with ``val_overlap=true`` and
+             ``profile_epoch=1``: ``run_dir/profile`` holds a Chrome trace
+             naming each of the four attention kernels at least once per
+             step of epoch 1, and ``kernel_launches`` is exactly the steps
+             plus the validated samples; (d) its TensorBoard writer: where
+             ``tensorboard`` is installed, ``run_dir/tb`` holds
+             ``val/jaccard`` at each validation and (with matplotlib) the
+             ``val_panels`` image, else no file and no error; (e) at B = 16
+             bf16: ``model.remat`` alone, ``remat_policy`` dots_saveable and
+             nothing_saveable held to the step without remat by 6d's rule,
+             ``bn_fp32_stats=false`` by the L2 rule at ``KNOB_L2_FACTOR``,
+             each step's ms and peak memory; AdamW's first update against
+             optax's closed form within 1e-6 relative.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
-whether PIL imports and cv2 and grain are installed).  The launch counters
+whether PIL imports and cv2, grain, tensorboard and matplotlib are
+installed).  The launch counters
 are zeroed just before phase 3 and read after phase 5 (the serving path),
 zeroed by the trainer when its fit starts and read from its
 ``fit_summary.json`` (the training paths, f32, bf16 and worker-fed, the
 latter two summed over the preempted and resumed runs), and zeroed just
 before the bf16 run is served (the bf16 serving path), and zeroed by each
 rank of phase 8 (a) and (b) before each of its steps (the data-parallel
-path, rank 0's counts summed): every kernel must have run on each.  Every
+path, rank 0's counts summed), zeroed just before phase 10a's overlapped
+epoch and read after its join (the overlapped validation path), and
+zeroed by the trainer when phase 10c's fit starts and read from its
+``fit_summary.json``: every kernel must have run on each.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -1638,7 +1666,8 @@ def phase_train_resume(torch, ca, Predictor,
 
 def environment_line() -> str:
     """CPU affinity, /dev/shm size and free space, host RAM, and whether
-    PIL imports and cv2 and grain are installed (found, not imported)."""
+    PIL imports and cv2, grain, tensorboard and matplotlib are installed
+    (found, not imported)."""
     import importlib.util
     import os
     import platform
@@ -1663,7 +1692,7 @@ def environment_line() -> str:
     except ImportError:
         pil = "PIL does not import"
     found = ", ".join(f"{m} {'installed' if importlib.util.find_spec(m) else 'absent'}"
-                      for m in ("cv2", "grain"))
+                      for m in ("cv2", "grain", "tensorboard", "matplotlib"))
     return (f"env: CPU affinity {cpus} (os.cpu_count {os.cpu_count()}), {shm}, "
             f"host RAM {ram:.1f} GiB ({avail} GiB available), {pil}, {found}; "
             f"python {platform.python_version()}")
@@ -3102,8 +3131,416 @@ def phase_semantic(torch, ca) -> None:
     log(f"semantic: no attention kernel launched; phase {time.perf_counter() - t0:.1f} s")
 
 
+#: the trainer phase's fit: DANet-R101 at 512^2 in bf16 on the fake
+#: fixture, train batch 2 (5 steps per epoch over its 11 train objects),
+#: each epoch validated over its 16 val objects
+TRAINER_ARGS = ["data.fake=true", "train.precision=bfloat16", "data.train_batch=2",
+                "data.area_thres=0", "log_every_steps=1", 'log_writers=["jsonl"]',
+                "checkpoint.keep_latest=1"]
+#: 10c's CLI fit: train batch 4 (2 steps per epoch), two epochs, each
+#: validated on the thread beside the next, epoch 1 traced
+TRAINER_FIT_ARGS = ["--fake-data", "train.precision=bfloat16", "data.train_batch=4",
+                    "data.area_thres=0", "epochs=2", "val_overlap=true",
+                    "profile_epoch=1", 'log_writers=["console","jsonl","tensorboard"]']
+#: 10e's model: DANet-R101 at 512^2, every weight drawn from seed 0
+KNOB_MODEL = (512, "resnet101")
+#: the overlapped validation against a serial one of the same snapshot:
+#: the Jaccard at every threshold within this (one pixel flipping at a
+#: threshold moves a sample's IoU by less than 1e-4 at these sizes; the
+#: forwards repeat bit for bit, so 0 is expected) and the loss within
+#: this relative difference
+OVERLAP_JAC_TOL, OVERLAP_LOSS_TOL = 1e-4, 1e-6
+#: 10e: a remat variant's gradients held to the bf16 step without remat
+#: by 6d's rule (each tensor within BF16_GRAD_TOL x its float32 max |g|,
+#: or within the bf16 step's own distance from the float32 step); the
+#: recompute runs the same kernels, so they agree to the last bit but for
+#: cuDNN's choices.  bn_fp32_stats=false changes the arithmetic itself
+#: (flax's E[x^2] - E[x]^2 in bf16 cancels where the mean is large against
+#: the spread): its whole gradient's L2 distance from the bf16 step within
+#: KNOB_L2_FACTOR x the bf16 step's own L2 distance from float32, and
+#: its loss within that factor of the bf16 loss's distance from the
+#: float32 loss or KNOB_LOSS_TOL relative, whichever is larger (a CPU
+#: DANet-R18 64^2 probe: 1.2x and 2.6x)
+KNOB_L2_FACTOR, KNOB_LOSS_TOL = 4.0, 1e-2
+#: the AdamW check: lr, weight decay, and the bound on max |p - p_closed|
+#: / max |p_closed| per tensor (float32 rounding of the parameters)
+ADAMW_LR, ADAMW_WD, ADAMW_TOL = 1e-3, 1e-2, 1e-6
+
+
+def _jaccard_gap(a: dict, b: dict) -> float:
+    return max(abs(a["jaccard_per_threshold"][t] - b["jaccard_per_threshold"][t])
+               for t in a["jaccard_per_threshold"])
+
+
+def trainer_overlap(torch, ca, work: Path, device: str = "cuda",
+                    rounds: int = 2) -> dict:
+    """10a: one Trainer trains an epoch and validates once (the eval
+    shapes warmed), then validates a snapshot on the thread while the next
+    epoch trains; a serial validation of the same snapshot at the join
+    gives the same metrics.  Then the wall time of an epoch plus the
+    overlapped validation against an epoch plus a serial one, in turns,
+    ``rounds`` of each.  Returns the launch counts of the first
+    overlapped epoch + validation."""
+    from distributedpytorch_tpu_torch.train.config import Config, apply_overrides
+    from distributedpytorch_tpu_torch.train.trainer import Trainer
+
+    cfg = apply_overrides(Config(), TRAINER_ARGS + [
+        f"epochs={1 + 2 * rounds}", "val_overlap=true", f"work_dir={work}"])
+    tr = Trainer(cfg, device=device)
+
+    def overlapped(epoch: int):
+        tr._launch_overlapped_val(epoch - 1, tr.state.step)
+        snapshot, box = tr._pending_val[2], tr._pending_val[4]
+        tr.train_epoch(epoch)
+        tr._join_overlapped_val(None, finish=False)
+        return snapshot, box["result"][0]
+
+    def serial(epoch: int):
+        tr.train_epoch(epoch)
+        return tr.state, tr._eval_metrics(tr.state)[0]
+
+    try:
+        tr.train_epoch(0)
+        tr._eval_metrics(tr.state)
+        torch.cuda.synchronize()
+        times: dict = {"overlapped": [], "serial": []}
+        epoch = 1
+        for r in range(rounds):
+            for mode, run in (("overlapped", overlapped), ("serial", serial)):
+                if r == 0 and mode == "overlapped":
+                    ca.reset_launches()
+                t0 = time.perf_counter()
+                snapshot, metrics = run(epoch)
+                torch.cuda.synchronize()
+                times[mode].append(time.perf_counter() - t0)
+                if r == 0 and mode == "overlapped":
+                    launches = dict(ca.launches)
+                    first, first_snapshot = metrics, snapshot
+                epoch += 1
+        serial_same, _ = tr._eval_metrics(first_snapshot)
+        check("10a overlapped vs serial validation of one snapshot, Jaccard",
+              _jaccard_gap(first, serial_same), OVERLAP_JAC_TOL)
+        check("10a overlapped vs serial validation of one snapshot, loss (relative)",
+              abs(first["loss"] - serial_same["loss"]) / abs(serial_same["loss"]),
+              OVERLAP_LOSS_TOL)
+        n, steps = first["n_samples"], len(tr.train_loader)
+        want = steps + n
+        if any(v != want for v in launches.values()):
+            raise AssertionError(f"10a: the overlapped epoch launched {launches}: "
+                                 f"want {want} each ({steps} steps + {n} val samples)")
+        log(f"trainer (a): DANet-R101 512^2 bf16, train batch 2, {steps} steps per "
+            f"epoch, {n} val samples; overlapped validation Jaccard "
+            f"{first['jaccard']:.6f} loss {first['loss']:.9f}, serial of the same "
+            f"snapshot {serial_same['jaccard']:.6f} / {serial_same['loss']:.9f}; "
+            f"launches in the overlapped epoch {launches}")
+        log(f"trainer (a): wall time of an epoch + its validation, in turns: "
+            f"overlapped {', '.join(f'{t:.3f}' for t in times['overlapped'])} s, "
+            f"serial {', '.join(f'{t:.3f}' for t in times['serial'])} s (median "
+            f"ratio {statistics.median(times['overlapped']) / statistics.median(times['serial']):.3f}; "
+            f"the thread launches on the main thread's stream, so only host work "
+            f"overlaps)")
+        return launches
+    finally:
+        tr._discard_overlapped_val()
+        tr.close()
+
+
+def trainer_look_ahead(torch, ca, work: Path, device: str = "cuda") -> None:
+    """10b: the look-ahead evaluator over the 16 val samples against a
+    per-sample reference built here from ``eval_step`` and the host
+    protocol; its seconds per sample and the device's idle share in a
+    profiler window around it."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.ops.metrics import np_jaccard_thresholds
+    from distributedpytorch_tpu_torch.train.config import Config, apply_overrides
+    from distributedpytorch_tpu_torch.train.evaluate import evaluate
+    from distributedpytorch_tpu_torch.train.trainer import Trainer
+    from distributedpytorch_tpu_torch.utils.helpers import crop2fullmask, tens2image
+
+    cfg = apply_overrides(Config(), TRAINER_ARGS + ["epochs=1", f"work_dir={work}"])
+    tr = Trainer(cfg, device=device)
+    try:
+        thresholds = tuple(cfg.eval_thresholds)
+        tr.val_loader.set_epoch(0)
+        jac, n, losses = np.zeros(len(thresholds)), 0, []
+        for batch in tr.val_loader:
+            outputs, loss = tr.eval_step(tr.state, batch)
+            losses.append(loss.item())
+            logits = outputs[0][:, 0].to(torch.bfloat16).float().cpu().numpy()
+            probs = 1.0 / (1.0 + np.exp(-logits))
+            for j in range(probs.shape[0]):
+                gt = tens2image(np.asarray(batch["gt"][j]))
+                void = tens2image(np.asarray(batch["void_pixels"][j]))
+                n += 1
+                if gt.max() <= 0.5:
+                    jac += [float(not (probs[j] > t).any()) for t in thresholds]
+                    continue
+                bbox = tuple(int(v) for v in np.asarray(batch["bbox"][j]))
+                full = crop2fullmask(probs[j], bbox, gt.shape[:2],
+                                     zero_pad=cfg.data.zero_pad, relax=cfg.data.relax)
+                jac += np_jaccard_thresholds(full, thresholds, gt > 0.5, void)
+        ref = {"jaccard_per_threshold": dict(zip(map(str, thresholds),
+                                                 (jac / n).tolist())),
+               "loss": sum(losses) / len(losses)}
+        tr.val_loader.set_epoch(0)
+        evaluate(tr.eval_step, tr.state, tr.val_loader, thresholds=thresholds,
+                 relax=cfg.data.relax, bf16_readback=True)  # warm
+        tr.val_loader.set_epoch(0)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            got = evaluate(tr.eval_step, tr.state, tr.val_loader, thresholds=thresholds,
+                           relax=cfg.data.relax, bf16_readback=True)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.device_time_total for e in _device_events(prof)) / 1e3
+        check("10b look-ahead vs per-sample reference, Jaccard", _jaccard_gap(got, ref),
+              OVERLAP_JAC_TOL)
+        check("10b look-ahead vs per-sample reference, loss (relative)",
+              abs(got["loss"] - ref["loss"]) / abs(ref["loss"]), OVERLAP_LOSS_TOL)
+        if got["n_samples"] != n or got["_first_batch"] is None:
+            raise AssertionError(f"10b: {got['n_samples']} samples (want {n}), "
+                                 f"first-batch record {got['_first_batch'] is not None}")
+        log(f"trainer (b): look-ahead evaluate over {n} val samples (val batch "
+            f"{cfg.data.val_batch}), Jaccard {got['jaccard']:.6f} (reference "
+            f"{max(ref['jaccard_per_threshold'].values()):.6f}); "
+            f"{got['seconds'] / n * 1e3:.2f} ms per sample inside the window; device "
+            f"busy {busy:.2f} ms of the {window_ms:.2f} ms window, idle share "
+            f"{1.0 - busy / window_ms:.4f}")
+    finally:
+        tr.close()
+
+
+def trainer_fit(torch, ca, work: Path) -> dict:
+    """10c and 10d: the CLI fit with ``val_overlap``, ``profile_epoch=1``
+    and the TensorBoard writer: the trace names the four kernels at least
+    once per step of epoch 1, the launches are exact, and the writers'
+    files are there where their packages are.  Returns its launches."""
+    import importlib.util
+
+    cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *TRAINER_FIT_ARGS,
+           f"work_dir={work}"]
+    log(f"trainer (c): {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fit exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    fit_s = time.perf_counter() - t0
+    (run,) = work.glob("run_*")
+    rec = _run_record(run)
+    steps = [len(r["train/step_losses"]) for r in rec["epochs"]]
+    vals = rec["vals"]
+    launches = rec["summary"]["kernel_launches"]
+    want = sum(steps) + sum(int(r["val/n_samples"]) for r in vals)
+    if len(vals) != 2 or any(v != want for v in launches.values()):
+        raise AssertionError(f"10c: launches {launches}, want {want} each ({steps} "
+                             f"steps + {[r['val/n_samples'] for r in vals]} samples)")
+    traces = list((run / "profile").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"10c: {len(traces)} traces under {run / 'profile'}")
+    with open(traces[0]) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    counts = {k: sum(k in name for name in names) for k in ATTENTION_KERNELS}
+    if any(c < steps[1] for c in counts.values()):
+        raise AssertionError(f"10c: kernels in the epoch-1 trace {counts}: want at "
+                             f"least {steps[1]} each (one per train step)")
+    log(f"trainer (c): {fit_s:.1f} s wall; steps per epoch {steps}, val Jaccard "
+        f"{[round(r['val/jaccard'], 6) for r in vals]}; kernel launches {launches} "
+        f"= {want} each, exact; the epoch-1 trace ({traces[0].stat().st_size / 2**20:.1f}"
+        f" MiB, {len(names)} kernels) holds {counts}")
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("tensorboard", "matplotlib")}
+    tb = run / "tb"
+    if not have["tensorboard"]:
+        files = list(tb.rglob("*")) if tb.exists() else []
+        if files:
+            raise AssertionError(f"10d: no tensorboard, yet {files}")
+        log("trainer (d): tensorboard is not installed: the writer was a no-op "
+            "(the fit exited 0, no files under run_dir/tb)")
+        return launches
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(str(tb), size_guidance={"images": 0})
+    acc.Reload()
+    jac = [(e.step, round(e.value, 6)) for e in acc.Scalars("val/jaccard")]
+    panels = [e.step for e in acc.Images("val_panels")] \
+        if "val_panels" in acc.Tags()["images"] else []
+    if [s for s, _ in jac] != [int(r["step"]) for r in vals]:
+        raise AssertionError(f"10d: val/jaccard in run_dir/tb {jac}, metrics.jsonl "
+                             f"{[(r['step'], r['val/jaccard']) for r in vals]}")
+    if have["matplotlib"] and not panels:
+        raise AssertionError("10d: matplotlib is installed but no val_panels image")
+    log(f"trainer (d): run_dir/tb holds val/jaccard {jac} and val_panels images at "
+        f"steps {panels} (matplotlib {'installed' if have['matplotlib'] else 'absent'})")
+    return launches
+
+
+def trainer_knobs(torch, ca, dataset, batch_size: int = 16, rounds: int = 3,
+                  device: str = "cuda") -> None:
+    """10e: at B = 16, bf16, DANet-R101 512^2: model.remat_policy (none,
+    remat alone, dots_saveable, nothing_saveable) and bn_fp32_stats=false,
+    each step's loss and gradients against the bf16 step without the knob
+    (6d's rule, float32 as the yardstick), with its peak memory and step
+    ms; then AdamW's first update against optax's closed form."""
+    from distributedpytorch_tpu_torch.data import pipeline
+    from distributedpytorch_tpu_torch.models.resnet import set_fp32_stats
+    from distributedpytorch_tpu_torch.ops.losses import multi_output_loss
+    from distributedpytorch_tpu_torch.parallel.step import (
+        _forward,
+        create_train_state,
+        device_batch,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.predict import Predictor
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import apply_update, make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    policy = precision_policy("bfloat16")
+    loader = pipeline.DataLoader(Cycled(dataset, batch_size), batch_size,
+                                 shuffle=True, drop_last=True, seed=0)
+    batch = next(iter(loader))
+    model = Predictor.fresh(*KNOB_MODEL, seed=0, device=device).model.train()
+    model.head.dropout_rate = 0.0
+    data = device_batch(batch, torch.device(device))
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    # (label, compute dtype, remat, remat_policy, bn_fp32_stats)
+    variants = {"float32": (None, False, None, True),
+                "bf16": (torch.bfloat16, False, None, True),
+                "remat": (torch.bfloat16, True, None, True),
+                "dots_saveable": (torch.bfloat16, True, "dots_saveable", True),
+                "nothing_saveable": (torch.bfloat16, True, "nothing_saveable", True),
+                "bn_fp32_stats=false": (torch.bfloat16, False, None, False)}
+
+    def use(label):
+        dtype, remat, pol, fp32 = variants[label]
+        model.set_compute_dtype(dtype)
+        model.backbone.remat, model.backbone.remat_policy = remat, pol
+        set_fp32_stats(model, fp32)
+        return policy if dtype is not None else None
+
+    grads, losses = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label in variants:
+            model.load_state_dict(saved)
+            model.zero_grad(set_to_none=True)
+            loss = multi_output_loss(_forward(model, data["concat"], use(label)),
+                                     data["crop_gt"])
+            loss.backward()
+            losses[label] = loss.item()
+            grads[label] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    f32, bf16 = grads["float32"], grads["bf16"]
+
+    def l2(a: dict, b: dict) -> float:
+        return sum(float(((a[n].double() - b[n].double()) ** 2).sum()) for n in a) ** 0.5
+
+    own_l2 = l2(bf16, f32) / l2(f32, {n: 0.0 * g for n, g in f32.items()})
+    for label in ("remat", "dots_saveable", "nothing_saveable", "bn_fp32_stats=false"):
+        worst, failures = 0.0, []
+        for name, g in grads[label].items():
+            scale = f32[GRAD_SCALE_OF.get(name, name)].abs().max().item()
+            own = (bf16[name].double() - f32[name].double()).abs().max().item()
+            diff = (g.double() - bf16[name].double()).abs().max().item()
+            limit = max(BF16_GRAD_TOL * scale, own)
+            worst = max(worst, diff / limit)
+            if not diff <= limit:
+                failures.append(f"{name}: {diff:.3e} > {limit:.3e}")
+        rel_l2 = l2(grads[label], bf16) / l2(bf16, {n: 0.0 * g for n, g in bf16.items()})
+        log(f"trainer (e): {label}: loss {losses[label]:.9f} (bf16 {losses['bf16']:.9f},"
+            f" float32 {losses['float32']:.9f}); gradients vs the bf16 step: largest "
+            f"per-tensor diff / 6d's limit {worst:.3e} ({len(failures)} tensors over), "
+            f"whole-model relative L2 {rel_l2:.3e} (the bf16 step's own from float32 "
+            f"{own_l2:.3e})")
+        own_loss = abs(losses["bf16"] - losses["float32"]) / abs(losses["float32"])
+        check(f"10e {label} loss vs bf16 (relative)",
+              abs(losses[label] - losses["bf16"]) / abs(losses["bf16"]),
+              max(KNOB_LOSS_TOL, KNOB_L2_FACTOR * own_loss))
+        if label == "bn_fp32_stats=false":
+            check("10e bn_fp32_stats=false gradient L2 vs bf16 (relative)", rel_l2,
+                  KNOB_L2_FACTOR * own_l2)
+        elif failures:
+            raise AssertionError(f"10e {label}: gradients " + "; ".join(failures[:5]))
+        else:
+            note_margin(f"10e {label} gradients vs bf16", worst, 1.0)
+
+    model.load_state_dict(saved)
+    optimizer, schedule = make_optimizer(OptimConfig(), model, total_steps=100)
+    state = create_train_state(model, optimizer, schedule, 0, torch.device(device))
+    step = make_train_step(precision=policy)
+    for label in variants:
+        if label == "float32":
+            continue
+        use(label)
+        step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        log(f"trainer (e): B={batch_size} bf16 step with {label}: "
+            f"{statistics.median(times):.2f} ms median of {rounds} "
+            f"({', '.join(f'{t:.2f}' for t in times)}), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    use("bf16")
+
+    model.load_state_dict(saved)
+    opt, sched = make_optimizer(OptimConfig(name="adamw", lr=ADAMW_LR,
+                                            weight_decay=ADAMW_WD), model, 10)
+    before = {n: p.detach().double().clone() for n, p in model.named_parameters()}
+    for n, p in model.named_parameters():
+        p.grad = bf16[n].clone()
+    apply_update(opt, sched, 0)
+    worst = 0.0
+    for n, p in model.named_parameters():
+        g, p0 = bf16[n].double(), before[n]
+        closed = p0 - ADAMW_LR * (g / (g.abs() + 1e-8) + ADAMW_WD * p0)
+        worst = max(worst, ((p.detach().double() - closed).abs().max()
+                            / closed.abs().max().clamp_min(1e-30)).item())
+    check("10e adamw first update vs optax's closed form (relative)", worst, ADAMW_TOL)
+
+
+def phase_trainer(torch, ca) -> dict:
+    """Phase 10 (a-e); returns the launch counts of the overlapped
+    validation's epoch and of the CLI fit."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        overlap = trainer_overlap(torch, ca, work / "overlap")
+        log(f"trainer: (a) done at {time.perf_counter() - t0:.1f} s")
+        trainer_look_ahead(torch, ca, work / "look_ahead")
+        log(f"trainer: (b) done at {time.perf_counter() - t0:.1f} s")
+        fit = trainer_fit(torch, ca, work / "fit")
+        log(f"trainer: (c, d) done at {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_knobs(torch, ca, train_dataset())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"trainer: (e) done; phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"val_overlap": overlap, "trainer_fit": fit}
+
+
 #: the phases of a whole run, in order
-PHASES = ("kernels", "serve", "train", "host", "dist", "semantic")
+PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3169,6 +3606,8 @@ def main(argv: list[str] | None = None) -> int:
         paths["dist"] = phase_dist(torch, train_dataset())
     if "semantic" in phases:
         phase_semantic(torch, ca)
+    if "trainer" in phases:
+        paths.update(phase_trainer(torch, ca))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")

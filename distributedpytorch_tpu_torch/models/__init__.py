@@ -15,7 +15,7 @@ from torch import nn
 from ..train.precision import torch_dtype
 from .danet import DANet, DANetHead
 from .deeplab import ASPP, FCN, DeepLabV3, FCNHead, set_dropout
-from .resnet import ResNet, set_cross_replica
+from .resnet import ResNet, set_cross_replica, set_fp32_stats
 
 _BACKBONE_DEPTH = {"resnet18": 18, "resnet34": 34, "resnet50": 50,
                    "resnet101": 101, "resnet152": 152}
@@ -30,9 +30,11 @@ def build_model(name: str = "danet", nclass: int = 1,
                 dropout_rate: float | None = None,
                 dtype: str | torch.dtype | None = "float32",
                 pam_score_dtype: str | torch.dtype | None = None,
-                remat: bool = False, aux_head: bool = False,
+                remat: bool = False, remat_policy: str | None = None,
+                aux_head: bool = False,
                 encnet_codes: int = 32, ccnet_recurrence: int = 2,
-                bn_cross_replica: bool = False) -> nn.Module:
+                bn_cross_replica: bool = False,
+                bn_fp32_stats: bool = True) -> nn.Module:
     """Construct a segmentation model by name: ``danet``, ``deeplabv3``,
     ``deeplabv3plus`` or ``fcn``, each at the JAX package's default
     output stride (8 for DANet and FCN, 16 for DeepLab) unless given.
@@ -46,9 +48,13 @@ def build_model(name: str = "danet", nclass: int = 1,
     ``dtype`` is the compute dtype (parameters stay float32),
     ``pam_score_dtype`` the dtype DANet's plain position branch rounds its
     scores to, ``remat`` recomputes the backbone's blocks in the
-    backward.  ``bn_cross_replica`` makes every BatchNorm take its
+    backward, keeping what ``remat_policy`` (a zero-argument
+    ``jax.checkpoint_policies`` name, looked up only with ``remat``) saves.
+    ``bn_cross_replica`` makes every BatchNorm take its
     train-mode statistics over the process group (the JAX
-    ``bn_cross_replica_axis``; ``ops/sync_bn.py``).  ``aux_head`` adds
+    ``bn_cross_replica_axis``; ``ops/sync_bn.py``), ``bn_fp32_stats=False``
+    in the compute dtype rather than float32 (flax's
+    ``force_float32_reductions``).  ``aux_head`` adds
     the FCN head on ``c3`` to DeepLab and FCN; ``aux_head``,
     ``encnet_codes`` and ``ccnet_recurrence`` raise away from their
     defaults on a family that lacks them, DANet's knobs on the others,
@@ -94,7 +100,7 @@ def build_model(name: str = "danet", nclass: int = 1,
                       dtype=dtype,
                       pam_score_dtype=None if pam_score_dtype is None
                       else torch_dtype(pam_score_dtype),
-                      remat=remat)
+                      remat=remat, remat_policy=remat_policy)
     else:
         if dropout_rate not in (None, 0.0):
             raise ValueError(
@@ -104,16 +110,18 @@ def build_model(name: str = "danet", nclass: int = 1,
         if name == "fcn":
             model = FCN(nclass=nclass, backbone_depth=depth,
                         output_stride=output_stride or 8, aux_head=aux_head,
-                        in_channels=in_channels, dtype=dtype, remat=remat)
+                        in_channels=in_channels, dtype=dtype, remat=remat,
+                        remat_policy=remat_policy)
         else:
             model = DeepLabV3(nclass=nclass, backbone_depth=depth,
                               output_stride=output_stride or 16,
                               aux_head=aux_head,
                               decoder=name == "deeplabv3plus",
                               in_channels=in_channels, dtype=dtype,
-                              remat=remat)
+                              remat=remat, remat_policy=remat_policy)
         set_dropout(model, dropout_rate is None)
     set_cross_replica(model, bn_cross_replica)
+    set_fp32_stats(model, bn_fp32_stats)
     return model
 
 __all__ = ["ASPP", "DANet", "DANetHead", "DeepLabV3", "FCN", "FCNHead",

@@ -171,12 +171,13 @@ class DANet(nn.Module):
                  attention_impl: str = "auto", dropout_rate: float = 0.1,
                  dtype: torch.dtype | None = None,
                  pam_score_dtype: torch.dtype | None = None,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str | None = None):
         super().__init__()
         self.nclass = nclass
         self.backbone = ResNet(depth=backbone_depth,
                                output_stride=output_stride,
-                               in_channels=in_channels, remat=remat)
+                               in_channels=in_channels, remat=remat,
+                               remat_policy=remat_policy)
         self.head = DANetHead(self.backbone.out_channels, nclass,
                               dropout_rate=dropout_rate,
                               pam_score_dtype=pam_score_dtype)

@@ -131,13 +131,15 @@ class _Segmenter(nn.Module):
 
     def _init_backbone(self, nclass: int, backbone_depth: int,
                        output_stride: int, in_channels: int, aux_head: bool,
-                       remat: bool, multi_grid=None) -> None:
+                       remat: bool, remat_policy: str | None,
+                       multi_grid=None) -> None:
         self.nclass = nclass
         self.output_stride = output_stride
         self.backbone = ResNet(depth=backbone_depth,
                                output_stride=output_stride,
                                in_channels=in_channels, remat=remat,
-                               multi_grid=multi_grid)
+                               multi_grid=multi_grid,
+                               remat_policy=remat_policy)
         self.compute_dtype = None
         c4 = self.backbone.out_channels
         # c3 has half of c4's channels, c1 an eighth (a quarter of c2's)
@@ -178,10 +180,11 @@ class DeepLabV3(_Segmenter):
                  output_stride: int = 16, aspp_channels: int = 256,
                  aux_head: bool = False, decoder: bool = False,
                  in_channels: int = 3, dtype: torch.dtype | None = None,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str | None = None):
         super().__init__()
         self._init_backbone(nclass, backbone_depth, output_stride,
-                            in_channels, aux_head, remat, multi_grid=(1, 2, 4))
+                            in_channels, aux_head, remat, remat_policy,
+                            multi_grid=(1, 2, 4))
         rates = (6, 12, 18) if output_stride == 16 else (12, 24, 36)
         self.aspp = ASPP(self.backbone.out_channels, aspp_channels, rates)
         self.decoder = DecoderV3Plus(aspp_channels, self._c1, aspp_channels) \
@@ -205,10 +208,10 @@ class FCN(_Segmenter):
     def __init__(self, nclass: int = 21, backbone_depth: int = 50,
                  output_stride: int = 8, aux_head: bool = False,
                  in_channels: int = 3, dtype: torch.dtype | None = None,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str | None = None):
         super().__init__()
         self._init_backbone(nclass, backbone_depth, output_stride,
-                            in_channels, aux_head, remat)
+                            in_channels, aux_head, remat, remat_policy)
         self.head = FCNHead(self.backbone.out_channels, nclass)
         flax_init_(self)
         self.set_compute_dtype(dtype)

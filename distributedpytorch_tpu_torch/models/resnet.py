@@ -22,6 +22,19 @@ normalised in float32) and returns the compute dtype.
 
 ``remat=True`` recomputes each residual block in the backward
 (``torch.utils.checkpoint``, non-reentrant), flax's per-block ``nn.remat``.
+``remat_policy`` names one of the zero-argument ``jax.checkpoint_policies``
+(:data:`REMAT_POLICIES`) and becomes selective activation checkpointing
+(``create_selective_checkpoint_contexts``): the block keeps the outputs of
+the ops the policy saves (convolutions and matrix products for
+``dots_saveable``, matrix products without batch dimensions for
+``dots_with_no_batch_dims_saveable``, everything, or nothing) and
+recomputes the rest.  As in the JAX package, the name is looked up only
+with ``remat`` on, and an unknown one raises ``AttributeError``.
+
+``fp32_stats=False`` on a BatchNorm (``model.bn_fp32_stats``, flax's
+``force_float32_reductions=False``) takes the train-mode statistics in
+the compute dtype instead (``ops/sync_bn.compute_dtype_batch_norm``); the
+running statistics stay float32.
 
 :func:`set_cross_replica` makes every BatchNorm take its train-mode
 statistics over the ranks of the process group (``ops/sync_bn.py``, flax's
@@ -32,15 +45,20 @@ the layer stays the one-process layer, bit for bit.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ..ops.sync_bn import cross_replica_batch_norm
+from ..ops.sync_bn import compute_dtype_batch_norm, cross_replica_batch_norm
 
 #: block counts per stage
 RESNET_DEPTHS = {
@@ -125,17 +143,67 @@ def _recompute_scope():
         _remat.depth -= 1
 
 
-def _remat_contexts():
+_aten = torch.ops.aten
+#: matrix products without batch dimensions (JAX's ``dot_general`` with
+#: none), and with them the batched ones and the convolutions (JAX's
+#: ``dot_general`` and ``conv_general_dilated``)
+_MATMULS = frozenset({_aten.mm.default, _aten.addmm.default})
+_DOTS = _MATMULS | {_aten.bmm.default, _aten.baddbmm.default,
+                    _aten.convolution.default}
+#: the zero-argument ``jax.checkpoint_policies`` and the ops whose outputs
+#: each saves (``None``: every op's)
+REMAT_POLICIES: dict[str, frozenset | None] = {
+    "everything_saveable": None,
+    "nothing_saveable": frozenset(),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _MATMULS,
+    "checkpoint_dots_with_no_batch_dims": _MATMULS,
+}
+
+
+def remat_saved_ops(policy: str) -> frozenset | None:
+    """The ops remat policy ``policy`` saves (``None``: all); an unknown
+    name raises ``AttributeError``, as ``getattr(jax.checkpoint_policies,
+    policy)`` does."""
+    try:
+        return REMAT_POLICIES[policy]
+    except KeyError:
+        raise AttributeError(
+            f"unknown remat policy {policy!r}: the port runs the zero-argument "
+            f"jax.checkpoint_policies ({' | '.join(REMAT_POLICIES)})") from None
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def _remat_contexts(policy: str | None = None):
     """``checkpoint``'s (forward, recompute) contexts: the recompute is
-    marked, so that BatchNorm moves its running statistics once."""
-    return contextlib.nullcontext(), _recompute_scope()
+    marked, so that BatchNorm moves its running statistics once; under a
+    ``policy`` the selective-checkpoint contexts that save its ops come
+    first."""
+    if not policy:
+        return contextlib.nullcontext(), _recompute_scope()
+    saved = remat_saved_ops(policy)
+
+    def save(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if saved is None or op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    forward, recompute = create_selective_checkpoint_contexts(save)
+    return forward, _both(recompute, _recompute_scope())
 
 
-def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def remat_block(block: nn.Module, x: torch.Tensor,
+                policy: str | None = None) -> torch.Tensor:
     """``block(x)`` whose activations are recomputed in the backward
-    instead of kept (non-reentrant ``torch.utils.checkpoint``)."""
+    instead of kept (non-reentrant ``torch.utils.checkpoint``), but for
+    the outputs of the ops that remat policy ``policy`` saves."""
     return checkpoint(block, x, use_reentrant=False,
-                      context_fn=_remat_contexts)
+                      context_fn=functools.partial(_remat_contexts, policy))
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -158,16 +226,29 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     With ``cross_replica`` set and a process group formed, the train-mode
     statistics are the whole group's batch
     (:func:`~..ops.sync_bn.cross_replica_batch_norm`) and the running
-    statistics move towards them, identically on every rank."""
+    statistics move towards them, identically on every rank.
+
+    ``fp32_stats=False`` takes the train-mode mean and variance in the
+    input's dtype, ``max(0, E[x²] − E[x]²)`` as flax's fast variance
+    (:func:`~..ops.sync_bn.compute_dtype_batch_norm`, over the group when
+    ``cross_replica`` applies); the running statistics stay float32."""
 
     compute_dtype: torch.dtype | None = None
     cross_replica: bool = False
+    fp32_stats: bool = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or x.dtype
         if not self.training:
             return super().forward(x).to(dtype)
-        if self.cross_replica and dist.is_available() and dist.is_initialized():
+        cross = self.cross_replica and dist.is_available() \
+            and dist.is_initialized()
+        if not self.fp32_stats:
+            y, mean, var = compute_dtype_batch_norm(
+                x, self.weight, self.bias, self.eps, dtype, cross_replica=cross)
+            self._move_running_stats(mean, var)
+            return y
+        if cross:
             return self._cross_replica_forward(x, dtype)
         n = x.numel() // x.shape[1]
         if n == 1:
@@ -198,25 +279,27 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * scale[:, None, None] \
             + self.bias[:, None, None]
-        if not recomputing():
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-                self.num_batches_tracked.add_(1)
+        self._move_running_stats(mean, var)
         return y.to(dtype)
 
     def _cross_replica_forward(self, x: torch.Tensor,
                                dtype: torch.dtype) -> torch.Tensor:
         y, mean, var = cross_replica_batch_norm(x, self.weight, self.bias,
                                                 self.eps, out_dtype=dtype)
-        if not recomputing():
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-                self.num_batches_tracked.add_(1)
+        self._move_running_stats(mean, var)
         return y
+
+    def _move_running_stats(self, mean: torch.Tensor,
+                            var: torch.Tensor) -> None:
+        """flax's update towards the batch's (biased) statistics, in
+        float32; none inside a remat recompute."""
+        if recomputing():
+            return
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.float(), alpha=m)
+            self.num_batches_tracked.add_(1)
 
 
 def norm(channels: int) -> nn.BatchNorm2d:
@@ -232,6 +315,15 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
     for module in model.modules():
         if isinstance(module, (Conv2d, FlaxBatchNorm2d)):
             module.compute_dtype = dtype
+
+
+def set_fp32_stats(model: nn.Module, on: bool = True) -> None:
+    """Make every BatchNorm of ``model`` take its train-mode statistics in
+    float32 (``on``, flax's default) or in the compute dtype
+    (``model.bn_fp32_stats=false``)."""
+    for module in model.modules():
+        if isinstance(module, FlaxBatchNorm2d):
+            module.fp32_stats = on
 
 
 def set_cross_replica(model: nn.Module, on: bool = True) -> None:
@@ -350,15 +442,21 @@ class ResNet(nn.Module):
     ``forward(x)`` (B, in_channels, H, W) -> dict of stage outputs
     ``{'c1', 'c2', 'c3', 'c4'}``; ``c4`` is at H / output_stride.  With
     ``remat`` a training forward keeps only each residual block's input
-    and recomputes the block in the backward.  ``multi_grid`` multiplies
+    and recomputes the block in the backward, but for the outputs of the
+    ops ``remat_policy`` saves (:data:`REMAT_POLICIES`; ``None``: none).
+    ``multi_grid`` multiplies
     the dilation of stage 4's blocks in turn, its last entry repeating
     (DeepLabV3's ``(1, 2, 4)``)."""
 
     def __init__(self, depth: int = 50, output_stride: int = 16,
                  in_channels: int = 4, width: int = 64, remat: bool = False,
-                 multi_grid: tuple[int, ...] | None = None):
+                 multi_grid: tuple[int, ...] | None = None,
+                 remat_policy: str | None = None):
         super().__init__()
         self.remat = remat
+        self.remat_policy = remat_policy or None
+        if remat and self.remat_policy:
+            remat_saved_ops(self.remat_policy)  # an unknown name raises
         if depth not in RESNET_DEPTHS:
             raise ValueError(f"unsupported ResNet depth {depth} "
                              f"({sorted(RESNET_DEPTHS)})")
@@ -391,7 +489,8 @@ class ResNet(nn.Module):
         feats, start = {}, 0
         for stage, end in enumerate(self.stage_ends):
             for block in blocks[start:end]:
-                x = remat_block(block, x) if remat else block(x)
+                x = remat_block(block, x, self.remat_policy) if remat \
+                    else block(x)
             feats[f"c{stage + 1}"] = x
             start = end
         return feats

@@ -15,7 +15,9 @@ public names and shapes:
 Each wrapper launches its kernel for a CUDA tensor — or raises — and runs
 the plain form of :mod:`.attention` only for a tensor on the CPU.  It counts
 its launches in :data:`launches` (one per call that reached the kernel), so
-a run can show that its main path went through the kernels.  Inputs are
+a run can show that its main path went through the kernels; the count and
+the first load of the library are taken under a lock, since the trainer's
+overlapped validation launches from a second thread.  Inputs are
 float32 or bfloat16 and must be contiguous; outputs are allocated here with
 ``torch.empty`` on the caller's current stream, and nothing synchronises.
 Every launch runs with its tensors' device made current (:func:`_on_device`):
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -76,9 +79,21 @@ _GRAM_MAX_SPLITS = 16
 _GRAM_MIN_SLICE = 256
 
 
+#: guards :data:`launches` and the library's first load
+_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count(name: str) -> None:
+    """One more launch of ``name``: a read-modify-write that two threads
+    would otherwise interleave."""
+    with _lock:
+        launches[name] += 1
 
 
 _typed_lib: ctypes.CDLL | None = None
@@ -87,11 +102,13 @@ _typed_lib: ctypes.CDLL | None = None
 def _lib() -> ctypes.CDLL:
     global _typed_lib
     if _typed_lib is None:
-        lib = _build.library("attention")
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _typed_lib = lib
+        with _lock:
+            if _typed_lib is None:
+                lib = _build.library("attention")
+                for fn, argtypes in _SIGNATURES.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _typed_lib = lib
     return _typed_lib
 
 
@@ -221,7 +238,7 @@ def _pam_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             cv, 0.0 if scale is None else float(scale), int(scale is not None),
             _DTYPES[v.dtype], _stream(v))
     _check(err, "position-attention")
-    launches["position_attention"] += 1
+    _count("position_attention")
     return out
 
 
@@ -299,7 +316,7 @@ def cam_energy(x: torch.Tensor) -> torch.Tensor:
         return attn
     _launch_gram(x, partial)
     _launch_softmax(partial, attn)
-    launches["cam_energy"] += 1
+    _count("cam_energy")
     return attn
 
 
@@ -322,7 +339,7 @@ def cam_apply(attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                                      out.data_ptr(), b, n, c, _DTYPES[x.dtype],
                                      _stream(x))
     _check(err, "channel-apply")
-    launches["cam_apply"] += 1
+    _count("cam_apply")
     return out
 
 

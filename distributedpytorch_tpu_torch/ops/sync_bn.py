@@ -20,6 +20,11 @@ CPU tensors.  Nothing here is a kernel: the JAX package left BatchNorm to
 XLA.  The arithmetic is float32 whatever the input's dtype (a bfloat16
 input is normalised with float32 statistics and rounded once on output,
 as the single-process layer does).
+
+:func:`compute_dtype_batch_norm` is the other arithmetic, flax's
+``force_float32_reductions=False`` (``model.bn_fp32_stats=false``): the
+batch mean and mean of squares in the input's dtype, on one process or
+averaged over the group, in plain differentiable torch ops.
 """
 
 from __future__ import annotations
@@ -107,3 +112,52 @@ def cross_replica_batch_norm(x: torch.Tensor, weight: torch.Tensor,
     y = _Normalize.apply(x, weight, bias, mean, invstd, n, group,
                          out_dtype or x.dtype)
     return y, mean, var
+
+
+class _GroupMean(torch.autograd.Function):
+    """The mean of ``t`` over the ranks of ``group``, summed in float32 and
+    returned in ``t``'s dtype; its gradient is the group's mean of the
+    incoming gradients, the same convention as :class:`_Normalize`'s
+    backward (each rank's input feeds every rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _mean_over(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _mean_over(grad, ctx.group), None
+
+
+def _mean_over(t: torch.Tensor, group) -> torch.Tensor:
+    total = t.float().clone()
+    dist.all_reduce(total, group=group)
+    return (total / dist.get_world_size(group)).to(t.dtype)
+
+
+def compute_dtype_batch_norm(x: torch.Tensor, weight: torch.Tensor,
+                             bias: torch.Tensor, eps: float,
+                             out_dtype: torch.dtype | None = None,
+                             cross_replica: bool = False, group=None
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode BatchNorm of ``x`` (N, C, ...) with its statistics in
+    ``x``'s dtype, as flax's ``BatchNorm(force_float32_reductions=False)``
+    computes them: ``mean = E[x]`` and ``E[x²]`` (``x²`` rounded to the
+    dtype; each mean accumulated in float32 by torch and rounded once),
+    ``var = max(0, E[x²] − mean²)`` in the dtype, then ``(x − mean) ·
+    (rsqrt(var + eps) · weight) + bias`` promoted to the float32
+    parameters and rounded to ``out_dtype`` (``x``'s when None).  With
+    ``cross_replica`` the two means are averaged over the ranks of
+    ``group`` (flax's ``pmean``), which assumes equal shares per rank, as
+    flax does.  Returns ``(y, mean, var)`` in ``x``'s dtype; the gradient
+    flows through every op, the group mean included."""
+    dims = _reduce_dims(x)
+    mean, mean_sq = x.mean(dims), (x * x).mean(dims)
+    if cross_replica:
+        mean, mean_sq = _GroupMean.apply(torch.stack([mean, mean_sq]), group)
+    var = (mean_sq - mean * mean).clamp_min(0.0)
+    shape = _channel_shape(x)
+    scale = torch.rsqrt(var + eps) * weight
+    y = (x - mean.view(shape)) * scale.view(shape) + bias.view(shape)
+    return y.to(out_dtype or x.dtype), mean, var

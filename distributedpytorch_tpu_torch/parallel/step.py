@@ -4,8 +4,8 @@ process per card under ``DistributedDataParallel``.
 
 A host batch — the loader's dict of HWC float32 numpy arrays — becomes
 NCHW torch tensors on the device once, here (:func:`device_batch`).  A
-train step is forward, the loss, backward and one SGD update.  The loss
-is ``loss_type``'s: ``multi_sigmoid``, the instance task's multi-output
+train step is forward, the loss, backward and one optimizer update.  The
+loss is ``loss_type``'s: ``multi_sigmoid``, the instance task's multi-output
 balanced BCE, or ``multi_softmax``, the semantic task's per-output
 softmax cross-entropy with ignore index 255 against the class ids in
 ``crop_gt`` (auxiliary outputs weighted 0.4 unless ``loss_weights``
@@ -22,7 +22,7 @@ the two dtype boundaries of the mixed regime, as the JAX step does: the
 input is cast to the compute dtype before the model and the outputs to
 the loss dtype after it.  The model itself must be built in the compute
 dtype; its parameters are float32, so their gradients, the clip norm and
-the SGD momentum are float32 with nothing here to cast.
+the optimizer state are float32 with nothing here to cast.
 
 Data parallelism (:func:`wrap_data_parallel`, ``TrainState.ddp``): each
 rank holds its rows of the global batch; the model's BatchNorms take the

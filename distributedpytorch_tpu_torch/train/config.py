@@ -338,15 +338,12 @@ UNPORTED = (
     "data.steps_per_dispatch", "data.echo",
     "data.governor", "data.governor_target", "data.governor_window",
     "data.max_echo",
-    "model.remat_policy", "model.bn_fp32_stats",
     "model.pam_block_size", "model.pam_impl", "model.quantization",
     "model.moe_experts", "model.guidance_inject",
-    "optim.name",
     "parallel.model", "parallel.hbm_budget_gb",
     "mesh.model", "mesh.slices", "mesh.process_is_granule",
     "mesh.shard_params",
     "sentinel.enabled", "sentinel.monitor_grads",
-    "val_overlap", "profile_epoch",
 )
 
 #: knobs the port runs for these values only; others are refused

@@ -22,12 +22,20 @@ each image's native size (``eval_full_res``; the probabilities resized
 and argmaxed on the device, ``ops/warp.py``, or on the host), and under
 test-time augmentation over scales and flips (on the host).  The (C, C)
 counts, loss and sample count are summed over the ranks.
+
+Both evaluators look one batch ahead: batch i + 1's forward and its
+copies to the host are launched before batch i's host half (paste-back,
+host resize, TTA average) runs, and the copies go to pinned memory behind
+a CUDA event (:class:`_HostCopy`), so the host work overlaps the next
+forward on the card.  On the CPU this only reorders the work: the metrics
+are those of the one-batch-at-a-time loop, bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 import time
-from typing import Callable, Mapping, Sequence
+from typing import Callable, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +56,45 @@ def _as_list(v, n: int) -> list:
     return [v] * n
 
 
+class _HostCopy:
+    """A device tensor's copy to the host, started without waiting: on a
+    card into pinned memory with ``non_blocking`` on the tensor's current
+    stream, an event recorded behind it; on the CPU the tensor itself.
+    :meth:`numpy` waits for that event only, not for the work queued after
+    the copy, which is what lets the next batch's forward run meanwhile
+    (``tensor.cpu()`` would wait for the whole stream)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type != "cuda":
+            self.t = t
+            return
+        self.t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.t.copy_(t.contiguous(), non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(t.device))
+
+    def numpy(self) -> np.ndarray:
+        """The copy as float32 numpy, once it has landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.t.float().numpy()
+
+
+def _look_ahead(finishers: Iterable[Callable[[], None] | None]) -> None:
+    """Run each batch's host half (``None``: it has none) once the next
+    batch's device work has been launched: ``finishers`` is a generator
+    that launches batch i's forward and copies, then yields the function
+    that finishes batch i on the host."""
+    prev = None
+    for finish in finishers:
+        if prev is not None:
+            prev()
+        prev = finish
+    if prev is not None:
+        prev()
+
+
 def evaluate(eval_step: Callable, state, loader,
              thresholds: Sequence[float] = (0.3, 0.5, 0.8), relax: int = 50,
              zero_pad: bool = True, max_batches: int | None = None,
@@ -55,26 +102,25 @@ def evaluate(eval_step: Callable, state, loader,
              bf16_readback: bool = False) -> dict:
     """The validation protocol over ``loader``; returns ``loss``,
     ``jaccard_per_threshold``, ``jaccard`` (the best threshold's),
-    ``best_threshold``, ``n_samples`` and ``seconds``.  ``bf16_readback``
+    ``best_threshold``, ``n_samples``, ``seconds`` and ``_first_batch``
+    (the first host batch and every output head of it, NHWC float32 on the
+    host, for :func:`..train.logging.make_val_panels`).  ``bf16_readback``
     rounds the logits to bfloat16 on the device before the copy to the host
-    (``eval_bf16_probs``)."""
+    (``eval_bf16_probs``).  Batch i + 1's forward is launched before batch
+    i's paste-back runs on the host (:func:`_look_ahead`); the losses are
+    read once, at the end."""
     thresholds = tuple(thresholds)
-    jac_sum = np.zeros(len(thresholds))
-    n_samples = 0
+    acc = {"jac_sum": np.zeros(len(thresholds)), "n_samples": 0,
+           "first": None}
     losses: list[torch.Tensor] = []
     t0 = time.perf_counter()
-    for bi, batch in enumerate(loader):
-        if max_batches is not None and bi >= max_batches:
-            break
-        if debug_asserts:
-            batch_debug_asserts(batch)
-        outputs, loss = eval_step(state, batch)
-        losses.append(loss)
-        raw = outputs[0][:, 0]
-        if bf16_readback:
-            raw = raw.to(torch.bfloat16)
-        logits = raw.float().cpu().numpy()
-        probs = 1.0 / (1.0 + np.exp(-logits))
+
+    def score(batch, logits: _HostCopy, heads: list[_HostCopy] | None) -> None:
+        """Batch ``batch``'s paste-back and scores, on the host."""
+        probs = 1.0 / (1.0 + np.exp(-logits.numpy()))
+        if heads is not None:
+            acc["first"] = {"batch": batch,
+                            "outputs": [h.numpy() for h in heads]}
         n = batch[INPUT_KEY].shape[0]
         gts = _as_list(batch["gt"], n)
         voids = _as_list(batch.get("void_pixels", [None] * n), n)
@@ -82,17 +128,36 @@ def evaluate(eval_step: Callable, state, loader,
         for j in range(n):
             gt = tens2image(np.asarray(gts[j]))
             void = None if voids[j] is None else tens2image(np.asarray(voids[j]))
-            n_samples += 1
+            acc["n_samples"] += 1
             if gt.max() <= 0.5:
                 for ti, th in enumerate(thresholds):
-                    jac_sum[ti] += float(not (probs[j] > th).any())
+                    acc["jac_sum"][ti] += float(not (probs[j] > th).any())
                 continue
             bbox = tuple(int(v) for v in np.asarray(bboxes[j])) \
                 if bboxes[j] is not None \
                 else get_bbox(gt > 0.5, pad=relax, zero_pad=zero_pad)
             full = crop2fullmask(probs[j], bbox, gt.shape[:2],
                                  zero_pad=zero_pad, relax=relax)
-            jac_sum += np_jaccard_thresholds(full, thresholds, gt > 0.5, void)
+            acc["jac_sum"] += np_jaccard_thresholds(full, thresholds,
+                                                    gt > 0.5, void)
+
+    def launched():
+        for bi, batch in enumerate(loader):
+            if max_batches is not None and bi >= max_batches:
+                break
+            if debug_asserts:
+                batch_debug_asserts(batch)
+            outputs, loss = eval_step(state, batch)
+            losses.append(loss)
+            raw = outputs[0][:, 0]
+            if bf16_readback:
+                raw = raw.to(torch.bfloat16)
+            heads = [_HostCopy(o.permute(0, 2, 3, 1)) for o in outputs] \
+                if bi == 0 else None
+            yield functools.partial(score, batch, _HostCopy(raw), heads)
+
+    _look_ahead(launched())
+    jac_sum, n_samples = acc["jac_sum"], acc["n_samples"]
     loss_sum = float(torch.stack(losses).sum()) if losses else 0.0
     n_batches = len(losses)
     if _distributed():
@@ -110,7 +175,8 @@ def evaluate(eval_step: Callable, state, loader,
             "jaccard": jac_avg[best],
             "best_threshold": thresholds[best],
             "n_samples": n_samples,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0,
+            "_first_batch": acc["first"]}
 
 
 def _distributed() -> bool:
@@ -156,7 +222,9 @@ def evaluate_semantic(eval_step: Callable, state, loader, nclass: int,
     pass, which always runs and gives the loss).  ``bf16_probs``
     (``eval_bf16_probs``) rounds the probabilities read back to the host
     to bfloat16 on the device first.  Under data parallelism each rank
-    scores its shard and the counts, losses and samples are summed."""
+    scores its shard and the counts, losses and samples are summed.  Batch
+    i + 1's forwards are launched before batch i's host half runs
+    (:func:`_look_ahead`)."""
     if len(set(tta_scales)) != len(tta_scales):
         raise ValueError(f"duplicate tta_scales {tuple(tta_scales)} would "
                          "double-weight votes")
@@ -170,39 +238,74 @@ def evaluate_semantic(eval_step: Callable, state, loader, nclass: int,
     n_samples = 0
     t0 = time.perf_counter()
 
-    def to_host(probs: torch.Tensor) -> np.ndarray:
-        """Device (B, C, H, W) probabilities -> host (B, H, W, C) float32,
-        read back in the wire dtype."""
-        return probs.to(wire).float().permute(0, 2, 3, 1).cpu().numpy()
+    def to_host(probs: torch.Tensor) -> _HostCopy:
+        """Device (B, C, H, W) probabilities -> their copy to the host as
+        (B, H, W, C), in the wire dtype."""
+        return _HostCopy(probs.to(wire).permute(0, 2, 3, 1))
 
     def forward_probs(inp: np.ndarray, gt: np.ndarray):
         outputs, loss = eval_step(state, {INPUT_KEY: inp, "crop_gt": gt})
         return to_host(torch.softmax(outputs[0].float(), dim=1)), loss
 
-    def host_fullres(probs: np.ndarray, gts: list) -> np.ndarray:
-        out = np.zeros((nclass, nclass), np.int64)
+    def host_fullres(probs: np.ndarray, gts: list) -> None:
+        nonlocal conf
         for j, gt in enumerate(gts):
             gt = _native_gt(gt)
             p = fixed_resize(probs[j], gt.shape[:2], flagval=imaging.LINEAR)
-            out += _np_confusion(np.argmax(p, axis=-1), gt, nclass,
-                                 ignore_index)
-        return out
+            conf += _np_confusion(np.argmax(p, axis=-1), gt, nclass,
+                                  ignore_index)
 
     def resize_all(arrs: np.ndarray, hw: tuple[int, int], flag: int):
         return np.stack([fixed_resize(a, hw, flagval=flag) for a in arrs])
 
-    for bi, batch in enumerate(loader):
-        if max_batches is not None and bi >= max_batches:
-            break
-        if debug_asserts:
-            semantic_batch_debug_asserts(batch, nclass, ignore_index)
-        n = batch[INPUT_KEY].shape[0]
-        n_samples += n
-        if not tta:
-            outputs, loss = eval_step(
-                state, {k: batch[k] for k in (INPUT_KEY, "crop_gt")})
-            losses.append(loss)
-            if "gt_full" in batch:
+    def tta_vote(batch, gt: np.ndarray, passes: list) -> None:
+        """Batch ``batch``'s TTA average and its counts, on the host;
+        ``passes`` holds the plain pass's probabilities, then per scale
+        (scale, probabilities, flipped probabilities or None)."""
+        nonlocal conf
+        n, h, w = gt.shape[:3]
+        base_probs = passes[0].numpy()
+        probs = np.zeros_like(base_probs)
+        votes = 0
+        for s, copy, flipped in passes[1:]:
+            p = base_probs if s == 1.0 else \
+                resize_all(copy.numpy(), (h, w), imaging.LINEAR)
+            probs += p
+            votes += 1
+            if flipped is not None:
+                p_f = flipped.numpy()[:, :, ::-1]
+                if s != 1.0:
+                    p_f = resize_all(p_f, (h, w), imaging.LINEAR)
+                probs += p_f
+                votes += 1
+        avg = probs / votes
+        if "gt_full" in batch:
+            host_fullres(avg, _as_list(batch["gt_full"], n))
+        else:
+            conf += _np_confusion(np.argmax(avg, axis=-1), gt[..., 0],
+                                  nclass, ignore_index)
+
+    def launched():
+        nonlocal n_samples
+        for bi, batch in enumerate(loader):
+            if max_batches is not None and bi >= max_batches:
+                break
+            if debug_asserts:
+                semantic_batch_debug_asserts(batch, nclass, ignore_index)
+            n = batch[INPUT_KEY].shape[0]
+            n_samples += n
+            if not tta:
+                outputs, loss = eval_step(
+                    state, {k: batch[k] for k in (INPUT_KEY, "crop_gt")})
+                losses.append(loss)
+                if "gt_full" not in batch:
+                    labels = torch.as_tensor(
+                        np.asarray(batch["crop_gt"])[..., 0],
+                        device=outputs[0].device)
+                    confs.append(confusion_matrix(outputs[0].argmax(dim=1),
+                                                  labels, nclass, ignore_index))
+                    yield None
+                    continue
                 gts = [_native_gt(g) for g in _as_list(batch["gt_full"], n)]
                 hw = np.array([g.shape[:2] for g in gts], np.int64)
                 probs = torch.softmax(outputs[0].float(), dim=1)
@@ -212,50 +315,36 @@ def evaluate_semantic(eval_step: Callable, state, loader, nclass: int,
                     fullres_maps.append((fullres_argmax(
                         probs, torch.from_numpy(hw),
                         tuple(device_fullres)), gts))
+                    yield None
                 else:
-                    conf += host_fullres(to_host(probs), gts)
-            else:
-                labels = torch.as_tensor(
-                    np.asarray(batch["crop_gt"])[..., 0],
-                    device=outputs[0].device)
-                confs.append(confusion_matrix(outputs[0].argmax(dim=1),
-                                              labels, nclass, ignore_index))
-            continue
+                    yield functools.partial(
+                        lambda copy, gts: host_fullres(copy.numpy(), gts),
+                        to_host(probs), gts)
+                continue
 
-        inp = np.asarray(batch[INPUT_KEY])
-        gt = np.asarray(batch["crop_gt"])
-        h, w = inp.shape[1:3]
-        # the plain pass always runs and gives the loss; it votes only if
-        # 1.0 is one of the scales
-        base_probs, loss = forward_probs(inp, gt)
-        losses.append(loss)
-        probs = np.zeros_like(base_probs)
-        votes = 0
-        for s in scale_list:
-            if s == 1.0:
-                inp_s, gt_s, p = inp, gt, base_probs
-            else:
-                hs, ws = max(1, round(h * s)), max(1, round(w * s))
-                inp_s = resize_all(inp, (hs, ws), imaging.LINEAR)
-                gt_s = resize_all(gt, (hs, ws), imaging.NEAREST)
-                p = resize_all(forward_probs(inp_s, gt_s)[0], (h, w),
-                               imaging.LINEAR)
-            probs += p
-            votes += 1
-            if tta_flip:
-                p_f = forward_probs(inp_s[:, :, ::-1], gt_s[:, :, ::-1])[0]
-                p_f = p_f[:, :, ::-1]
-                if s != 1.0:
-                    p_f = resize_all(p_f, (h, w), imaging.LINEAR)
-                probs += p_f
-                votes += 1
-        avg = probs / votes
-        if "gt_full" in batch:
-            conf += host_fullres(avg, _as_list(batch["gt_full"], n))
-        else:
-            conf += _np_confusion(np.argmax(avg, axis=-1), gt[..., 0],
-                                  nclass, ignore_index)
+            inp = np.asarray(batch[INPUT_KEY])
+            gt = np.asarray(batch["crop_gt"])
+            h, w = inp.shape[1:3]
+            # the plain pass always runs and gives the loss; it votes only
+            # if 1.0 is one of the scales
+            base, loss = forward_probs(inp, gt)
+            losses.append(loss)
+            passes: list = [base]
+            for s in scale_list:
+                if s == 1.0:
+                    inp_s, gt_s, copy = inp, gt, base
+                else:
+                    hs, ws = max(1, round(h * s)), max(1, round(w * s))
+                    inp_s = resize_all(inp, (hs, ws), imaging.LINEAR)
+                    gt_s = resize_all(gt, (hs, ws), imaging.NEAREST)
+                    copy = forward_probs(inp_s, gt_s)[0]
+                flipped = forward_probs(inp_s[:, :, ::-1],
+                                        gt_s[:, :, ::-1])[0] \
+                    if tta_flip else None
+                passes.append((s, copy, flipped))
+            yield functools.partial(tta_vote, batch, gt, passes)
 
+    _look_ahead(launched())
     if confs:
         conf += torch.stack(confs).sum(0).cpu().numpy()
     for maps, gts in fullres_maps:

@@ -2,17 +2,23 @@
 ``distributedpytorch_tpu/train/optim.py``.
 
 The JAX package composes optax transforms; here the same update is
-``torch.optim.SGD``, which already has torch semantics (weight decay added
-to the gradient before momentum, momentum buffer equal to the gradient on
-the first step), with the schedule applied by the train step: before each
-update every param group's lr is set to ``schedule(step) * lr_mult``, where
-``step`` counts the updates made so far (optax's count).
+``torch.optim.SGD`` (``optim.name=sgd``), which already has torch
+semantics (weight decay added to the gradient before momentum, momentum
+buffer equal to the gradient on the first step), or ``torch.optim.AdamW``
+(``adamw``, with ``adam_b1``, ``adam_b2``, ``adam_eps``), whose rule is
+optax's ``adamw``: ``p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``,
+the decay decoupled from the gradient and scaled by the lr.  The schedule
+is applied by the train step: before each update every param group's lr
+is set to ``schedule(step) * lr_mult``, where ``step`` counts the updates
+made so far (optax's count).  The multiplier therefore scales the whole
+update, decay included, as optax's ``scale(mult)`` after the group's
+``adamw`` does.
 
 Parameter groups follow the JAX labeler: a dotted-name prefix in
 ``freeze`` freezes a subtree (``requires_grad`` off: no update, no decay,
 no momentum, no share of the clip norm), a prefix in ``lr_mult`` scales
 the lr of its subtree (the longest matching prefix wins), and a prefix that
-matches no parameter raises.  ``adamw`` is not ported yet.
+matches no parameter raises.
 """
 
 from __future__ import annotations
@@ -98,14 +104,12 @@ def make_param_labeler(freeze: tuple[str, ...],
 
 
 def make_optimizer(cfg: OptimConfig, model: nn.Module, total_steps: int
-                   ) -> tuple[torch.optim.SGD, Schedule]:
-    """``(optimizer, schedule)`` over ``model``'s parameters.  Frozen
-    parameters get ``requires_grad`` off and join no group; each other
-    group's ``lr_mult`` is the factor the train step applies to the
-    scheduled lr."""
-    if cfg.name == "adamw":
-        raise NotImplementedError("optim.name=adamw is not ported yet (sgd)")
-    if cfg.name != "sgd":
+                   ) -> tuple[torch.optim.Optimizer, Schedule]:
+    """``(optimizer, schedule)`` over ``model``'s parameters: SGD or
+    AdamW by ``cfg.name``.  Frozen parameters get ``requires_grad`` off
+    and join no group; each other group's ``lr_mult`` is the factor the
+    train step applies to the scheduled lr."""
+    if cfg.name not in ("sgd", "adamw"):
         raise ValueError(f"unknown optimizer: {cfg.name!r} (sgd | adamw)")
     labels = make_param_labeler(tuple(cfg.freeze), cfg.lr_mult)(model)
     mults = {"base": 1.0, **{f"mult:{p}": float(m)
@@ -116,10 +120,17 @@ def make_optimizer(cfg: OptimConfig, model: nn.Module, total_steps: int
             param.requires_grad_(False)
         else:
             groups.setdefault(labels[name], []).append(param)
-    optimizer = torch.optim.SGD(
-        [{"params": params, "lr_mult": mults[label]}
-         for label, params in groups.items()],
-        lr=cfg.lr, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    param_groups = [{"params": params, "lr_mult": mults[label]}
+                    for label, params in groups.items()]
+    if cfg.name == "sgd":
+        optimizer = torch.optim.SGD(param_groups, lr=cfg.lr,
+                                    momentum=cfg.momentum,
+                                    weight_decay=cfg.weight_decay)
+    else:
+        optimizer = torch.optim.AdamW(param_groups, lr=cfg.lr,
+                                      betas=(cfg.adam_b1, cfg.adam_b2),
+                                      eps=cfg.adam_eps,
+                                      weight_decay=cfg.weight_decay)
     return optimizer, make_schedule(cfg, total_steps)
 
 

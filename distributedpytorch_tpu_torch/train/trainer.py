@@ -3,9 +3,9 @@ for one device.
 
 ``Trainer(cfg)`` creates ``work_dir/run_<N>``, builds the data (VOC from
 ``data.root``, or the in-memory fake of 8 images at 96 x 128, 3 of them
-val, with ``data.fake``), the model, the SGD optimizer and schedule, the
-train and eval steps and the checkpoint manager, applies the precision
-policy, and writes ``config.json``, ``hparams.json`` and the parameter
+val, with ``data.fake``), the model, the optimizer (SGD or AdamW) and
+schedule, the train and eval steps and the checkpoint manager, applies the
+precision policy, and writes ``config.json``, ``hparams.json`` and the parameter
 report.  ``fit`` trains every epoch, validates every ``eval_every``
 epochs (saving the checkpoint, and the best one by the ``jaccard``
 metric), saves a snapshot every ``checkpoint.snapshot_every`` epochs
@@ -38,7 +38,26 @@ run continues at that batch.
 It runs on CUDA unless ``device`` says otherwise.  A knob this port does
 not run yet, set away from its default, raises at construction
 (``config.unported_knobs``).  Left out for now: the sentinel, the feed
-governor, telemetry, overlapped validation, elastic membership.
+governor, telemetry, elastic membership.
+
+Validation and observability: ``validate`` is the evaluation
+(``_eval_metrics``, no side effects) plus its logging (``_log_val``: the
+metrics, and the first batch's figure panels for the writers that take
+figures, a failure to draw them swallowed).  ``val_overlap`` validates a
+snapshot of the epoch-end state on a thread while the next epoch trains:
+the model is deep-copied on the device, in eval mode, with the optimizer's
+state and the dropout generator copied beside it, so the deferred
+best-checkpoint save writes the epoch-end state; the thread enters the
+device and inference mode itself and launches on the device's current
+stream, the main thread's, so the overlap is on the host (the paste-back
+and data loading beside the train steps) and the card runs the two in
+turn.  An error on the thread surfaces at the train loop's next log
+cadence; the bookkeeping (logs, history, checkpoint) runs on the main
+thread at the join, after the next epoch; an unwinding fit joins and
+drops it.  Single-rank only, as in the JAX package.  ``profile_epoch``
+traces that epoch with ``torch.profiler`` into ``run_dir/profile`` on
+rank 0 (``utils/profiling.trace``).  The writers get the flattened config
+as hyperparameters.
 
 Data parallelism: constructed in every process of a group
 (``parallel/mesh.py``; ``python -m distributedpytorch_tpu_torch`` forms
@@ -58,7 +77,10 @@ plan's block goes to ``fit_summary.json`` and every checkpoint's meta.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import os
+import threading
 import time
 
 import numpy as np
@@ -88,7 +110,7 @@ from ..parallel.step import (
 from ..parallel.zero import shard_optimizer
 from ..predict import resolve_device
 from . import config as config_lib
-from ..utils import weights
+from ..utils import profiling, weights
 from .checkpoint import (
     CheckpointManager,
     atomic_write_json,
@@ -101,10 +123,21 @@ from .evaluate import (
     evaluate_semantic,
     semantic_batch_debug_asserts,
 )
-from .logging import MultiWriter, make_writer
+from .logging import MultiWriter, make_val_panels, make_writer
 from .optim import make_optimizer
 from .precision import apply_policy, precision_block
 from .preemption import PreemptionGuard
+
+
+class _FrozenOptimizer:
+    """An optimizer's ``state_dict`` copied at a snapshot: what a
+    checkpoint of the snapshot saves."""
+
+    def __init__(self, state: dict):
+        self._state = state
+
+    def state_dict(self) -> dict:
+        return self._state
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -150,6 +183,15 @@ class Trainer:
         self.world, self.rank = mesh.data_axis_size(), mesh.process_index()
         self.is_main = self.rank == 0
         self.distributed = mesh.is_distributed()
+        if cfg.val_overlap and self.world > 1:
+            raise ValueError(
+                "val_overlap is single-rank only: the val thread and "
+                "the train loop would issue cross-host collectives in "
+                "unsynchronized order (a distributed deadlock), so "
+                "multi-host runs must validate serially")
+        #: in-flight overlapped validation (val_overlap): set by
+        #: _launch_overlapped_val, consumed by _join_overlapped_val
+        self._pending_val = None
         mesh.resolve_data_axis(cfg.mesh.data)
         self.plan = plan_lib.plan_from_config(cfg, n_devices=self.world)
         if cfg.train.reduce_buckets and \
@@ -158,9 +200,12 @@ class Trainer:
         self.precision = apply_policy(cfg.train.precision)
         self.run_dir = mesh.broadcast_object(
             next_run_dir(cfg.work_dir) if self.is_main else None)
-        self.writer = MultiWriter(*[make_writer(name, self.run_dir)
-                                    for name in cfg.log_writers]) \
-            if self.is_main else MultiWriter()
+        self.writer = MultiWriter(*[
+            make_writer(name, self.run_dir,
+                        experiment_name=cfg.experiment_name,
+                        comet_project=cfg.comet_project or None,
+                        comet_workspace=cfg.comet_workspace or None)
+            for name in cfg.log_writers]) if self.is_main else MultiWriter()
 
         d = cfg.data
         root = make_fake_voc(n_images=8, size=(96, 128), n_val=3,
@@ -250,10 +295,13 @@ class Trainer:
                 dtype=(self.precision.compute_dtype if self.precision
                        else cfg.model.dtype),
                 pam_score_dtype=cfg.model.pam_score_dtype,
-                remat=cfg.model.remat, aux_head=cfg.model.aux_head,
+                remat=cfg.model.remat,
+                remat_policy=cfg.model.remat_policy or None,
+                aux_head=cfg.model.aux_head,
                 encnet_codes=cfg.model.encnet_codes,
                 ccnet_recurrence=cfg.model.ccnet_recurrence,
-                bn_cross_replica=self.distributed)
+                bn_cross_replica=self.distributed,
+                bn_fp32_stats=cfg.model.bn_fp32_stats)
         total_steps = len(self.train_loader) * cfg.epochs
         optimizer, self.schedule = make_optimizer(cfg.optim, self.model,
                                                   total_steps)
@@ -427,12 +475,13 @@ class Trainer:
                     f"(best={self.ckpt.best_metric:.4f})")
 
     def train_epoch(self, epoch: int, guard: PreemptionGuard | None = None,
-                    start_batch: int = 0) -> float:
+                    start_batch: int = 0, abort_check=None) -> float:
         """One epoch from batch ``start_batch`` of its order; returns the
         mean train loss of the batches trained.  Losses stay on the device
         and are read at the log cadence and at the epoch's end.  ``guard``
         is read every ``guard.check_every`` steps; when it says stop the
-        epoch ends early and logs no epoch summary."""
+        epoch ends early and logs no epoch summary.  ``abort_check`` runs
+        at the log cadence (the overlapped validation's error poll)."""
         cfg = self.cfg
         self.train_loader.set_epoch(epoch, start_batch=start_batch)
         interrupted = False
@@ -455,6 +504,8 @@ class Trainer:
                     interrupted = True
                     break
                 if step % cfg.log_every_steps == 0:
+                    if abort_check is not None:
+                        abort_check()
                     self.writer.scalars({"train/loss": float(losses[-1]),
                                          "train/lr": self.schedule(step - 1),
                                          "train/epoch": epoch}, step)
@@ -490,29 +541,48 @@ class Trainer:
         else:
             batch_debug_asserts(batch)
 
-    def validate(self, epoch: int | None = None) -> dict:
-        """The task's validation protocol on the current state; logs and
-        returns its metrics."""
+    def _eval_metrics(self, state, epoch: int | None = None
+                      ) -> tuple[dict, dict | None]:
+        """The task's validation protocol on ``state``: its metrics and the
+        first batch's record (None for the semantic task), with no writer
+        or checkpoint side effects, so that it can run on the overlapped
+        validation's thread."""
         cfg = self.cfg
         self.val_loader.set_epoch(0)
         if cfg.task == "semantic":
             metrics = evaluate_semantic(
-                self.eval_step, self.state, self.val_loader,
+                self.eval_step, state, self.val_loader,
                 nclass=cfg.model.nclass, tta_scales=cfg.eval_tta_scales,
                 tta_flip=cfg.eval_tta_flip, debug_asserts=cfg.debug_asserts,
                 bf16_probs=cfg.eval_bf16_probs,
                 device_fullres=(tuple(cfg.data.val_max_im_size)
                                 if cfg.eval_device_fullres else None))
         else:
-            metrics = evaluate(self.eval_step, self.state, self.val_loader,
+            metrics = evaluate(self.eval_step, state, self.val_loader,
                                thresholds=cfg.eval_thresholds,
                                relax=cfg.data.relax,
                                zero_pad=cfg.data.zero_pad,
                                debug_asserts=cfg.debug_asserts,
                                bf16_readback=cfg.eval_bf16_probs)
+        first = metrics.pop("_first_batch", None)
         if cfg.debug_asserts and not np.isfinite(metrics["loss"]):
             raise FloatingPointError(f"non-finite val loss {metrics['loss']} "
                                      f"at epoch {epoch}")
+        return metrics, first
+
+    def validate(self, epoch: int | None = None, log_panels: bool = True,
+                 state=None) -> dict:
+        """The task's validation protocol on ``state`` (the current one by
+        default); logs and returns its metrics."""
+        state = self.state if state is None else state
+        metrics, first = self._eval_metrics(state, epoch)
+        self._log_val(metrics, first, epoch, state.step, log_panels=log_panels)
+        return metrics
+
+    def _log_val(self, metrics: dict, first: dict | None, epoch: int | None,
+                 step: int, log_panels: bool = True) -> None:
+        """The writer half of validation, on the main thread: the metrics,
+        then the first batch's panels where a writer takes figures."""
         flat = {"val/loss": metrics["loss"], "val/jaccard": metrics["jaccard"],
                 "val/n_samples": metrics["n_samples"]}
         if "best_threshold" in metrics:
@@ -525,8 +595,100 @@ class Trainer:
             flat["val/per_class_iou"] = metrics["per_class_iou"]
         if epoch is not None:
             flat["val/epoch"] = epoch
-        self.writer.scalars(flat, self.state.step)
-        return metrics
+        self.writer.scalars(flat, step)
+        if log_panels and first is not None and self.writer.takes_figures:
+            try:
+                fig = make_val_panels(first)
+                self.writer.figure("val_panels", fig, step)
+                import matplotlib.pyplot as plt
+                plt.close(fig)
+            except Exception:
+                pass  # visualization must never kill training
+
+    def _snapshot(self):
+        """The state at this epoch's end, as overlapped validation and its
+        deferred save need it: the model deep-copied on its device and put
+        in eval mode there (``optimizer.step`` updates the live parameters
+        in place), the optimizer's ``state_dict`` and the dropout
+        generator's state copied."""
+        with torch.no_grad():
+            model = copy.deepcopy(self.state.model).eval()
+            optimizer = _FrozenOptimizer(
+                copy.deepcopy(self.state.optimizer.state_dict()))
+        generator = torch.Generator(device=self.device)
+        generator.set_state(self.state.generator.get_state())
+        return dataclasses.replace(self.state, model=model, optimizer=optimizer,
+                                   generator=generator, ddp=None)
+
+    def _launch_overlapped_val(self, epoch: int, step: int) -> None:
+        """Start validating a snapshot of the current state on a thread
+        (``val_overlap``); the next train epoch runs meanwhile.  Every
+        writer and checkpoint side effect waits for
+        :meth:`_join_overlapped_val` on the main thread."""
+        state = self._snapshot()
+        box: dict = {}
+        device = torch.cuda.device(self.device) \
+            if self.device.type == "cuda" else contextlib.nullcontext()
+
+        def run() -> None:
+            try:
+                # the current device and the grad mode are per thread
+                with device, torch.inference_mode():
+                    box["result"] = self._eval_metrics(state, epoch)
+            except BaseException as e:  # re-raised at the join
+                box["error"] = e
+
+        thread = threading.Thread(target=run, name=f"val-overlap-{epoch}",
+                                  daemon=True)
+        thread.start()
+        self._pending_val = (epoch, step, state, thread, box)
+
+    def _poll_overlapped_val_error(self) -> None:
+        """Raise now if the overlapped validation already failed (run at
+        the train loop's log cadence), not a whole epoch later."""
+        pending = self._pending_val
+        if pending is not None and "error" in pending[4]:
+            self._join_overlapped_val(None)
+
+    def _join_overlapped_val(self, history: dict | None,
+                             finish: bool = True) -> None:
+        """Wait for the overlapped validation, if one is running, and apply
+        its bookkeeping (:meth:`_finish_val`); ``finish=False`` waits
+        only."""
+        pending = self._pending_val
+        if pending is None:
+            return
+        self._pending_val = None
+        epoch, step, state, thread, box = pending
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        if finish:
+            metrics, first = box["result"]
+            self._finish_val(metrics, first, epoch, step, state, history)
+
+    def _discard_overlapped_val(self) -> None:
+        """Join the overlapped validation and drop its result: for a fit
+        that unwinds with an exception of its own, so that no thread
+        outlives it."""
+        pending = self._pending_val
+        if pending is None:
+            return
+        self._pending_val = None
+        pending[3].join()
+
+    def _finish_val(self, metrics: dict, first: dict | None, epoch: int,
+                    step: int, state, history: dict | None) -> None:
+        """The epoch-end validation's bookkeeping, serial or overlapped:
+        the logs, the history, and the checkpoint of ``state`` at ``step``
+        (into the best slot on a better Jaccard)."""
+        self._log_val(metrics, first, epoch, step)
+        if history is not None:
+            history["val"].append(dict(metrics, epoch=epoch))
+        if self.ckpt.save(step, state, metric=metrics["jaccard"],
+                          extra={"epoch": epoch, "plan": self.plan.block()}):
+            self.writer.scalars({"val/new_best_jaccard": metrics["jaccard"],
+                                 "val/epoch": epoch}, step)
 
     def fit(self, guard: PreemptionGuard | None = None) -> dict:
         """Train from ``start_epoch`` to ``cfg.epochs``; returns
@@ -541,19 +703,36 @@ class Trainer:
         ``fit_summary.json``."""
         cfg = self.cfg
         history: dict = {"train_loss": [], "val": []}
+        if cfg.profile_epoch is not None and self.is_main and not \
+                (self.start_epoch <= cfg.profile_epoch < cfg.epochs):
+            print(f"warning: profile_epoch={cfg.profile_epoch} outside the "
+                  f"epoch range [{self.start_epoch}, {cfg.epochs}) — no "
+                  "trace will be written", flush=True)
         cuda_attention.reset_launches()
         start_step = self.state.step
         with contextlib.ExitStack() as stack:
             if guard is None and cfg.checkpoint.save_on_preempt:
                 guard = stack.enter_context(PreemptionGuard(
                     check_every=cfg.checkpoint.preempt_check_every))
+            # an exception unwinding the fit must not leave the overlapped
+            # validation's thread running; a clean end joins it below
+            stack.callback(self._discard_overlapped_val)
             epoch = self.start_epoch
             while epoch < cfg.epochs:
                 t0 = time.perf_counter()
                 sb, self._resume_start_batch = self._resume_start_batch, 0
                 estep0 = self.state.step
-                epoch_loss = self.train_epoch(epoch, guard=guard,
-                                              start_batch=sb)
+                trace = profiling.trace(os.path.join(self.run_dir, "profile")) \
+                    if cfg.profile_epoch == epoch and self.is_main \
+                    else contextlib.nullcontext()
+                with trace:
+                    epoch_loss = self.train_epoch(
+                        epoch, guard=guard, start_batch=sb,
+                        abort_check=(self._poll_overlapped_val_error
+                                     if cfg.val_overlap else None))
+                # the previous epoch's overlapped validation ran beside this
+                # epoch: land its logs and checkpoint first
+                self._join_overlapped_val(history)
                 step = self.state.step
                 if guard is not None and guard.should_stop():
                     history["preempted"] = True
@@ -570,15 +749,12 @@ class Trainer:
                     break
                 history["train_loss"].append(epoch_loss)
                 if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
-                    metrics = self.validate(epoch)
-                    history["val"].append(dict(metrics, epoch=epoch))
-                    if self.ckpt.save(step, self.state,
-                                      metric=metrics["jaccard"],
-                                      extra={"epoch": epoch,
-                                             "plan": self.plan.block()}):
-                        self.writer.scalars({"val/new_best_jaccard":
-                                             metrics["jaccard"],
-                                             "val/epoch": epoch}, step)
+                    if cfg.val_overlap:
+                        self._launch_overlapped_val(epoch, step)
+                    else:
+                        metrics, first = self._eval_metrics(self.state, epoch)
+                        self._finish_val(metrics, first, epoch, step,
+                                         self.state, history)
                 elif cfg.checkpoint.snapshot_every and \
                         (epoch + 1) % cfg.checkpoint.snapshot_every == 0:
                     self.ckpt.save(step, self.state, extra={
@@ -586,6 +762,11 @@ class Trainer:
                 self.writer.scalars({"epoch": epoch, "epoch_total_seconds":
                                      time.perf_counter() - t0}, step)
                 epoch += 1
+            # the last epoch's overlapped validation has no epoch to hide
+            # behind
+            with guard.shield() if guard is not None \
+                    else contextlib.nullcontext():
+                self._join_overlapped_val(history)
         preempted = bool(history.get("preempted"))
         # every rank's step, gathered: the ranks must stop together
         steps = replicated_decision(self.state.step, reduce=list,

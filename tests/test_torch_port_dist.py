@@ -119,12 +119,13 @@ def _rank_rows(rank: int, strategy: str, accum: int) -> np.ndarray:
     return pipeline.micro_batch_rows(halves, rank, accum)
 
 
-def _jax_step(variables, strategy, accum, mesh):
+def _jax_step(variables, strategy, accum, mesh, lr=LR, optim=None):
     jmodel = jax_build_model(
         "danet", nclass=1, backbone="resnet18", output_stride=8,
         attention_impl="xla",
         bn_cross_replica_axis="data" if strategy == "buckets" else None)
-    tx, _ = jax_optim.make_optimizer(jax_config.OptimConfig(lr=LR), 10)
+    tx, _ = jax_optim.make_optimizer(
+        jax_config.OptimConfig(lr=lr, **(optim or {})), 10)
     params = jax.tree.map(jnp.asarray, variables["params"])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
                            batch_stats=jax.tree.map(jnp.asarray,
@@ -162,12 +163,19 @@ def test_two_rank_trajectory_matches_jax(ranks, r18, strategy, accum):
 
     mesh = _mesh()
     jstate, jstep = _jax_step(variables, strategy, accum, mesh)
+    _check_trajectory(ranks.results(), jstate, jstep, mesh, batches,
+                      f"{strategy} accum {accum}")
+
+
+def _check_trajectory(got, jstate, jstep, mesh, batches, label):
+    """The ranks' losses and final state against JAX's steps over the
+    global ``batches``: both ranks bitwise equal, losses within 1e-4
+    relative, every leaf within 1e-4 x max(1, max |leaf|)."""
     jlosses = []
     for batch in batches:
         with fnn.intercept_methods(_no_dropout):
             jstate, jloss = jstep(jstate, jax_mesh.shard_batch(mesh, batch))
         jlosses.append(float(jloss))
-    got = ranks.results()
 
     for a, b in zip(got[0]["state"].values(), got[1]["state"].values()):
         assert torch.equal(a, b)
@@ -187,8 +195,33 @@ def test_two_rank_trajectory_matches_jax(ranks, r18, strategy, accum):
             diff = float(np.abs(np.asarray(g) - w).max())
             leaf_worst = max(leaf_worst, diff / bound)
             assert diff <= 1e-4 * bound, jax.tree_util.keystr(path)
-    print(f"{strategy} accum {accum}: worst loss rel {worst:.2e}, worst leaf "
+    print(f"{label}: worst loss rel {worst:.2e}, worst leaf "
           f"{leaf_worst:.2e} of max(1, |leaf|)")
+
+
+#: AdamW's step under dp_zero1: eps large enough that the update
+#: ``g / (sqrt(v) + eps)`` stays smooth where a gradient is near 0 (at
+#: optax's 1e-8 it jumps by up to the whole lr between two float32
+#: summation orders of a vanishing gradient)
+ADAMW = {"name": "adamw", "adam_eps": 1e-3, "weight_decay": 1e-2}
+
+
+def test_two_rank_adamw_zero1_step_matches_jax(ranks, r18):
+    """One ``dp_zero1`` step with ``optim.name=adamw`` (ZeRO-1 sharding
+    AdamW's moments) against JAX's two-device step."""
+    variables, init_path = r18
+    r = np.random.default_rng(11)
+    batches = [{"concat": r.uniform(0, 255, (B, HW, HW, 4)).astype(np.float32),
+                "crop_gt": (r.random((B, HW, HW, 1)) < 0.3).astype(np.float32)}]
+    rows = [_rank_rows(k, "dp_zero1", 1) for k in range(2)]
+    ranks.start("trajectory", init_path, "dp_zero1", 1,
+                [[{k: v[rows[rank]] for k, v in b.items()} for b in batches]
+                 for rank in range(2)], 1e-3, ADAMW)
+    mesh = _mesh()
+    jstate, jstep = _jax_step(variables, "dp_zero1", 1, mesh, lr=1e-3,
+                              optim=ADAMW)
+    _check_trajectory(ranks.results(), jstate, jstep, mesh, batches,
+                      "dp_zero1 adamw")
 
 
 def test_two_rank_semantic_step_matches_jax(ranks, tmp_path):
@@ -298,6 +331,60 @@ def test_cross_replica_batch_norm_matches_flax(ranks):
     for g in got:
         assert rel_err(0.1 * g["mean"], stats["mean"]) <= 1e-5
         assert rel_err(0.9 + 0.1 * g["var"], stats["var"]) <= 1e-6
+
+
+def test_cross_replica_bf16_statistics_match_flax(ranks):
+    """``model.bn_fp32_stats=false`` over the group: bf16 statistics
+    averaged over the ranks against flax's ``BatchNorm(dtype=bfloat16,
+    force_float32_reductions=False)`` over the concatenated batch (equal
+    halves, so its mean is the ranks' mean), within bf16's resolution
+    (2**-7 relative): 1e-2 of max |ref| for the output, the gradients and
+    the bf16 statistics."""
+    r = np.random.default_rng(12)
+    x = (r.normal(size=(4, 5, 6, 3)) * 2 + 0.7).astype(np.float32)  # NCHW
+    dy = r.normal(size=x.shape).astype(np.float32)
+    w = r.uniform(0.5, 1.5, 5).astype(np.float32)
+    b = r.normal(size=5).astype(np.float32)
+    ranks.start("batch_norm_bf16", _halves(x), _halves(dy), w, b)
+
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.0, epsilon=1e-5,
+                       dtype=jnp.bfloat16, force_float32_reductions=False)
+    stats0 = {"mean": jnp.zeros(5), "var": jnp.ones(5)}
+
+    def f(xn, scale, bias):
+        y, mutated = bn.apply({"params": {"scale": scale, "bias": bias},
+                               "batch_stats": stats0}, xn,
+                              mutable=["batch_stats"])
+        return y.astype(jnp.float32), mutated["batch_stats"]
+
+    nhwc = jnp.asarray(x.transpose(0, 2, 3, 1)).astype(jnp.bfloat16)
+    y, vjp = jax.vjp(lambda xn, s, c: f(xn, s, c)[0], nhwc, jnp.asarray(w),
+                     jnp.asarray(b))
+    stats = f(nhwc, jnp.asarray(w), jnp.asarray(b))[1]
+    dx, dw, db = vjp(jnp.asarray(dy.transpose(0, 2, 3, 1)))
+    got = ranks.results()
+    y_got = np.concatenate([g["y"] for g in got]).transpose(0, 2, 3, 1)
+    dx_got = np.concatenate([g["dx"] for g in got]).transpose(0, 2, 3, 1)
+    assert rel_err(y_got, y) <= 1e-2
+    assert rel_err(dx_got, np.asarray(dx, np.float32)) <= 1e-2
+    assert rel_err(got[0]["dw"] + got[1]["dw"], dw) <= 1e-2
+    assert rel_err(got[0]["db"] + got[1]["db"], db) <= 1e-2
+    # momentum 0: flax's running statistics are the batch's
+    for g in got:
+        assert rel_err(g["mean"], stats["mean"]) <= 1e-2
+        assert rel_err(g["var"], stats["var"]) <= 1e-2
+
+
+def test_val_overlap_refused_across_ranks(ranks, tmp_path):
+    """As the JAX trainer refuses it across processes, with its message
+    ("process" read as "rank")."""
+    from distributedpytorch_tpu.train import Trainer as JaxTrainer
+
+    got = ranks.run("val_overlap_refused", str(tmp_path))
+    # the JAX message, one string constant of its constructor
+    (want,) = [c for c in JaxTrainer.__init__.__code__.co_consts
+               if isinstance(c, str) and c.startswith("val_overlap is")]
+    assert got == [want.replace("process", "rank")] * 2
 
 
 def test_global_class_balance_matches_jax(ranks):

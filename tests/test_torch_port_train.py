@@ -269,11 +269,14 @@ class TestOptimizer:
             assert got(0) == 0.0
 
     def test_unmatched_prefix_and_adamw_raise(self):
+        """An unmatched prefix raises; ``adamw`` no longer does (its parity
+        with optax is ``test_torch_port_knobs.py``'s), an unknown
+        optimizer still does."""
         model = Tiny({"head": {"w": np.zeros(2, np.float32)}})
         with pytest.raises(ValueError, match="matched no parameter"):
             optim.make_optimizer(config.OptimConfig(freeze=("neck",)), model, 1)
-        with pytest.raises(NotImplementedError, match="adamw"):
-            optim.make_optimizer(config.OptimConfig(name="adamw"), model, 1)
+        with pytest.raises(ValueError, match="unknown optimizer"):
+            optim.make_optimizer(config.OptimConfig(name="lion"), model, 1)
 
 
 def _no_dropout(next_fun, args, kwargs, context):

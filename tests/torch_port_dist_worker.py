@@ -22,7 +22,10 @@ import torch.distributed as dist
 from distributedpytorch_tpu_torch.data import pipeline
 from distributedpytorch_tpu_torch.models import build_model
 from distributedpytorch_tpu_torch.ops import losses
-from distributedpytorch_tpu_torch.ops.sync_bn import cross_replica_batch_norm
+from distributedpytorch_tpu_torch.ops.sync_bn import (
+    compute_dtype_batch_norm,
+    cross_replica_batch_norm,
+)
 from distributedpytorch_tpu_torch.parallel.step import (
     create_train_state,
     make_eval_step,
@@ -110,15 +113,17 @@ class RankPool:
 
 # ----------------------------------------------------------------- bodies
 
-def trajectory(rank, world, init_path, strategy, accum, batches, lr):
+def trajectory(rank, world, init_path, strategy, accum, batches, lr,
+               optim=None):
     """Train steps of DANet-R18 under ``strategy`` (dp | dp_zero1 |
     buckets) from the weights in ``init_path``; ``batches[rank]`` are this
-    rank's rows of each step.  Returns the losses and the final
-    state_dict."""
+    rank's rows of each step; ``optim`` overrides fields of the
+    ``OptimConfig``.  Returns the losses and the final state_dict."""
     model = build_model("danet", backbone="resnet18", dropout_rate=0.0,
                         bn_cross_replica=True)
     model.load_state_dict(torch.load(init_path))
-    opt, sched = make_optimizer(config.OptimConfig(lr=lr), model, 10)
+    opt, sched = make_optimizer(config.OptimConfig(lr=lr, **(optim or {})),
+                                model, 10)
     state = create_train_state(model, opt, sched, 0, torch.device("cpu"))
     if strategy == "dp_zero1":
         state.optimizer = shard_optimizer(opt)
@@ -140,6 +145,35 @@ def batch_norm(rank, world, xs, dys, weight, bias):
     (y * torch.from_numpy(dy)).sum().backward()
     return {"y": y.detach().numpy(), "mean": mean.numpy(), "var": var.numpy(),
             "dx": x.grad.numpy(), "dw": w.grad.numpy(), "db": b.grad.numpy()}
+
+
+def batch_norm_bf16(rank, world, xs, dys, weight, bias):
+    """:func:`batch_norm` with the statistics in bfloat16 over the group
+    (``model.bn_fp32_stats=false``) on this rank's rows in bfloat16."""
+    x = torch.from_numpy(xs[rank]).to(torch.bfloat16).requires_grad_()
+    w = torch.from_numpy(weight).requires_grad_()
+    b = torch.from_numpy(bias).requires_grad_()
+    y, mean, var = compute_dtype_batch_norm(x, w, b, 1e-5, cross_replica=True)
+    (y.float() * torch.from_numpy(dys[rank])).sum().backward()
+    return {"y": y.detach().float().numpy(),
+            "mean": mean.detach().float().numpy(),
+            "var": var.detach().float().numpy(), "dx": x.grad.float().numpy(),
+            "dw": w.grad.numpy(), "db": b.grad.numpy()}
+
+
+def val_overlap_refused(rank, world, work):
+    """The ``ValueError`` a ``Trainer`` with ``val_overlap`` raises at
+    world size ``world``."""
+    from distributedpytorch_tpu_torch.train.trainer import Trainer
+
+    cfg = config.apply_overrides(config.Config(), [
+        "data.fake=true", "model.backbone=resnet18", "data.crop_size=[32,32]",
+        "val_overlap=true", f"work_dir={work}"])
+    try:
+        Trainer(cfg, device="cpu")
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def balanced_loss(rank, world, outputs, labels, void):
@@ -175,6 +209,7 @@ def evaluate_shard(rank, world, init_path, root, crop, relax):
                                  shard_index=rank)
     metrics = evaluate(make_eval_step(), state, loader, relax=relax)
     metrics.pop("seconds")
+    metrics.pop("_first_batch")  # the panels' record, not a metric
     return metrics
 
 
