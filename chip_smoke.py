@@ -172,6 +172,34 @@ it), printing no result.  The phases, each raising on failure:
              ``bn_fp32_stats=false`` by the L2 rule at ``KNOB_L2_FACTOR``,
              each step's ms and peak memory; AdamW's first update against
              optax's closed form within 1e-6 relative.
+11. telemetry — the telemetry and chaos core, DANet-R101 at 512² in bf16
+             on the fake fixture, train batch 4, two epochs, a loss read at
+             every step: (a) the default fit (``telemetry`` and
+             ``data.governor=observe`` at their defaults): the flight
+             recorder (schema v1, ``fit_start`` ... the checkpoint commit
+             ... ``fit_end``, nothing dropped), ``fit_summary.json`` with
+             ``recovery`` null and the governor's ``feed`` block, the five
+             goodput buckets non-negative and within the total, ``compile``
+             > 0, the productive share in (0, 1], the MFU in (0, 1) against
+             the card's peak (not the fallback) from the FLOP counter, every
+             ``governor.jsonl`` line in the JAX schema and not applied, and
+             one launch per kernel per step and val sample; (b) the same fit
+             with every batch fetch 200 ms late (``DPTPU_CHAOS_PLAN``): the
+             ``input_wait`` bucket up by at least 0.9 x the injected sleep,
+             ``governor.jsonl`` recording the stall above the target and the
+             would-be escalation, the loader's depth and the echo factor
+             unchanged; (c) the B = 16 bf16 step through the trainer's
+             per-step body with telemetry on and off, in turns, median of 5
+             (CUDA events), and the body's host microseconds (printed, not
+             gated); (d) SIGUSR2 during a fit with ``profile_epoch=1``:
+             ``trace_on_demand/trace_000`` names each attention kernel,
+             ``trace_captures_total`` +1, a second SIGUSR2 during
+             ``profile_epoch`` refused and counted, the fit complete; (e) the
+             HTTP front after a few predicts: ``GET /metrics`` parses with
+             the serve families and ``span_seconds``, ``POST /debug/trace``
+             writes a trace, and an ``error`` fault at ``serve/enqueue``
+             closes that request's connection unanswered (as the JAX front
+             does) while the next request is served.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2, grain, tensorboard and matplotlib are
@@ -185,12 +213,13 @@ rank of phase 8 (a) and (b) before each of its steps (the data-parallel
 path, rank 0's counts summed), zeroed just before phase 10a's overlapped
 epoch and read after its join (the overlapped validation path), and
 zeroed by the trainer when phase 10c's fit starts and read from its
-``fit_summary.json``: every kernel must have run on each.  Every
+``fit_summary.json``, and likewise for phase 11a's default fit: every
+kernel must have run on each.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic,trainer``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer,telemetry``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -3539,8 +3568,399 @@ def phase_trainer(torch, ca) -> dict:
     return {"val_overlap": overlap, "trainer_fit": fit}
 
 
+#: phase 11's fits: DANet-R101 512^2 bf16 at train batch 4 (2 steps per
+#: epoch), two epochs, a loss read (and a governor tick) at every step;
+#: ``telemetry`` and ``data.governor`` at their defaults
+TELEMETRY_ARGS = ["data.fake=true", "train.precision=bfloat16", "data.train_batch=4",
+                  "data.area_thres=0", "epochs=2", "log_every_steps=1",
+                  'log_writers=["jsonl"]', "checkpoint.keep_latest=1"]
+#: 11b's fault: every batch fetch 200 ms late
+FETCH_DELAY_S = 0.2
+#: the JAX package's governor.jsonl and feed-block keys
+GOVERNOR_LINE_KEYS = {"ts", "step", "epoch", "action", "applied", "stall", "target",
+                      "detail"}
+FEED_KEYS = {"mode", "target", "input_wait_fraction", "echo_effective", "echo_armed",
+             "shortfall", "actions"}
+
+
+def _telemetry_trainer(work: Path, *extra: str):
+    from distributedpytorch_tpu_torch.train.config import Config, apply_overrides
+    from distributedpytorch_tpu_torch.train.trainer import Trainer
+
+    return Trainer(apply_overrides(Config(), TELEMETRY_ARGS + [f"work_dir={work}",
+                                                               *extra]),
+                   device="cuda")
+
+
+def _telemetry_fit(torch, work: Path, plan: dict | None = None):
+    """One fit of ``TELEMETRY_ARGS`` (through ``DPTPU_CHAOS_PLAN`` when a
+    plan is given); returns its run dir, history, events block and the
+    loader's prefetch depth and echo factor after the fit."""
+    import os
+
+    from distributedpytorch_tpu_torch.chaos import sites
+
+    tr = _telemetry_trainer(work)
+    if plan is not None:
+        os.environ[sites.PLAN_ENV] = json.dumps(plan)
+    try:
+        history = tr.fit()
+        block = tr._events.block()
+        knobs = (tr.train_loader.prefetch, tr._echo, tr._host_prefetch)
+    finally:
+        os.environ.pop(sites.PLAN_ENV, None)
+        fired = sites.armed()
+        sites.disarm()
+        tr.close()
+    run = Path(tr.run_dir)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, history, block, knobs, fired
+
+
+def _event_records(run: Path) -> list[dict]:
+    (path,) = (run / "events").glob("*.jsonl")
+    return _read_jsonl(path)
+
+
+def telemetry_default_fit(torch, work: Path) -> tuple[dict, dict]:
+    """11a: the default fit's flight recorder, summary blocks, goodput, MFU,
+    governor ledger and launches.  Returns its history and launches."""
+    t0 = time.perf_counter()
+    run, hist, block, knobs, _ = _telemetry_fit(torch, work)
+    wall = time.perf_counter() - t0
+    rec = _run_record(run)
+    summary = rec["summary"]
+    events = _event_records(run)
+    kinds = [(e["source"], e["kind"]) for e in events]
+    if {e["v"] for e in events} != {1} or kinds[0] != ("trainer", "fit_start") \
+            or kinds[-1] != ("trainer", "fit_end") \
+            or ("checkpoint", "commit") not in kinds[1:-1] or block["dropped"] != 0:
+        raise AssertionError(f"11a: events {kinds}, block {block}")
+    if summary["recovery"] is not None or set(summary["feed"] or {}) != FEED_KEYS:
+        raise AssertionError(f"11a: summary recovery {summary['recovery']}, "
+                             f"feed {summary['feed']}")
+    gp = hist["goodput"]
+    five = [gp["buckets"][b] for b in ("step", "compile", "checkpoint", "eval",
+                                       "input_wait")]
+    if min(five) < 0 or sum(five) > gp["total_s"] or gp["buckets"]["compile"] <= 0 \
+            or not 0 < gp["goodput"] <= 1:
+        raise AssertionError(f"11a: goodput {gp}")
+    mfu = hist["mfu"]
+    if not 0 < mfu["mfu"] < 1 or mfu["peak_source"] == "fallback" \
+            or mfu["flops_source"] != "flop_counter":
+        raise AssertionError(f"11a: mfu {mfu}")
+    lines = _read_jsonl(run / "governor.jsonl") if (run / "governor.jsonl").exists() \
+        else []
+    feed = hist["feed"]
+    if any(set(x) != GOVERNOR_LINE_KEYS or x["applied"] for x in lines) \
+            or feed["mode"] != "observe" or not 0 <= feed["input_wait_fraction"] <= 1:
+        raise AssertionError(f"11a: governor.jsonl {lines}, feed {feed}")
+    steps = [len(r["train/step_losses"]) for r in rec["epochs"]]
+    launches = summary["kernel_launches"]
+    want = sum(steps) + sum(int(r["val/n_samples"]) for r in rec["vals"])
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"11a: launches {launches}, want {want} each")
+    log(f"telemetry (a): default fit {wall:.1f} s wall; events {kinds} "
+        f"(emitted {block['emitted']}, dropped 0); goodput total "
+        f"{gp['total_s']:.3f} s, buckets " + json.dumps(
+            {k: round(v, 4) for k, v in gp["buckets"].items()})
+        + f", productive {gp['goodput']:.4f}; mfu {mfu['mfu']:.6f} "
+        f"({mfu['flops_per_step']:.4e} FLOP/step over {mfu['step_time_s'] * 1e3:.2f} "
+        f"ms/step, peak {mfu['peak_source']} {mfu['peak_flops_per_device']:.4g}, "
+        f"{mfu['flops_source']}); feed {json.dumps(feed)}; governor.jsonl "
+        f"{len(lines)} lines {[x['action'] for x in lines]}; kernel launches "
+        f"{launches} = {want} each ({steps} steps + val samples), exact")
+    return hist, launches
+
+
+def telemetry_fault_fit(torch, work: Path, clean: dict) -> None:
+    """11b: the same fit with every batch fetch 200 ms late through
+    ``DPTPU_CHAOS_PLAN``: the input_wait bucket grows by at least 0.9 x the
+    injected sleep, governor.jsonl records the stall above the target and
+    the would-be escalation, and nothing is actuated."""
+    plan = {"name": "slow_feed", "seed": 0, "faults": [
+        {"site": "trainer/batch_fetch", "kind": "latency", "delay_s": FETCH_DELAY_S}]}
+    run, hist, _, knobs, fired = _telemetry_fit(torch, work, plan)
+    fetches = sum(1 for site, _, _ in fired.firings if site == "trainer/batch_fetch")
+    grew = hist["goodput"]["buckets"]["input_wait"] - clean["goodput"]["buckets"]["input_wait"]
+    if fetches < 4 or grew < 0.9 * FETCH_DELAY_S * fetches:
+        raise AssertionError(f"11b: input_wait grew {grew:.3f} s over {fetches} "
+                             f"fetches of {FETCH_DELAY_S} s")
+    lines = _read_jsonl(run / "governor.jsonl") if (run / "governor.jsonl").exists() \
+        else []
+    target = hist["feed"]["target"]
+    escalated = [x for x in lines if x["stall"] is not None and x["stall"] > target
+                 and x["action"] in ("pack_recommendation", "raise_prefetch")]
+    if not escalated or any(x["applied"] for x in lines):
+        raise AssertionError(f"11b: governor.jsonl {lines}")
+    if knobs != (2, 1, 2):
+        raise AssertionError(f"11b: knobs moved: loader prefetch, echo, host "
+                             f"prefetch {knobs}")
+    gp = hist["goodput"]
+    log(f"telemetry (b): {fetches} fetches x {FETCH_DELAY_S} s injected; input_wait "
+        f"{gp['buckets']['input_wait']:.4f} s vs (a) "
+        f"{clean['goodput']['buckets']['input_wait']:.4f} s: +{grew:.4f} s (>= "
+        f"{0.9 * FETCH_DELAY_S * fetches:.2f}); buckets " + json.dumps(
+            {k: round(v, 4) for k, v in gp["buckets"].items()})
+        + f"; governor.jsonl {[(x['action'], x['stall'], x['applied']) for x in lines]}"
+        f" (target {target}); feed {json.dumps(hist['feed'])}; loader prefetch, echo "
+        f"unchanged {knobs[:2]}")
+
+
+def telemetry_cost(torch, dataset, work: Path, batch_size: int = 16,
+                   rounds: int = 5, device: str = "cuda") -> None:
+    """11c: the B = 16 bf16 train step through the trainer's own per-step
+    body (the input_wait account and chaos site around the fetch, the
+    trace tick, the compile/step account, the step's chaos site) with
+    telemetry on and off, in turns, median of 5 (CUDA events); and the
+    host microseconds of that body around a no-op step."""
+    import types
+
+    from distributedpytorch_tpu_torch.chaos import sites
+    from distributedpytorch_tpu_torch.data import pipeline
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.parallel.step import create_train_state, make_train_step
+    from distributedpytorch_tpu_torch.telemetry import TraceCapture, get_accountant, set_enabled
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+    from distributedpytorch_tpu_torch.train.trainer import Trainer
+
+    loader = pipeline.DataLoader(Cycled(dataset, batch_size), batch_size,
+                                 shuffle=True, drop_last=True, seed=0)
+    batch = next(iter(loader))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("danet", dtype="bfloat16")
+    optimizer, schedule = make_optimizer(OptimConfig(), model, total_steps=100)
+    state = create_train_state(model, optimizer, schedule, 0, torch.device(device))
+    acct = get_accountant()
+    host = types.SimpleNamespace(train_step=make_train_step(
+        precision=precision_policy("bfloat16")), state=state,
+        _step_compiled=True, _prod_steps=0, _trace=None)
+
+    def use(on: bool) -> None:
+        set_enabled(on)
+        acct.reset(enabled=on)
+        host._trace = TraceCapture(str(work / "trace_on_demand")) if on else None
+
+    def body():
+        with acct.account("input_wait"):
+            b = sites.fire("trainer/batch_fetch", payload=batch)
+        return Trainer._dispatch(host, b)
+
+    try:
+        for on in (True, False):
+            use(on)
+            body()
+            body()
+        torch.cuda.synchronize()
+        times = {True: [], False: []}
+        for r in range(rounds):
+            for on in ((True, False) if r % 2 == 0 else (False, True)):
+                use(on)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                body()
+                end.record()
+                end.synchronize()
+                times[on].append(start.elapsed_time(end))
+        step = host.train_step
+        host.train_step = lambda state, b: None
+        us = {}
+        for on in (True, False):
+            use(on)
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                body()
+            us[on] = (time.perf_counter() - t0) / 2000 * 1e6
+        host.train_step = step
+    finally:
+        set_enabled(True)
+        acct.reset(enabled=True)
+    on, off = statistics.median(times[True]), statistics.median(times[False])
+    log(f"telemetry (c): B={batch_size} bf16 step, median of {rounds} in turns: "
+        f"telemetry on {on:.2f} ms ({', '.join(f'{t:.2f}' for t in times[True])}), "
+        f"off {off:.2f} ms ({', '.join(f'{t:.2f}' for t in times[False])}); ratio "
+        f"on/off {on / off:.4f} (the JAX contract: <= 1.02; not gated here); the "
+        f"per-step body's host cost around a no-op step {us[True]:.2f} us on, "
+        f"{us[False]:.2f} us off")
+
+
+def telemetry_trace(torch, work: Path) -> None:
+    """11d: SIGUSR2 at the first step of epoch 0 arms a capture that lands
+    in ``trace_on_demand/trace_000`` (closed when ``profile_epoch=1``'s
+    profiler starts) and names each attention kernel; a second SIGUSR2 at
+    the first step of epoch 1 is refused (profile_epoch's profiler is on)
+    and counted; the fit completes."""
+    import os
+    import signal
+
+    from distributedpytorch_tpu_torch.telemetry import get_registry
+
+    reg = get_registry()
+    done = reg.counter("trace_captures_total").value
+    failed = reg.counter("trace_capture_failures_total").value
+    tr = _telemetry_trainer(work, "profile_epoch=1")
+    pending = {0, 1}
+    scalars = tr.writer.scalars
+
+    def signalling(values, step):
+        if "train/loss" in values and values["train/epoch"] in pending:
+            pending.discard(values["train/epoch"])
+            os.kill(os.getpid(), signal.SIGUSR2)
+        return scalars(values, step)
+
+    tr.writer.scalars = signalling
+    try:
+        hist = tr.fit()
+    finally:
+        tr.close()
+    run = Path(tr.run_dir)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    traces = list((run / "trace_on_demand" / "trace_000").glob("*.pt.trace.json"))
+    if pending or len(traces) != 1 or len(hist["train_loss"]) != 2:
+        raise AssertionError(f"11d: signals left {pending}, traces {traces}, "
+                             f"epochs {hist['train_loss']}")
+    with open(traces[0]) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    counts = {k: sum(k in name for name in names) for k in ATTENTION_KERNELS}
+    captured = reg.counter("trace_captures_total").value - done
+    refused = reg.counter("trace_capture_failures_total").value - failed
+    if min(counts.values()) < 1 or captured != 1 or refused != 1:
+        raise AssertionError(f"11d: kernels in the trace {counts}, captures "
+                             f"{captured}, refused {refused}")
+    log(f"telemetry (d): SIGUSR2 -> {traces[0].relative_to(run)} "
+        f"({traces[0].stat().st_size / 2**20:.1f} MiB, {len(names)} kernels) holds "
+        f"{counts}; trace_captures_total +{captured:g}; the second SIGUSR2, during "
+        f"profile_epoch, refused and counted (trace_capture_failures_total "
+        f"+{refused:g}); the fit completed its 2 epochs")
+
+
+def _http(url: str, body: bytes | None = None, timeout: float = 120.0):
+    """(status, body bytes) of one request, or the exception's type name
+    when the connection closes unanswered."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=timeout)
+    try:
+        conn.request("GET" if body is None else "POST",
+                     parts.path + (f"?{parts.query}" if parts.query else ""),
+                     body=body, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    except (http.client.HTTPException, ConnectionError) as e:
+        return type(e).__name__, b""
+    finally:
+        conn.close()
+
+
+def telemetry_serve(torch, Predictor, InferenceService, make_server, work: Path) -> None:
+    """11e: the HTTP front's ``GET /metrics`` after a few predicts parses as
+    Prometheus text with the serve families and ``span_seconds``; ``POST
+    /debug/trace`` captures a batch; an ``error`` fault at
+    ``serve/enqueue`` fails its one request as on the JAX front (the
+    connection closes unanswered), and the next request is served."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.chaos import faults, sites
+    from distributedpytorch_tpu_torch.serve.client import encode_array
+    from distributedpytorch_tpu_torch.telemetry import TraceCapture
+
+    image, clicks = synthetic_image(0)
+    pred = Predictor.fresh(512, "resnet101", seed=0, device="cuda")
+    svc = InferenceService(pred, max_batch=4,
+                           trace=TraceCapture(str(work / "serve_trace"))).start()
+    server = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_port}"
+
+    def predict():
+        return _http(url + "/v1/predict", json.dumps(
+            {"image": encode_array(image),
+             "points": np.asarray(clicks[0]).tolist()}).encode())
+
+    try:
+        for _ in range(3):
+            code, _ = predict()
+            if code != 200:
+                raise AssertionError(f"11e: predict -> {code}")
+        code, reply = _http(url + "/debug/trace?steps=1", b"")
+        target = json.loads(reply)["trace_dir"] if code == 202 else None
+        predict()
+        predict()
+        code_m, text = _http(url + "/metrics")
+        text = text.decode()
+        plan = faults.FaultPlan.from_dict({"name": "front_door", "faults": [
+            {"site": "serve/enqueue", "kind": "error", "at": [1]}]})
+        with sites.armed_plan(plan):
+            faulted = predict()[0]
+            after = predict()[0]
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.stop()
+        thread.join(timeout=30)
+    families, samples = set(), 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            float(value)
+            samples += 1
+    want = {"serve_requests_total", "serve_completed_total", "serve_latency_seconds",
+            "serve_batch_dispatches_total", "span_seconds"}
+    traced = list(Path(target).glob("*.pt.trace.json")) if target else []
+    if code_m != 200 or not want <= families or len(traced) != 1:
+        raise AssertionError(f"11e: /metrics {code_m} families {sorted(families)}; "
+                             f"/debug/trace {code} {traced}")
+    if faulted != "RemoteDisconnected" or after != 200 or thread.is_alive():
+        raise AssertionError(f"11e: faulted request -> {faulted}, next -> {after}")
+    log(f"telemetry (e): GET /metrics -> 200, {len(families)} families, {samples} "
+        f"samples, serve families and span_seconds present; POST /debug/trace -> "
+        f"202, {Path(traced[0]).name} written; error fault at serve/enqueue: that "
+        f"request's connection closed unanswered ({faulted}, as on the JAX front), "
+        f"the next served ({after}); the front stopped cleanly")
+
+
+def phase_telemetry(torch, ca, Predictor, InferenceService, make_server) -> dict:
+    """Phase 11 (a-e); returns the launch counts of the default fit."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_telemetry_"))
+    try:
+        clean, launches = telemetry_default_fit(torch, work / "default")
+        telemetry_fault_fit(torch, work / "fault", clean)
+        log(f"telemetry: (a, b) done at {time.perf_counter() - t0:.1f} s")
+        telemetry_cost(torch, train_dataset(), work / "cost")
+        gc.collect()
+        torch.cuda.empty_cache()
+        telemetry_trace(torch, work / "trace")
+        log(f"telemetry: (c, d) done at {time.perf_counter() - t0:.1f} s")
+        telemetry_serve(torch, Predictor, InferenceService, make_server, work / "serve")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"telemetry: (e) done; phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"telemetry_fit": launches}
+
+
 #: the phases of a whole run, in order
-PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer")
+PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer",
+          "telemetry")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3608,6 +4028,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_semantic(torch, ca)
     if "trainer" in phases:
         paths.update(phase_trainer(torch, ca))
+    if "telemetry" in phases:
+        paths.update(phase_telemetry(torch, ca, Predictor, InferenceService, make_server))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")

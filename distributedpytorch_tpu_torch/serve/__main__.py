@@ -10,6 +10,15 @@ each request thread submits into the shared queue and blocks on its future.
                        | 503 service stopped or no result in time
     GET  /healthz   -> 200 / 503 with the service's health
     GET  /stats     -> the metrics snapshot
+    GET  /metrics   -> Prometheus text exposition of the process-wide
+                       telemetry registry (the serve counters, span
+                       percentiles, goodput gauges when co-hosted)
+    POST /debug/trace?steps=N
+                    -> arm a bounded on-demand ``torch.profiler`` capture
+                       of the next N batches (202 + target dir; 409 when
+                       one is already armed or active; 503 when the
+                       service has none).  SIGUSR2 arms the same default
+                       capture.  Traces land under ``--trace-dir``.
 
 The model is DANet with random weights from a seed (``--fresh-init
 SIZE:BACKBONE:SEED``), a saved ``state_dict`` of the port's DANet
@@ -18,12 +27,16 @@ its best checkpoint, or ``--step N``).  It runs on CUDA unless ``--device
 cpu``, in float32 with TF32 off, or in the run's precision with
 ``--run-dir`` (a bf16 run serves in bf16 on its float32 weights).
 SIGTERM/SIGINT stop the server, fail the queued requests and exit 0.
+An ``InjectedFaultError`` from an armed ``serve/enqueue`` fault
+(``DPTPU_CHAOS_PLAN``) is not caught, as on the JAX front: that request's
+connection closes without a reply, and the server serves on.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
@@ -33,6 +46,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..telemetry import prometheus
+from ..telemetry.registry import get_registry
+from ..telemetry.trace import TraceCapture, query_steps
 from .client import decode_array, encode_array
 from .service import (
     DeadlineExceededError,
@@ -55,9 +71,13 @@ def make_handler(service: InferenceService,
             pass
 
         def _reply(self, code: int, payload: dict) -> None:
-            body = json.dumps(payload).encode("utf-8")
+            self._reply_text(code, json.dumps(payload), "application/json")
+
+        def _reply_text(self, code: int, text: str,
+                        content_type: str) -> None:
+            body = text.encode("utf-8")
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
             if code == 429:
                 self.send_header("Retry-After", "1")
@@ -65,7 +85,10 @@ def make_handler(service: InferenceService,
             self.wfile.write(body)
 
         def do_GET(self) -> None:  # noqa: N802 — http.server's contract
-            if self.path == "/healthz":
+            if self.path == "/metrics":
+                self._reply_text(200, prometheus.render_text(get_registry()),
+                                 prometheus.CONTENT_TYPE)
+            elif self.path == "/healthz":
                 health = service.health()
                 self._reply(200 if health["ok"] else 503, health)
             elif self.path == "/stats":
@@ -79,7 +102,23 @@ def make_handler(service: InferenceService,
             except (TimeoutError, OSError, ValueError):
                 self.close_connection = True
                 return
-            if self.path != "/v1/predict":
+            base, _, query = self.path.partition("?")
+            if base == "/debug/trace":
+                if service.trace is None:
+                    self._reply(503, {"error": "trace capture not armed "
+                                               "for this service"})
+                    return
+                target = service.trace.request(query_steps(query))
+                if target is None:
+                    self._reply(409, {"error": "a trace capture is "
+                                               "already armed or active"})
+                else:
+                    self._reply(202, {"trace_dir": target,
+                                      "note": "starts at the next batch; "
+                                              "bounded by steps and a "
+                                              "wall-clock backstop"})
+                return
+            if base != "/v1/predict":
                 self._reply(404, {"error": f"no such path {self.path!r}"})
                 return
             try:
@@ -181,14 +220,20 @@ def main(argv: list[str] | None = None) -> int:
                         help="default per-request deadline (none = wait)")
     parser.add_argument("--warmup", action="store_true",
                         help="run every bucket once before taking traffic")
+    parser.add_argument("--trace-dir", default=None,
+                        help="where POST /debug/trace and SIGUSR2 write "
+                             "bounded profiler captures (default: "
+                             "<run-dir>/serve_trace, or ./serve_trace)")
     args = parser.parse_args(argv)
 
     predictor = build_predictor(args)
+    trace = TraceCapture(args.trace_dir or os.path.join(
+        args.run_dir or ".", "serve_trace"))
     service = InferenceService(
         predictor, max_batch=args.max_batch, queue_depth=args.queue_depth,
         max_wait_s=args.max_wait_ms / 1e3,
         default_deadline_s=None if args.deadline_ms is None
-        else args.deadline_ms / 1e3)
+        else args.deadline_ms / 1e3, trace=trace)
     if args.warmup:
         service.warmup()
     service.start()
@@ -200,6 +245,8 @@ def main(argv: list[str] | None = None) -> int:
 
     signal.signal(signal.SIGTERM, on_signal)
     signal.signal(signal.SIGINT, on_signal)
+    # SIGUSR2 arms the same bounded capture POST /debug/trace does
+    uninstall_trace_signal = trace.install_signal()
     print(json.dumps({"serving": f"http://{args.host}:{httpd.server_port}",
                       "device": str(predictor.device),
                       "dtype": str(predictor.dtype).removeprefix("torch."),
@@ -210,6 +257,7 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         service.stop()
         httpd.server_close()
+        uninstall_trace_signal()
         print(json.dumps({"stopped": True,
                           "stats": service.metrics.snapshot()}), flush=True)
     return 0

@@ -1,7 +1,7 @@
 """The inference service: bounded queue -> micro-batcher -> bucketed forward.
 
 Counterpart of ``distributedpytorch_tpu/serve/service.py`` without sessions,
-hot-swap, AOT, the compile watchdog, chaos sites or telemetry::
+hot-swap, AOT or the compile watchdog::
 
     client threads --submit()--> bounded queue --drain--> micro-batcher
                                                               |
@@ -19,7 +19,12 @@ hot-swap, AOT, the compile watchdog, chaos sites or telemetry::
 
 Host preprocessing (clicks -> guidance -> crop) runs on the caller's thread
 in :meth:`InferenceService.submit`; the worker owns the forward and the
-paste-back.
+paste-back.  The counters live in the telemetry registry
+(:class:`.metrics.ServeMetrics`), so ``GET /metrics`` exports them; the
+chaos sites ``serve/enqueue`` (the caller's thread, before anything is
+queued) and ``serve/drain`` (the worker, before the forward) fire as in
+the JAX service; an optional :class:`..telemetry.trace.TraceCapture` is
+driven by the worker, one tick per batch.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from typing import Any
 
 import numpy as np
 
+from ..chaos import sites as chaos_sites
 from . import batching
+from .metrics import ServeMetrics
 
 
 class QueueFullError(RuntimeError):
@@ -46,59 +53,6 @@ class DeadlineExceededError(TimeoutError):
 
 class ServiceUnhealthyError(RuntimeError):
     """The service refused the request (not running)."""
-
-
-def _percentile(values: list[float], q: float) -> float | None:
-    """Nearest-rank percentile, ``None`` when empty."""
-    if not values:
-        return None
-    ordered = sorted(values)
-    rank = max(1, int(np.ceil(q / 100.0 * len(ordered))))
-    return ordered[rank - 1]
-
-
-class ServeMetrics:
-    """Thread-safe counters, a bounded latency reservoir and the per-bucket
-    batch tally behind ``/stats``."""
-
-    def __init__(self, reservoir: int = 4096):
-        self._lock = threading.Lock()
-        self._counts: dict[str, int] = {}
-        self._latencies: list[float] = []
-        self._reservoir = reservoir
-        self._batches: dict[int, int] = {}
-        self._lanes_used = 0
-        self._lanes_total = 0
-
-    def count(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[name] = self._counts.get(name, 0) + n
-
-    def observe_latency(self, seconds: float) -> None:
-        with self._lock:
-            self._latencies.append(seconds)
-            if len(self._latencies) > self._reservoir:
-                del self._latencies[:len(self._latencies) - self._reservoir]
-
-    def observe_batch(self, bucket: int, n_real: int) -> None:
-        with self._lock:
-            self._batches[bucket] = self._batches.get(bucket, 0) + 1
-            self._lanes_used += n_real
-            self._lanes_total += bucket
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            lat = list(self._latencies)
-            p50, p99 = _percentile(lat, 50), _percentile(lat, 99)
-            return {
-                "counts": dict(self._counts),
-                "latency_p50_ms": None if p50 is None else p50 * 1e3,
-                "latency_p99_ms": None if p99 is None else p99 * 1e3,
-                "batches_by_bucket": {str(k): v for k, v in
-                                      sorted(self._batches.items())},
-                "lane_fill": (self._lanes_used / self._lanes_total
-                              if self._lanes_total else None),
-            }
 
 
 @dataclasses.dataclass
@@ -123,11 +77,13 @@ class InferenceService:
     bounds admission; ``max_wait_s`` bounds how long the batcher holds a
     lone request hoping for company; ``default_deadline_s`` applies to
     requests submitted without a deadline (``None``: no deadline).
+    ``trace`` is the on-demand profiler capture the worker drives
+    (``POST /debug/trace``, SIGUSR2 on the HTTP front).
     """
 
     def __init__(self, predictor, max_batch: int = 8, queue_depth: int = 64,
                  max_wait_s: float = 0.005,
-                 default_deadline_s: float | None = None):
+                 default_deadline_s: float | None = None, trace=None):
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
         if max_wait_s < 0:
@@ -138,6 +94,7 @@ class InferenceService:
         self.max_wait_s = max_wait_s
         self.default_deadline_s = default_deadline_s
         self.metrics = ServeMetrics()
+        self.trace = trace
         self._queue: queue.Queue[_Request] = queue.Queue(maxsize=queue_depth)
         self._stop = threading.Event()
         #: "new" (accepting, queued until start) -> "running" -> "stopped"
@@ -164,6 +121,9 @@ class InferenceService:
         the queue and drain as the first batch."""
         if self._state != "new":
             raise RuntimeError(f"cannot start a {self._state} service")
+        # chaos: arm an env-named fault plan (DPTPU_CHAOS_PLAN) for this
+        # service's lifetime; one getenv when unset
+        chaos_sites.maybe_arm_from_env()
         self._state = "running"
         self._worker = threading.Thread(target=self._run, name="serve-batcher",
                                         daemon=True)
@@ -216,6 +176,10 @@ class InferenceService:
         ``ValueError`` for bad inputs, before anything is queued."""
         if self._state == "stopped":
             raise ServiceUnhealthyError("service stopped")
+        # chaos seam, on the caller's thread: latency is a slow host
+        # preprocess, an error a front-door dependency failing — both
+        # before anything is queued
+        chaos_sites.fire("serve/enqueue")
         if self._queue.full():
             # shed before the host preprocessing: a rejection must be cheap
             self.metrics.count("shed_queue_full")
@@ -267,8 +231,14 @@ class InferenceService:
     def _run(self) -> None:
         while not self._stop.is_set():
             batch = self._gather()
+            if self.trace is not None:
+                # 1 step per batch, 0 on idle polls so the wall-clock
+                # backstop still closes a capture when traffic stops
+                self.trace.tick(1 if batch else 0)
             if batch:
                 self._process(batch)
+        if self.trace is not None:
+            self.trace.close()
 
     def _gather(self) -> list[_Request]:
         """Wait up to ``max_wait_s`` after the first request for company,
@@ -292,6 +262,19 @@ class InferenceService:
         return batch
 
     def _process(self, batch: list[_Request]) -> None:
+        # chaos seam, on the worker before the deadline check: latency
+        # stalls the drain like a slow device; a raised fault fails this
+        # batch and the worker serves on
+        try:
+            chaos_sites.fire("serve/drain", batch_size=len(batch))
+        except Exception as e:
+            failed = 0
+            for req in batch:
+                if req.future.set_running_or_notify_cancel():
+                    req.future.set_exception(e)
+                    failed += 1
+            self.metrics.count("failed", failed)
+            return
         now = time.perf_counter()
         live: list[_Request] = []
         for req in batch:

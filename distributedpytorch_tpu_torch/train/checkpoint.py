@@ -30,6 +30,14 @@ on rank 0 first (``consolidate_state_dict``, on every rank) into the plain
 SGD ``state_dict``, so a checkpoint restores under either strategy; every
 rank's dropout generator is saved (``generators``, by rank) and a restore
 into the same world size gives each rank its own back.
+
+Telemetry, as in the JAX manager: saves, restores and :meth:`wait` book
+under the goodput accountant's ``checkpoint`` bucket inside the spans
+``checkpoint/save``, ``checkpoint/restore`` and ``checkpoint/wait``; the
+flight recorder gets a ``save`` event per save, a ``commit`` per ledger
+write and a ``restore`` per restore; the chaos site ``checkpoint/save``
+fires after a save has landed (``path`` = its step directory, the
+truncation fault's target) and ``checkpoint/restore`` before a restore.
 """
 
 from __future__ import annotations
@@ -44,8 +52,11 @@ import shutil
 import torch
 import torch.distributed as dist
 
+from ..chaos import sites as chaos_sites
 from ..parallel import mesh
 from ..parallel.zero import is_sharded
+from ..telemetry import events as events_lib
+from ..telemetry import get_accountant, span
 
 _LEDGER = "COMMITTED.json"
 
@@ -172,12 +183,26 @@ class CheckpointManager:
         is_best = metric is not None and metric > self.best_metric
         if is_best:
             self.best_metric = float(metric)
+        with get_accountant().account("checkpoint"), span("checkpoint/save"):
+            self._save(step, state, metric, extra or {}, is_best)
+        if mesh.process_index() == 0:
+            chaos_sites.fire("checkpoint/save", step=int(step),
+                             path=os.path.join(self._slot(False), str(step)))
+        return is_best
+
+    def _save(self, step: int, state, metric: float | None, extra: dict,
+              is_best: bool) -> None:
         if is_sharded(state.optimizer):
             state.optimizer.consolidate_state_dict(to=0)
         generators = _gather_generators(state.generator)
+        event = {"best": is_best, "async": False,
+                 "preempted": bool(extra.get("preempted"))}
+        epoch = int(extra["epoch"]) if "epoch" in extra else None
         if mesh.process_index() != 0:
+            events_lib.emit("checkpoint", "save", step=int(step),
+                            epoch=epoch, payload=event)
             mesh.barrier()
-            return is_best
+            return
         model_state = state.model.state_dict()
         payload = {"model": model_state,
                    "optimizer": state.optimizer.state_dict(),
@@ -190,16 +215,28 @@ class CheckpointManager:
             meta["metric"] = float(metric)
         if self.digest:
             meta["param_digest"] = param_digest(model_state)
-        meta.update(extra or {})
+        meta.update(extra)
         for best in (False, True) if is_best else (False,):
             slot = self._slot(best)
             self._write(slot, step, payload, meta)
             self._prune(slot, 1 if best else self.keep_latest)
+        events_lib.emit("checkpoint", "save", step=int(step), epoch=epoch,
+                        payload=event)
+        latest = _steps(self._slot(False))
         atomic_write_json(os.path.join(self.directory, _LEDGER),
-                          {"latest": _steps(self._slot(False)),
-                           "best": _steps(self._slot(True))})
+                          {"latest": latest, "best": _steps(self._slot(True))})
+        # the commit anchor: the steps a restore may trust
+        events_lib.emit("checkpoint", "commit",
+                        step=(latest[-1] if latest else None),
+                        payload={"committed_steps": len(latest)})
         mesh.barrier()
-        return is_best
+
+    def wait(self) -> None:
+        """Block until the saves have landed: they are synchronous, so
+        this returns at once (the JAX manager's interface, and its
+        ``checkpoint/wait`` span)."""
+        with get_accountant().account("checkpoint"), span("checkpoint/wait"):
+            pass
 
     def latest_step(self) -> int | None:
         steps = self.committed_steps()
@@ -231,6 +268,19 @@ class CheckpointManager:
         newest committed one that reads back; the unreadable ones skipped
         on the way are in ``last_restore_fallback``.  A pinned ``step``
         never falls back."""
+        with get_accountant().account("checkpoint"), \
+                span("checkpoint/restore"), \
+                chaos_sites.inject("checkpoint/restore"):
+            meta = self._restore(state, step, best)
+        events_lib.emit(
+            "checkpoint", "restore",
+            step=(int(meta["step"]) if meta.get("step") is not None
+                  else None),
+            payload={"best": best,
+                     "fallback_steps": list(self.last_restore_fallback)})
+        return meta
+
+    def _restore(self, state, step: int | None, best: bool) -> dict:
         candidates = [step] if step is not None else \
             sorted(self.committed_steps(best=best), reverse=True)
         if not candidates:

@@ -336,8 +336,6 @@ UNPORTED = (
     "data.device_guidance", "data.prepared_cache",
     "data.uint8_transfer", "data.packbits_masks", "data.coalesce_wire",
     "data.steps_per_dispatch", "data.echo",
-    "data.governor", "data.governor_target", "data.governor_window",
-    "data.max_echo",
     "model.pam_block_size", "model.pam_impl", "model.quantization",
     "model.moe_experts", "model.guidance_inject",
     "parallel.model", "parallel.hbm_budget_gb",
@@ -354,6 +352,8 @@ PORTED_VALUES = {
     "model.pam_score_dtype": (None, "float32", "bfloat16"),
     # the data-only rungs; dp_tp, dp_tp_zero1 and auto are not ported
     "parallel.strategy": ("", "dp", "dp_zero1"),
+    # the governor observes; auto needs the actuators (data.echo) first
+    "data.governor": ("off", "observe"),
 }
 
 

@@ -29,6 +29,11 @@ host resize, TTA average) runs, and the copies go to pinned memory behind
 a CUDA event (:class:`_HostCopy`), so the host work overlaps the next
 forward on the card.  On the CPU this only reorders the work: the metrics
 are those of the one-batch-at-a-time loop, bit for bit.
+
+Spans (``telemetry/spans.py``), where the JAX evaluators put them:
+``eval/dispatch`` around the instance forward's launch, ``eval/pasteback``
+around its host paste-back, ``eval/readback`` around the semantic
+evaluator's bulk readback.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from .. import imaging
 from ..ops.metrics import confusion_matrix, miou_from_confusion, np_jaccard_thresholds
 from ..ops.warp import fullres_argmax
 from ..parallel.step import INPUT_KEY
+from ..telemetry import span
 from ..utils.helpers import crop2fullmask, fixed_resize, get_bbox, tens2image
 
 
@@ -125,21 +131,25 @@ def evaluate(eval_step: Callable, state, loader,
         gts = _as_list(batch["gt"], n)
         voids = _as_list(batch.get("void_pixels", [None] * n), n)
         bboxes = _as_list(batch["bbox"], n) if "bbox" in batch else [None] * n
-        for j in range(n):
-            gt = tens2image(np.asarray(gts[j]))
-            void = None if voids[j] is None else tens2image(np.asarray(voids[j]))
-            acc["n_samples"] += 1
-            if gt.max() <= 0.5:
-                for ti, th in enumerate(thresholds):
-                    acc["jac_sum"][ti] += float(not (probs[j] > th).any())
-                continue
-            bbox = tuple(int(v) for v in np.asarray(bboxes[j])) \
-                if bboxes[j] is not None \
-                else get_bbox(gt > 0.5, pad=relax, zero_pad=zero_pad)
-            full = crop2fullmask(probs[j], bbox, gt.shape[:2],
-                                 zero_pad=zero_pad, relax=relax)
-            acc["jac_sum"] += np_jaccard_thresholds(full, thresholds,
-                                                    gt > 0.5, void)
+        # the ragged host half, named so a paste-back-bound validation
+        # shows up as itself
+        with span("eval/pasteback"):
+            for j in range(n):
+                gt = tens2image(np.asarray(gts[j]))
+                void = None if voids[j] is None \
+                    else tens2image(np.asarray(voids[j]))
+                acc["n_samples"] += 1
+                if gt.max() <= 0.5:
+                    for ti, th in enumerate(thresholds):
+                        acc["jac_sum"][ti] += float(not (probs[j] > th).any())
+                    continue
+                bbox = tuple(int(v) for v in np.asarray(bboxes[j])) \
+                    if bboxes[j] is not None \
+                    else get_bbox(gt > 0.5, pad=relax, zero_pad=zero_pad)
+                full = crop2fullmask(probs[j], bbox, gt.shape[:2],
+                                     zero_pad=zero_pad, relax=relax)
+                acc["jac_sum"] += np_jaccard_thresholds(full, thresholds,
+                                                        gt > 0.5, void)
 
     def launched():
         for bi, batch in enumerate(loader):
@@ -147,7 +157,8 @@ def evaluate(eval_step: Callable, state, loader,
                 break
             if debug_asserts:
                 batch_debug_asserts(batch)
-            outputs, loss = eval_step(state, batch)
+            with span("eval/dispatch"):  # the launch, not the compute
+                outputs, loss = eval_step(state, batch)
             losses.append(loss)
             raw = outputs[0][:, 0]
             if bf16_readback:
@@ -345,14 +356,15 @@ def evaluate_semantic(eval_step: Callable, state, loader, nclass: int,
             yield functools.partial(tta_vote, batch, gt, passes)
 
     _look_ahead(launched())
-    if confs:
-        conf += torch.stack(confs).sum(0).cpu().numpy()
-    for maps, gts in fullres_maps:
-        maps = maps.cpu().numpy()
-        for j, g in enumerate(gts):
-            conf += _np_confusion(maps[j, :g.shape[0], :g.shape[1]], g,
-                                  nclass, ignore_index)
-    loss_sum = float(torch.stack(losses).sum()) if losses else 0.0
+    with span("eval/readback"):  # the epoch-end bulk copy to the host
+        if confs:
+            conf += torch.stack(confs).sum(0).cpu().numpy()
+        for maps, gts in fullres_maps:
+            maps = maps.cpu().numpy()
+            for j, g in enumerate(gts):
+                conf += _np_confusion(maps[j, :g.shape[0], :g.shape[1]], g,
+                                      nclass, ignore_index)
+        loss_sum = float(torch.stack(losses).sum()) if losses else 0.0
     n_batches = len(losses)
     if _distributed():
         device = losses[0].device if losses else torch.device("cpu")

@@ -8,8 +8,12 @@ stopped.  Under data parallelism the decision is a consensus, as in the
 JAX guard: at each check every rank's flag is gathered and the ranks stop
 if any is set (``replicated_decision(..., reduce="any")``), so a signal to
 one rank stops every rank at the same step.  With one process the
-decision is the local flag.  It publishes no telemetry (the port has none
-yet).
+decision is the local flag.  At each check the signals seen so far are
+published, as in the JAX guard: ``preemption_signals_total`` and
+``preemption_stop_pending`` in the registry and a ``preemption``
+``preempt`` event in the flight recorder (from normal thread context; the
+handler itself only counts); the consensus runs inside the span
+``preempt/consensus`` when there are several processes.
 """
 
 from __future__ import annotations
@@ -18,7 +22,10 @@ import contextlib
 import signal
 import threading
 
+from ..parallel import mesh
 from ..parallel.consensus import replicated_decision
+from ..telemetry import events as events_lib
+from ..telemetry import get_registry, is_enabled, span
 
 
 class PreemptionGuard:
@@ -52,6 +59,7 @@ class PreemptionGuard:
         self.check_every = max(1, int(check_every))
         #: termination signals delivered to this process
         self.signals_received = 0
+        self._signals_reported = 0
 
     def __enter__(self) -> "PreemptionGuard":
         for s in self._signals:
@@ -114,5 +122,32 @@ class PreemptionGuard:
         flag is set."""
         if step is not None and step % self.check_every != 0:
             return False
-        return bool(replicated_decision(self.triggered, reduce="any",
-                                        label="preemption/should_stop"))
+        self._publish_telemetry()
+        if mesh.data_axis_size() == 1:
+            return self.triggered
+        # the consensus is a host sync on the step-loop cadence: named, so
+        # its cost is attributable in a trace
+        with span("preempt/consensus"):
+            return bool(replicated_decision(
+                self.triggered, reduce="any",
+                label="preemption/should_stop"))
+
+    def _publish_telemetry(self) -> None:
+        """Mirror the handler's signal count into the registry and the
+        flight recorder (normal thread context — the handler stays
+        lock-free)."""
+        if not is_enabled():
+            return
+        seen = self.signals_received
+        if seen > self._signals_reported:
+            get_registry().counter(
+                "preemption_signals_total",
+                "termination signals delivered to this process"
+            ).inc(seen - self._signals_reported)
+            self._signals_reported = seen
+            events_lib.emit("preemption", "preempt",
+                            payload={"signals_received": seen})
+        get_registry().gauge(
+            "preemption_stop_pending",
+            "1 while a graceful stop is requested but not yet taken"
+        ).set(float(self.triggered))

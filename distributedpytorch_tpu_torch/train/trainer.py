@@ -37,8 +37,33 @@ run continues at that batch.
 
 It runs on CUDA unless ``device`` says otherwise.  A knob this port does
 not run yet, set away from its default, raises at construction
-(``config.unported_knobs``).  Left out for now: the sentinel, the feed
-governor, telemetry, elastic membership.
+(``config.unported_knobs``).  Left out for now: the sentinel (the fit
+summary's ``recovery`` block is null), elastic membership, and the feed
+governor's ``auto`` mode.
+
+Telemetry (``telemetry``, on by default, as in the JAX trainer): the
+flight recorder ``run_dir/events/<host>.<pid>.jsonl`` (``fit_start``,
+the checkpoint saves and commits, preemption, governor decisions, fault
+firings, ``fit_end`` with the goodput breakdown); the goodput accountant
+(``telemetry/goodput.py``) books the batch fetch under ``input_wait``,
+the first step under ``compile`` (on the card it pays the kernels' build,
+cuDNN's algorithm search and CUDA's lazy start) and every later one, with
+the loss reads at the log cadence and the epoch's end, under ``step``,
+validation under ``eval`` (on its own thread when overlapped) and the
+checkpoints under ``checkpoint``, with no synchronisation added; at the
+fit's end the breakdown and the MFU (model FLOPs from
+``telemetry.step_flops`` on a meta-device copy of the model, or
+``6 x params x batch`` if that fails) go to the writers (``goodput/*``,
+``mfu``), the registry and ``history``.  ``SIGUSR2`` arms a bounded
+``torch.profiler`` capture under ``run_dir/trace_on_demand`` (refused,
+and counted, while ``profile_epoch``'s profiler runs).  The feed governor
+(``data.governor=observe``, ``data/governor.py``) reads the input-wait
+share at the log cadence, writes its would-be decisions to
+``run_dir/governor.jsonl`` and actuates nothing; its summary is
+``history["feed"]``.  ``fit_summary.json`` always carries ``recovery``
+and ``feed`` (null when off).  ``telemetry=false`` turns every hook off.
+The chaos sites ``trainer/batch_fetch``, ``trainer/train_step`` and
+``checkpoint/save`` fire under a plan armed from ``DPTPU_CHAOS_PLAN``.
 
 Validation and observability: ``validate`` is the evaluation
 (``_eval_metrics``, no side effects) plus its logging (``_log_val``: the
@@ -86,7 +111,9 @@ import time
 import numpy as np
 import torch
 
+from ..chaos import sites as chaos_sites
 from ..data.fake import make_fake_voc
+from ..data.governor import FeedActuators, FeedGovernor
 from ..data.grain_pipeline import GrainDataLoader
 from ..data.pipeline import (
     DataLoader,
@@ -109,6 +136,10 @@ from ..parallel.step import (
 )
 from ..parallel.zero import shard_optimizer
 from ..predict import resolve_device
+from ..telemetry import TraceCapture, get_accountant, mfu_estimate, step_flops
+from ..telemetry import events as events_lib
+from ..telemetry import set_enabled as telemetry_set_enabled
+from ..telemetry.goodput import FeedWindow
 from . import config as config_lib
 from ..utils import profiling, weights
 from .checkpoint import (
@@ -127,6 +158,66 @@ from .logging import MultiWriter, make_val_panels, make_writer
 from .optim import make_optimizer
 from .precision import apply_policy, precision_block
 from .preemption import PreemptionGuard
+
+
+#: the guidance families the JAX package synthesises on the device
+#: (``distributedpytorch_tpu/ops/guidance_device.py``): the governor's
+#: flip eligibility names them as the JAX trainer does
+DEVICE_GUIDANCE_FAMILIES = ("nellipse_gaussians", "nellipse",
+                            "extreme_points", "confidence_l1l2",
+                            "confidence_gaussian")
+
+
+class _TrainerFeedActuators(FeedActuators):
+    """The feed governor's knobs, bound to a live trainer.  Under
+    ``observe`` (the only mode the port runs) the governor reads them and
+    never calls a setter."""
+
+    def __init__(self, trainer: "Trainer"):
+        self._t = trainer
+
+    def get_prefetch(self) -> tuple[int, int]:
+        return self._t._host_prefetch, self._t._device_prefetch
+
+    def set_prefetch(self, host: int, device: int) -> None:
+        raise NotImplementedError("the port's governor observes only")
+
+    def flip_available(self) -> tuple[bool, str]:
+        return self._t._feed_flip_available()
+
+    def flip_device_path(self) -> None:
+        raise NotImplementedError("the port's governor observes only")
+
+    def get_echo(self) -> int:
+        return self._t._echo
+
+    def base_echo(self) -> int:
+        return self._t.cfg.data.echo
+
+    def can_set_echo(self) -> tuple[bool, str]:
+        if self._t.cfg.data.steps_per_dispatch > 1:
+            return False, ("data.steps_per_dispatch > 1 packs distinct "
+                           "batches per dispatch — mutually exclusive "
+                           "with echo")
+        return True, ""
+
+    def set_echo(self, factor: int) -> None:
+        raise NotImplementedError("the port's governor observes only")
+
+    def pack_status(self) -> tuple[bool, str | None]:
+        return self._t._pack_status()
+
+
+def pack_command(root: str, out: str, dataset: str, kind: str, splits,
+                 area_thres: int | None = None) -> str:
+    """The ``dptpu-pack`` invocation that builds one pack, as the JAX
+    package's ``data/packed.py`` words it (the governor's rung-0 text)."""
+    parts = sorted([splits] if isinstance(splits, str) else list(splits))
+    cmd = (f"dptpu-pack --root {root or '<data-root>'} --dataset {dataset} "
+           f"--task {kind} --splits {','.join(parts)}")
+    if kind == "instance" and area_thres is not None:
+        cmd += f" --area-thres {int(area_thres)}"
+    return cmd + f" --out {out or '<pack-dir>'}"
 
 
 class _FrozenOptimizer:
@@ -200,6 +291,14 @@ class Trainer:
         self.precision = apply_policy(cfg.train.precision)
         self.run_dir = mesh.broadcast_object(
             next_run_dir(cfg.work_dir) if self.is_main else None)
+        # flight recorder: every rank opens its own
+        # run_dir/events/<host>.<pid>.jsonl; off = never configured, and
+        # every emit() is one list check
+        self._events = (events_lib.configure(self.run_dir)
+                        if cfg.telemetry else None)
+        if cfg.data.max_echo < 1:
+            raise ValueError(
+                f"data.max_echo must be >= 1, got {cfg.data.max_echo}")
         self.writer = MultiWriter(*[
             make_writer(name, self.run_dir,
                         experiment_name=cfg.experiment_name,
@@ -286,22 +385,7 @@ class Trainer:
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)  # the initial weights
-            self.model = build_model(
-                cfg.model.name, nclass=cfg.model.nclass,
-                backbone=cfg.model.backbone,
-                output_stride=cfg.model.output_stride,
-                attention_impl=cfg.model.attention_impl,
-                in_channels=cfg.model.in_channels,
-                dtype=(self.precision.compute_dtype if self.precision
-                       else cfg.model.dtype),
-                pam_score_dtype=cfg.model.pam_score_dtype,
-                remat=cfg.model.remat,
-                remat_policy=cfg.model.remat_policy or None,
-                aux_head=cfg.model.aux_head,
-                encnet_codes=cfg.model.encnet_codes,
-                ccnet_recurrence=cfg.model.ccnet_recurrence,
-                bn_cross_replica=self.distributed,
-                bn_fp32_stats=cfg.model.bn_fp32_stats)
+            self.model = build_model(**self._model_kwargs())
         total_steps = len(self.train_loader) * cfg.epochs
         optimizer, self.schedule = make_optimizer(cfg.optim, self.model,
                                                   total_steps)
@@ -330,7 +414,35 @@ class Trainer:
             keep_latest=cfg.checkpoint.keep_latest,
             best_metric_init=cfg.checkpoint.best_metric_init,
             digest=cfg.checkpoint.digest)
+        # the live feed knobs the governor reads (observe: never moved)
+        self._host_prefetch = cfg.data.prefetch
+        self._device_prefetch = cfg.data.device_prefetch
+        self._echo = cfg.data.echo
+        self._feed_flipped = False
+        # telemetry: the compile-vs-step split (the first train step books
+        # under 'compile'), the MFU inputs and the on-demand trace
+        self._step_compiled = False
+        self._prod_steps = 0
+        self._flops_per_step: float | None = None
+        self._flops_source: str | None = None
+        self._trace = TraceCapture(
+            os.path.join(self.run_dir, "trace_on_demand")) \
+            if (cfg.telemetry and self.is_main) else None
+        # the feed governor, observing on rank 0 (its signal is the goodput
+        # accountant's, so it needs telemetry); _feed_last is the previous
+        # tick's goodput snapshot
+        self._governor = FeedGovernor(
+            cfg.data.governor, cfg.data.governor_target,
+            _TrainerFeedActuators(self), max_echo=cfg.data.max_echo,
+            window=FeedWindow(cfg.data.governor_window),
+            jsonl_path=os.path.join(self.run_dir, "governor.jsonl"),
+            telemetry=True) \
+            if (cfg.data.governor != "off" and cfg.telemetry
+                and self.is_main) else None
+        self._feed_last: dict | None = None
         self.start_epoch = 0
+        #: whether the resume crossed a plan (another strategy or world size)
+        self.resume_plan_crossing = False
         #: batches of ``start_epoch`` a preempted run already trained
         self._resume_start_batch = 0
         #: steps the resume's restore skipped as unreadable
@@ -362,6 +474,22 @@ class Trainer:
                 f.writelines(f"{k}: {v}\n" for k, v in flat.items())
             config_lib.to_json(cfg, os.path.join(self.run_dir, "config.json"))
         self.writer.hparams(flat)
+
+    def _model_kwargs(self) -> dict:
+        """``build_model``'s arguments for this config."""
+        m = self.cfg.model
+        return dict(
+            name=m.name, nclass=m.nclass, backbone=m.backbone,
+            output_stride=m.output_stride, attention_impl=m.attention_impl,
+            in_channels=m.in_channels,
+            dtype=(self.precision.compute_dtype if self.precision
+                   else m.dtype),
+            pam_score_dtype=m.pam_score_dtype, remat=m.remat,
+            remat_policy=m.remat_policy or None, aux_head=m.aux_head,
+            encnet_codes=m.encnet_codes,
+            ccnet_recurrence=m.ccnet_recurrence,
+            bn_cross_replica=self.distributed,
+            bn_fp32_stats=m.bn_fp32_stats)
 
     def _print(self, msg: str) -> None:
         """Print on rank 0 only."""
@@ -446,8 +574,9 @@ class Trainer:
         self.start_epoch = int(meta.get("epoch", 0)) + 1
         self.ckpt.best_metric = float(meta.get("best_metric",
                                                self.ckpt.best_metric))
-        if plan_lib.plans_differ(meta.get("plan"), self.plan.block(),
-                                 self.world):
+        self.resume_plan_crossing = plan_lib.plans_differ(
+            meta.get("plan"), self.plan.block(), self.world)
+        if self.resume_plan_crossing:
             self._print(f"plan crossing: checkpoint saved under "
                         f"{meta.get('plan')}, restored under "
                         f"{self.plan.block()}")
@@ -488,17 +617,27 @@ class Trainer:
         losses: list[torch.Tensor] = []
         data_s = 0.0
         t0 = time.perf_counter()
+        # goodput: host perf_counter bookkeeping only, no sync added; the
+        # device time the host waits for lands in the bucket it waits in
+        acct = get_accountant()
         batches = iter(self.train_loader)
         try:
             while True:
                 t_data = time.perf_counter()
-                batch = next(batches, None)
+                # input wait: host time blocked on the loader; an injected
+                # latency here is input stall, a poisoned payload tears
+                # the batch the step is about to consume
+                with acct.account("input_wait"):
+                    batch = next(batches, None)
+                    if batch is not None:
+                        batch = chaos_sites.fire("trainer/batch_fetch",
+                                                 payload=batch)
                 data_s += time.perf_counter() - t_data
                 if batch is None:
                     break
                 if cfg.debug_asserts:
                     self._debug_asserts(batch)
-                losses.append(self.train_step(self.state, batch))
+                losses.append(self._dispatch(batch))
                 step = self.state.step
                 if guard is not None and guard.should_stop(step):
                     interrupted = True
@@ -506,12 +645,19 @@ class Trainer:
                 if step % cfg.log_every_steps == 0:
                     if abort_check is not None:
                         abort_check()
-                    self.writer.scalars({"train/loss": float(losses[-1]),
+                    # the one regular sync: it pays the device time of the
+                    # steps queued since the last read — productive time
+                    with acct.account("step"):
+                        loss_now = float(losses[-1])
+                    if self._governor is not None:
+                        self._feed_tick(epoch, step)
+                    self.writer.scalars({"train/loss": loss_now,
                                          "train/lr": self.schedule(step - 1),
                                          "train/epoch": epoch}, step)
         finally:
             batches.close()  # stops the loader's threads or workers
-        loss_arr = torch.stack(losses).cpu().numpy()
+        with acct.account("step"):  # the epoch's steps landing
+            loss_arr = torch.stack(losses).cpu().numpy()
         dt = time.perf_counter() - t0
         if not np.all(np.isfinite(loss_arr)):
             msg = (f"{int((~np.isfinite(loss_arr)).sum())}/{loss_arr.size} "
@@ -535,6 +681,160 @@ class Trainer:
         self.writer.scalars(scalars, self.state.step)
         return float(loss_arr.mean())
 
+    def _dispatch(self, batch) -> torch.Tensor:
+        """One train step, goodput-attributed: the first books under
+        'compile' (it pays the kernels' build, cuDNN's algorithm search and
+        CUDA's lazy start), with the FLOP count beside it; the rest under
+        'step'.  The on-demand trace ticks before the step, so an armed
+        capture starts on the step it was requested for."""
+        acct = get_accountant()
+        if self._trace is not None:
+            self._trace.tick(1)
+        first = not self._step_compiled
+        with acct.account("compile" if first else "step"):
+            loss = self.train_step(self.state, batch)
+        if first:
+            self._step_compiled = True
+            with acct.account("compile"):
+                self._note_step_cost(batch)
+        else:
+            self._prod_steps += 1
+        # chaos seam, between steps: sigterm is a preemption landing
+        # mid-epoch, nan poisons the loss the loop observes
+        return chaos_sites.fire("trainer/train_step", payload=loss)
+
+    def _note_step_cost(self, batch) -> None:
+        """One-shot model FLOPs per step for the MFU: ``step_flops`` on a
+        meta-device copy of the model with the plain attention forms (the
+        counter cannot see the kernels; the plain forms do the same
+        products), at this rank's batch, times the ranks; on failure the
+        JAX trainer's floor, 6 x params x the global batch.  The source is
+        recorded so an estimate never passes for a count."""
+        if self._flops_per_step is not None or not self.cfg.telemetry:
+            return
+        flops = None
+        try:
+            n, h, w, c = np.asarray(batch["concat"]).shape
+            kwargs = dict(self._model_kwargs(), remat=False,
+                          remat_policy=None, dtype="float32",
+                          bn_cross_replica=False)
+            if self.cfg.model.name == "danet":
+                kwargs["attention_impl"] = "xla"
+            with torch.device("meta"):
+                model = build_model(**kwargs)
+            flops = step_flops(model.train(), torch.zeros(
+                (n, c, h, w), device="meta")) * self.world
+        except Exception as e:  # a count failure must not kill the fit
+            self._print(f"warning: FLOP count failed ({type(e).__name__}: "
+                        f"{e}); MFU from the parameter estimate")
+        if flops and flops > 0:
+            self._flops_source = "flop_counter"
+        else:
+            flops = 6.0 * self.n_params * self.cfg.data.train_batch
+            self._flops_source = "param_estimate"
+        self._flops_per_step = flops
+
+    def _report_goodput(self, history: dict) -> None:
+        """Fit-end goodput breakdown and MFU estimate: into the writers
+        (``goodput/*``, ``mfu``), the registry gauges (``/metrics`` when
+        co-hosted) and ``history``."""
+        if not self.cfg.telemetry:
+            return
+        rep = get_accountant().report()
+        history["goodput"] = rep
+        scalars = {f"goodput/{b}_s": round(v, 4)
+                   for b, v in rep["buckets"].items()}
+        scalars["goodput/total_s"] = round(rep["total_s"], 4)
+        scalars["goodput/productive_frac"] = round(rep["goodput"], 4)
+        if self._flops_per_step and self._prod_steps:
+            step_time = rep["buckets"]["step"] / self._prod_steps
+            if step_time > 0:
+                kind = torch.cuda.get_device_name(self.device) \
+                    if self.device.type == "cuda" else self.device.type
+                est = mfu_estimate(self._flops_per_step / self.world,
+                                   step_time, device_kind=kind)
+                est["flops_source"] = self._flops_source
+                history["mfu"] = est
+                scalars["mfu"] = round(est["mfu"], 6)
+                scalars["mfu/flops_per_step"] = self._flops_per_step
+                scalars["mfu/peak_flops_per_device"] = \
+                    est["peak_flops_per_device"]
+        self.writer.scalars(scalars, self.state.step)
+
+    def _feed_tick(self, epoch: int, step: int) -> None:
+        """Log-cadence governor observation: the goodput snapshot's delta
+        since the previous tick (step + compile busy, input wait) into the
+        stall window.  Pure perf_counter bookkeeping."""
+        snap = get_accountant().snapshot()
+        last, self._feed_last = self._feed_last, snap
+        if last is None:
+            return
+        busy = (snap["step"] - last["step"]) \
+            + (snap["compile"] - last["compile"])
+        wait = snap["input_wait"] - last["input_wait"]
+        if busy + wait <= 0:
+            return
+        self._governor.tick(busy, wait, step=step, epoch=epoch)
+
+    def _feed_flip_available(self) -> tuple[bool, str]:
+        """The governor's rung-2 eligibility, answered for this config as
+        the JAX trainer answers it (``_feed_flip_available``): the reason,
+        or the recommendation naming the config keys."""
+        cfg = self.cfg
+        already = cfg.data.device_augment and (
+            cfg.task == "semantic" or cfg.data.device_guidance
+            or cfg.data.guidance == "none")
+        if already or self._feed_flipped:
+            return False, "on-device augmentation + guidance already active"
+        if cfg.data.coalesce_wire:
+            return False, (
+                "coalesce_wire packed the wire layout from the current "
+                "host pipeline — set data.device_augment/"
+                "data.device_guidance in the config instead")
+        if cfg.data.prepared_cache:
+            return False, (
+                "prepared cache owns the pipeline front — set "
+                "data.device_augment/data.device_guidance (and consider "
+                "data.uint8_transfer) in the config instead")
+        if cfg.data.loader != "threads":
+            return False, (
+                "grain loader builds its pipeline up front — set "
+                "data.device_augment/data.device_guidance in the config")
+        if cfg.task == "instance" and cfg.data.guidance != "none" \
+                and not cfg.data.device_guidance \
+                and cfg.data.guidance not in DEVICE_GUIDANCE_FAMILIES:
+            return False, (
+                f"guidance family {cfg.data.guidance!r} has no device "
+                f"implementation (supported: {DEVICE_GUIDANCE_FAMILIES}) — "
+                "data.prepared_cache is the remaining lever")
+        what = "flip augmentation"
+        if cfg.task == "instance" and cfg.data.guidance != "none":
+            what += " + guidance synthesis"
+        return True, (f"move {what} on device "
+                      "(data.device_augment=true"
+                      + (", data.device_guidance=true"
+                         if cfg.task == "instance"
+                         and cfg.data.guidance != "none" else "") + ")")
+
+    def _pack_status(self) -> tuple[bool, str | None]:
+        """The governor's rung-0 input: whether the run feeds from a pack,
+        and if not, the pack commands (worded as the JAX trainer words
+        them; the fake fixture lives in memory, so its root is
+        ``<data-root>``)."""
+        d = self.cfg.data
+        if d.source == "packed":
+            return True, None
+        root = "" if d.fake else d.root
+        area = d.area_thres if self.cfg.task == "instance" else None
+        cmds = [pack_command(root, d.pack_path, "voc", self.cfg.task,
+                             [split], area)
+                for split in (d.train_split, d.val_split)]
+        return False, (
+            "rung 0 — cheaper than tuning around the stall is deleting "
+            "it: pre-decode the dataset once and train from the mmap "
+            "(data.source=packed data.pack_path=<out>): `"
+            + " && ".join(cmds) + "`")
+
     def _debug_asserts(self, batch) -> None:
         if self.cfg.task == "semantic":
             semantic_batch_debug_asserts(batch, self.cfg.model.nclass)
@@ -547,6 +847,13 @@ class Trainer:
         first batch's record (None for the semantic task), with no writer
         or checkpoint side effects, so that it can run on the overlapped
         validation's thread."""
+        # goodput: validation books under 'eval' (on the overlapped
+        # validation's thread, its own per-thread stack)
+        with get_accountant().account("eval"):
+            return self._eval_metrics_inner(state, epoch)
+
+    def _eval_metrics_inner(self, state, epoch: int | None
+                            ) -> tuple[dict, dict | None]:
         cfg = self.cfg
         self.val_loader.set_epoch(0)
         if cfg.task == "semantic":
@@ -700,7 +1007,9 @@ class Trainer:
         steps, and at the epoch's end), saves the whole state once —
         marked with the interrupted epoch and its steps done — and
         returns.  The attention kernels' launch counts of the fit go to
-        ``fit_summary.json``."""
+        ``fit_summary.json``, beside the ``recovery`` (null: no sentinel
+        yet) and ``feed`` (the governor's summary, null when off) blocks;
+        with telemetry, ``history`` also carries ``goodput`` and ``mfu``."""
         cfg = self.cfg
         history: dict = {"train_loss": [], "val": []}
         if cfg.profile_epoch is not None and self.is_main and not \
@@ -710,7 +1019,28 @@ class Trainer:
                   "trace will be written", flush=True)
         cuda_attention.reset_launches()
         start_step = self.state.step
+        # the goodput books cover exactly this fit; set_enabled gates every
+        # optional instrumentation path process-wide, so telemetry=false
+        # is the zero-instrumentation baseline
+        telemetry_set_enabled(cfg.telemetry)
+        get_accountant().reset(enabled=cfg.telemetry)
+        # the generation's opening anchor (an unpaired fit_start is the
+        # crash evidence)
+        events_lib.emit(
+            "trainer", "fit_start", step=self.state.step,
+            epoch=self.start_epoch,
+            payload={"epochs": cfg.epochs,
+                     "resumed": bool(self.resume_meta),
+                     "plan_crossing": self.resume_plan_crossing})
+        # an env-named fault plan (DPTPU_CHAOS_PLAN): one getenv when unset
+        chaos_sites.maybe_arm_from_env()
+        self._prod_steps = 0
+        # the books were just zeroed: a fresh fit starts a fresh window
+        self._feed_last = None
         with contextlib.ExitStack() as stack:
+            if self._trace is not None:
+                stack.callback(self._trace.close)
+                stack.callback(self._trace.install_signal())
             if guard is None and cfg.checkpoint.save_on_preempt:
                 guard = stack.enter_context(PreemptionGuard(
                     check_every=cfg.checkpoint.preempt_check_every))
@@ -722,9 +1052,15 @@ class Trainer:
                 t0 = time.perf_counter()
                 sb, self._resume_start_batch = self._resume_start_batch, 0
                 estep0 = self.state.step
-                trace = profiling.trace(os.path.join(self.run_dir, "profile")) \
-                    if cfg.profile_epoch == epoch and self.is_main \
-                    else contextlib.nullcontext()
+                if cfg.profile_epoch == epoch and self.is_main:
+                    if self._trace is not None:
+                        # one profiler at a time: an on-demand capture
+                        # still open ends before profile_epoch's starts
+                        self._trace.close()
+                    trace = profiling.trace(
+                        os.path.join(self.run_dir, "profile"))
+                else:
+                    trace = contextlib.nullcontext()
                 with trace:
                     epoch_loss = self.train_epoch(
                         epoch, guard=guard, start_batch=sb,
@@ -748,6 +1084,10 @@ class Trainer:
                     self.writer.scalars({"preempted_at_epoch": epoch}, step)
                     break
                 history["train_loss"].append(epoch_loss)
+                if self._governor is not None:
+                    # the epoch-boundary rungs, observed: before validation
+                    # (which books its own bucket, outside the window)
+                    self._governor.epoch_boundary(epoch=epoch, step=step)
                 if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0:
                     if cfg.val_overlap:
                         self._launch_overlapped_val(epoch, step)
@@ -767,6 +1107,12 @@ class Trainer:
             with guard.shield() if guard is not None \
                     else contextlib.nullcontext():
                 self._join_overlapped_val(history)
+                self.ckpt.wait()
+            # after the last save has landed, so its wait is in the books
+            self._report_goodput(history)
+        history["recovery"] = None  # no sentinel yet: the key is there
+        history["feed"] = (self._governor.summary_block()
+                           if self._governor is not None else None)
         preempted = bool(history.get("preempted"))
         # every rank's step, gathered: the ranks must stop together
         steps = replicated_decision(self.state.step, reduce=list,
@@ -783,11 +1129,28 @@ class Trainer:
                 "final_step_by_rank": steps,
                 "plan": self.plan.block(),
                 "precision": precision_block(self.precision),
-                "kernel_launches": dict(cuda_attention.launches)})
+                "kernel_launches": dict(cuda_attention.launches),
+                "recovery": history["recovery"],
+                "feed": history["feed"]})
+        gp = history.get("goodput") or {}
+        events_lib.emit(
+            "trainer", "fit_end", step=self.state.step,
+            payload={"preempted": preempted,
+                     "epochs_recorded": len(history["train_loss"]),
+                     "rollbacks": 0,
+                     # the goodput breakdown rides the closing anchor
+                     "goodput": {"total_s": gp.get("total_s"),
+                                 "buckets": gp.get("buckets"),
+                                 "productive_frac": gp.get("goodput")}})
         self.writer.flush()
         return history
 
     def close(self) -> None:
+        if self._trace is not None:
+            self._trace.close()
         if isinstance(self.train_loader, GrainDataLoader):
             self.train_loader.close()
         self.writer.close()
+        # restores any outer event log as the current sink
+        events_lib.release(self._events)
+        self._events = None

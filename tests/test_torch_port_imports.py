@@ -78,6 +78,21 @@ def test_data_parallel_modules_are_checked():
         assert PORT / (name.replace(".", "/") + ".py") in SOURCES
 
 
+def test_telemetry_and_chaos_modules_are_checked():
+    """The telemetry and chaos core, the serve metrics and the governor
+    stand alone too: the JAX package's copies import JAX lazily, the
+    port's import none of it."""
+    for name in ("telemetry", "telemetry.registry", "telemetry.prometheus",
+                 "telemetry.spans", "telemetry.events", "telemetry.goodput",
+                 "telemetry.trace", "chaos", "chaos.faults", "chaos.sites",
+                 "chaos.policies", "serve.metrics", "data.governor"):
+        assert f"distributedpytorch_tpu_torch.{name}" in MODULES
+        path = PORT / (name.replace(".", "/") + ".py")
+        if not path.exists():
+            path = PORT / name / "__init__.py"
+        assert path in SOURCES
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
                          capture_output=True, text=True, timeout=240,
