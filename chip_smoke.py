@@ -200,6 +200,44 @@ it), printing no result.  The phases, each raising on failure:
              writes a trace, and an ``error`` fault at ``serve/enqueue``
              closes that request's connection unanswered (as the JAX front
              does) while the next request is served.
+12. devdata — device-side instance data, DANet-R101 at 512² in bf16:
+             (a) the device stage (``data.device_augment`` +
+             ``device_augment_geom`` + ``device_guidance``,
+             ``nellipse_gaussians``) at B = 16 on the card against the CPU
+             on the same draws: max |diff| per key printed; the image
+             channels within ``DEV_IMAGE_TOL`` = 1e-2 on [0, 255] (an ulp
+             of ``cos``/``sin`` moves a source coordinate by ~1e-5 px),
+             the masks differing on at most ``DEV_MASK_FRAC`` = 1e-4 of
+             their pixels (a nearest coordinate within an ulp of a half
+             pixel), the guidance channel from the same mask and draws
+             within ``DEV_GUIDE_TOL`` = 1e-2; (b) the stage under
+             ``torch.cuda.set_sync_debug_mode("error")``; (c) its device
+             ms (CUDA events, median of 20) beside the host's ms for the
+             same work on a batch of cached crops and 6i's loader ms; (d)
+             the B = 16 bf16 step fed from the host (as 6e) against the
+             device stage fed by ``prefetch_to_device`` with a window of 2,
+             median of 5 in turns, images/s, idle share, peak memory, one
+             launch per kernel per step; (e) the default fit (as 11a) in turns
+             with the path the prefetcher replaced (bypassed: the step
+             copies the host batch from pageable memory), in-step, window
+             2, window 2, in-step, then ``data.device_prefetch=0``, then 2
+             with the device stage and ``data.prepared_cache``: the
+             input-wait share and buckets,
+             the launches exactly the steps plus the val samples; (f) that
+             fit's validation (the prepared val cache, device guidance): ms
+             per sample and the idle share in a profiler window, its
+             Jaccard within ``DEV_VAL_JAC_TOL`` = 1e-2 of the host-guidance
+             validation of the same cache and weights; (g) the prepared
+             cache at 512² from 375x500 images: fill and read ms per
+             sample, bytes per sample, read back bitwise; (h) a
+             ``device/put`` latency fault (``DEV_PUT_DELAY_S`` = 0.2 s a
+             placement) leaves ``input_wait`` at least the epochs times
+             the delay (each epoch's first placement cannot hide behind a
+             step), its growth over the clean fit printed; an error fault
+             fails the fit loudly and leaves no placement thread; (i) one config-4 step (DeepLabV3-R101 513², B = 8,
+             bf16) with the device flip and scale-rotate: finite loss, the
+             warped-out ``crop_gt`` ring 255 and the ids exact, no attention
+             kernel launched.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2, grain, tensorboard and matplotlib are
@@ -213,13 +251,13 @@ rank of phase 8 (a) and (b) before each of its steps (the data-parallel
 path, rank 0's counts summed), zeroed just before phase 10a's overlapped
 epoch and read after its join (the overlapped validation path), and
 zeroed by the trainer when phase 10c's fit starts and read from its
-``fit_summary.json``, and likewise for phase 11a's default fit: every
-kernel must have run on each.  Every
+``fit_summary.json``, and likewise for phase 11a's default fit and phase
+12e's fit with the device stage: every kernel must have run on each.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic,trainer,telemetry``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -2060,6 +2098,7 @@ def phase_loaders(tree=None, n_images: int = 64,
         "count: " + ", ".join(f"{n}: {'not measured' if v is None else f'{v / 2**20:.1f} MiB'}"
                               for n, v in shm.items()))
     log("host data: " + json.dumps({k: round(v, 2) for k, v in results.items()}))
+    STEP_MS["6i threads (2) + host library"] = results["threads (2) + host library"]
     return results
 
 
@@ -3592,15 +3631,17 @@ def _telemetry_trainer(work: Path, *extra: str):
                    device="cuda")
 
 
-def _telemetry_fit(torch, work: Path, plan: dict | None = None):
-    """One fit of ``TELEMETRY_ARGS`` (through ``DPTPU_CHAOS_PLAN`` when a
-    plan is given); returns its run dir, history, events block and the
-    loader's prefetch depth and echo factor after the fit."""
+def _telemetry_fit(torch, work: Path, plan: dict | None = None,
+                   extra: tuple[str, ...] = ()):
+    """One fit of ``TELEMETRY_ARGS`` and ``extra`` (through
+    ``DPTPU_CHAOS_PLAN`` when a plan is given); returns its run dir,
+    history, events block and the loader's prefetch depth and echo factor
+    after the fit."""
     import os
 
     from distributedpytorch_tpu_torch.chaos import sites
 
-    tr = _telemetry_trainer(work)
+    tr = _telemetry_trainer(work, *extra)
     if plan is not None:
         os.environ[sites.PLAN_ENV] = json.dumps(plan)
     try:
@@ -3958,9 +3999,490 @@ def phase_telemetry(torch, ca, Predictor, InferenceService, make_server) -> dict
     return {"telemetry_fit": launches}
 
 
+#: phase 12's bounds.  (a) the device stage on the card against the CPU on
+#: the same draws: the image channels within DEV_IMAGE_TOL on [0, 255]
+#: (the same gathers and weights; ``cos``/``sin`` and the coordinate
+#: arithmetic may differ by an ulp between the two, which moves a source
+#: coordinate by ~1e-5 px, times the steepest step between neighbours);
+#: the masks differ on at most DEV_MASK_FRAC of their pixels (a nearest
+#: source coordinate within an ulp of a half pixel rounds the other way);
+#: the guidance channel computed from the same mask and the same draws
+#: within DEV_GUIDE_TOL on [0, 255] (float32 ``exp``/``sqrt`` of the two)
+DEV_IMAGE_TOL, DEV_MASK_FRAC, DEV_GUIDE_TOL = 1e-2, 1e-4, 1e-2
+#: (f) the Jaccard of the device-guidance validation against the
+#: host-guidance validation of the same cache and weights (the bound of
+#: the CPU fit band, tests/test_torch_port_fit_band.py)
+DEV_VAL_JAC_TOL = 1e-2
+#: (h) the device/put latency fault's delay.  The window starts empty at
+#: every epoch and the worker pulls and places the epoch's first batch
+#: only when the consumer first asks for it, so that placement's sleep
+#: cannot hide behind a step: the faulted fit's ``input_wait`` must be at
+#: least (epochs x DEV_PUT_DELAY_S), whatever the window hides of the rest
+DEV_PUT_DELAY_S = 0.2
+#: the device stage of phase 12's fits and steps
+DEVICE_STAGE_ARGS = ["data.device_augment=true", "data.device_augment_geom=true",
+                     "data.device_guidance=true"]
+
+
+def devdata_dataset():
+    """The fake fixture's train split through the host stack the device
+    stage leaves: crop and resize to 512², no flip, rotation or guidance
+    (``concat`` has the 3 image channels)."""
+    from distributedpytorch_tpu_torch.data import fake, pipeline, voc
+
+    tree = fake.make_fake_voc(n_images=8, size=(96, 128), n_val=3, seed=0)
+    return voc.VOCInstanceSegmentation(
+        tree, split="train", area_thres=0,
+        transform=pipeline.build_train_transform(
+            crop_size=(512, 512), guidance="none", flip=False, geom=False))
+
+
+def _device_stage():
+    from distributedpytorch_tpu_torch.ops.augment import make_device_augment
+    from distributedpytorch_tpu_torch.ops.guidance_device import make_device_guidance
+
+    return make_device_augment(hflip=True, scale_rotate=True,
+                               guidance_fn=make_device_guidance())
+
+
+def devdata_stage(torch, dataset, batch_size: int = 16):
+    """12a-b: the device stage on the card against the CPU from the same
+    draws, and on the card under ``set_sync_debug_mode("error")``; returns
+    the stage and its device ms (12c)."""
+    from distributedpytorch_tpu_torch.data import pipeline
+    from distributedpytorch_tpu_torch.ops.augment import make_device_augment
+    from distributedpytorch_tpu_torch.ops.guidance_device import make_device_guidance
+    from distributedpytorch_tpu_torch.parallel.step import device_batch, step_generator
+
+    loader = pipeline.DataLoader(Cycled(dataset, batch_size), batch_size,
+                                 shuffle=True, drop_last=True, seed=0)
+    host = next(iter(loader))
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    on_cpu, on_card = device_batch(host, cpu), device_batch(host, cuda)
+    stage, geometry = _device_stage(), make_device_augment(hflip=True,
+                                                           scale_rotate=True)
+    draws = stage.draw(on_cpu, torch.Generator().manual_seed(0))
+    card_draws = {k: v.to(cuda) for k, v in draws.items()}
+    g_cpu = geometry.apply(on_cpu, draws)
+    g_card = geometry.apply(on_card, card_draws)
+    image = float((g_card["concat"].cpu() - g_cpu["concat"]).abs().max())
+    flips = {k: float((g_card[k].cpu() != g_cpu[k]).float().mean())
+             for k in ("crop_gt",)}
+    guide = make_device_guidance()
+    same = {k: v.to(cuda) for k, v in g_cpu.items()}
+    m_cpu = guide.apply(g_cpu, u=draws["guidance_u"])["concat"][:, 3]
+    m_card = guide.apply(same, u=card_draws["guidance_u"])["concat"][:, 3]
+    guidance = float((m_card.cpu() - m_cpu).abs().max())
+    full_cpu = stage.apply(on_cpu, draws)
+    full_card = stage.apply(on_card, card_draws)
+    per_key = {k: float((full_card[k].cpu() - full_cpu[k]).abs().max())
+               for k in full_cpu}
+    log(f"devdata (a): the device stage (flip, scale-rotate, nellipse_gaussians "
+        f"guidance) at B={batch_size} 512^2, card against CPU on the same draws: "
+        f"max |diff| per key of the whole stage {json.dumps(per_key)}; geometry "
+        f"only: image {image:.3e}, crop_gt pixels differing {flips['crop_gt']:.3e}; "
+        f"guidance on the same mask and draws {guidance:.3e} (0-255 scale)")
+    check("12a device stage card vs CPU, image channels", image, DEV_IMAGE_TOL)
+    check("12a device stage card vs CPU, mask pixels differing", flips["crop_gt"],
+          DEV_MASK_FRAC)
+    check("12a device guidance card vs CPU, same mask and draws", guidance,
+          DEV_GUIDE_TOL)
+    if full_card["concat"].shape != (batch_size, 4, 512, 512) \
+            or not torch.isfinite(full_card["concat"]).all():
+        raise AssertionError(f"12a: stage output {tuple(full_card['concat'].shape)}")
+
+    gen = step_generator(0, 1, 0, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = stage(on_card, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"devdata (b): the stage and its draws ran under "
+        f"torch.cuda.set_sync_debug_mode('error') without a host synchronisation "
+        f"(output {tuple(out['concat'].shape)})")
+    ms, geom_ms, guide_ms = median_ms(
+        [lambda: stage(on_card, gen), lambda: geometry(on_card, gen),
+         lambda: guide(g_card, gen)], reps=20)
+    log(f"devdata (c): of the stage's {ms:.3f} ms, the flip and scale-rotate "
+        f"alone {geom_ms:.3f} ms, the guidance alone {guide_ms:.3f} ms (CUDA "
+        f"events, median of 20 single calls each)")
+    return stage, ms
+
+
+def devdata_cache(tree, work: Path, crop: tuple[int, int] = (512, 512)):
+    """12g: the prepared cache over ``tree`` at 512²: fill and read ms per
+    sample (one thread), bytes per sample, read back bitwise; returns the
+    cache (for 12c's host timing)."""
+    import os
+
+    from distributedpytorch_tpu_torch.data import prepared, voc
+
+    base = voc.VOCInstanceSegmentation(tree, split="train", area_thres=0)
+    ds = prepared.PreparedInstanceDataset(base, str(work), crop_size=crop)
+    n = len(ds)
+    t0 = time.perf_counter()
+    first = [ds[i] for i in range(n)]
+    fill = (time.perf_counter() - t0) / n * 1e3
+    ds.flush()
+    t0 = time.perf_counter()
+    again = [ds[i] for i in range(n)]
+    read = (time.perf_counter() - t0) / n * 1e3
+    if any(a["crop_image"].tobytes() != b["crop_image"].tobytes()
+           or a["crop_gt"].tobytes() != b["crop_gt"].tobytes()
+           for a, b in zip(first, again)) or ds.n_prepared != n:
+        raise AssertionError("12g: a cached row read back differs from its fill")
+    size = sum(os.path.getsize(os.path.join(ds.cache_dir, f))
+               for f in os.listdir(ds.cache_dir))
+    log(f"devdata (g): prepared cache of {n} samples at {crop[0]}^2 from "
+        f"375x500 images: fill {fill:.2f} ms per sample (decode, crop, resize, "
+        f"write), read {read:.2f} ms per sample (memmap, unpack, float32), "
+        f"{size / n / 1e6:.4f} MB per sample on disk; read back bitwise")
+    return ds
+
+
+def devdata_host_ms(cache, stage_ms: float, batch_size: int = 16) -> None:
+    """12c: the stage's device ms beside the host's ms for the same work
+    (flip, scale-rotate, guidance and concat of ``batch_size`` cached
+    512² crops, one thread, the host library)."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.data import pipeline
+
+    post = pipeline.build_prepared_post_transform()
+    samples = [{k: v for k, v in cache[i].items() if k != "bbox"}
+               for i in range(batch_size)]
+    rng = np.random.default_rng(0)
+
+    def host_batch():
+        pipeline.collate([post(dict(s), rng) for s in samples])
+
+    host = _best_ms(host_batch, 3)
+    loader = STEP_MS.get("6i threads (2) + host library")
+    log(f"devdata (c): the device stage at B={batch_size} 512^2 {stage_ms:.3f} ms on "
+        f"the card (CUDA events, median of 20); the same work on the host "
+        f"{host:.1f} ms a batch (one thread: flip, scale-rotate, guidance, concat, "
+        f"collate); 6i's threaded loader, the whole host stack: "
+        + ("not measured in this run" if loader is None else f"{loader:.1f} ms a batch"))
+
+
+def devdata_step(torch, ca, stage, batch_size: int = 16, rounds: int = 5) -> dict:
+    """12d: the B = 16 bf16 step fed from the host (the host stack with
+    guidance, the pageable copy in the step, as 6e) against the device
+    stage fed by ``prefetch_to_device`` with a window of 2, in turns."""
+    import itertools
+
+    from distributedpytorch_tpu_torch.data import pipeline
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.parallel.mesh import prefetch_to_device
+    from distributedpytorch_tpu_torch.parallel.step import (
+        DEVICE_KEYS,
+        create_train_state,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    host_batch = next(iter(pipeline.DataLoader(
+        Cycled(train_dataset(), batch_size), batch_size, shuffle=True,
+        drop_last=True, seed=0)))
+    bare = list(itertools.islice(iter(pipeline.DataLoader(
+        Cycled(devdata_dataset(), 2 * batch_size), batch_size, shuffle=True,
+        drop_last=True, seed=0)), 2))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("danet", dtype="bfloat16")
+    optimizer, schedule = make_optimizer(OptimConfig(), model, total_steps=100)
+    cuda = torch.device("cuda")
+    state = create_train_state(model, optimizer, schedule, 0, cuda)
+    policy = precision_policy("bfloat16")
+    steps = {"host-fed": make_train_step(precision=policy),
+             "device stage, device_prefetch=2": make_train_step(
+                 precision=policy, augment=stage, seed=0)}
+    placed = prefetch_to_device(itertools.cycle(bare), cuda, size=2, keys=DEVICE_KEYS)
+
+    def run(label):
+        b = host_batch if label == "host-fed" else next(placed)
+        return steps[label](state, b)
+
+    peak = {}
+    try:
+        for label in steps:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run(label)
+            run(label)
+            torch.cuda.synchronize()
+            peak[label] = torch.cuda.max_memory_allocated() / 2**30
+        times = {label: [] for label in steps}
+        losses = []
+        before = dict(ca.launches)
+        for _ in range(rounds):
+            for label in steps:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(run(label))
+                end.record()
+                end.synchronize()
+                times[label].append(start.elapsed_time(end))
+        rise = {k: ca.launches[k] - before[k] for k in before}
+        if any(n != 2 * rounds for n in rise.values()):
+            raise AssertionError(f"12d: {2 * rounds} steps launched {rise}")
+        if not torch.isfinite(torch.stack(losses)).all():
+            raise AssertionError(f"12d: non-finite losses {torch.stack(losses).tolist()}")
+        ms = {label: statistics.median(t) for label, t in times.items()}
+        idle = {}
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        for label in steps:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                run(label)
+                torch.cuda.synchronize()
+            busy = sum(e.device_time_total for e in _device_events(prof)) / 1e3
+            idle[label] = 1.0 - busy / ms[label]
+    finally:
+        placed.close()
+    for label in steps:
+        log(f"devdata (d): B={batch_size} bf16 step {label}: {ms[label]:.2f} ms median "
+            f"of {rounds} in turns (all {', '.join(f'{t:.2f}' for t in times[label])}), "
+            f"{batch_size / ms[label] * 1e3:.2f} images/s, idle share "
+            f"{idle[label]:.4f}, peak memory {peak[label]:.2f} GiB")
+    return ms
+
+
+def _input_wait(hist: dict) -> str:
+    gp = hist["goodput"]["buckets"]
+    return (f"input-wait share {hist['feed']['input_wait_fraction']}, input_wait "
+            f"{gp['input_wait']:.4f} s of step {gp['step']:.4f} + compile "
+            f"{gp['compile']:.4f} s")
+
+
+def _in_step_copy(batches, device, size=2, keys=None):
+    """The path ``prefetch_to_device`` replaced: the host batches reach the
+    step unplaced, and the step copies them from pageable memory."""
+    return iter(batches)
+
+
+def devdata_fits(torch, work: Path) -> tuple[dict, dict]:
+    """12e-f: the default fit in turns with the path it replaces (the
+    prefetcher bypassed, the batch copied inside the step), then with
+    ``device_prefetch=0``, then 2 with the device stage and the prepared
+    cache, whose validation (prepared, device guidance) is timed in a
+    profiler window and held to the host-guidance validation of the same
+    cache and weights.  Returns the device-stage fit's launches and the
+    first ``device_prefetch=2`` history."""
+    from distributedpytorch_tpu_torch.parallel import mesh
+
+    runs = {}
+    for i, label in enumerate(("in-step copy", "device_prefetch=2", "device_prefetch=2",
+                               "in-step copy", "device_prefetch=0")):
+        extra = ("data.device_prefetch=0",) if label == "device_prefetch=0" else ()
+        placer = mesh.prefetch_to_device
+        if label == "in-step copy":
+            mesh.prefetch_to_device = _in_step_copy
+        try:
+            run, hist, _, _, _ = _telemetry_fit(torch, work / f"fit{i}", extra=extra)
+        finally:
+            mesh.prefetch_to_device = placer
+        runs.setdefault(label, []).append(hist)
+        log(f"devdata (e): default fit, {label}: {_input_wait(hist)}")
+    log("devdata (e): input-wait share / input_wait s, in turns: " + "; ".join(
+        f"{label} " + ", ".join(
+            f"{h['feed']['input_wait_fraction']:.4f} / "
+            f"{h['goodput']['buckets']['input_wait']:.4f}" for h in hs)
+        for label, hs in runs.items()))
+    cache = str(work / "cache")
+    tr = _telemetry_trainer(work / "stage", *DEVICE_STAGE_ARGS,
+                          f"data.prepared_cache={cache}")
+    try:
+        hist = tr.fit()
+        run = Path(tr.run_dir)
+        rec = _run_record(run)
+        launches = rec["summary"]["kernel_launches"]
+        steps = sum(len(r["train/step_losses"]) for r in rec["epochs"])
+        want = steps + sum(int(r["val/n_samples"]) for r in rec["vals"])
+        if any(v != want for v in launches.values()) or not tr._val_device_guidance:
+            raise AssertionError(f"12e: launches {launches}, want {want} each")
+        log(f"devdata (e): default fit, device_prefetch=2 + device stage + "
+            f"prepared_cache: {_input_wait(hist)}; kernel launches {launches} = "
+            f"{want} each ({steps} steps + val samples), exact (11a's record in "
+            f"PERF.md: input-wait share 0.2036 / 0.1114)")
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            got, _ = tr._eval_metrics(tr.state)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        kernels = _device_events(prof)
+        busy = sum(e.device_time_total for e in kernels) / 1e3
+        host = _telemetry_trainer(work / "host", f"data.prepared_cache={cache}")
+        try:
+            host.model.load_state_dict(tr.model.state_dict())
+            ref, _ = host._eval_metrics(host.state)
+        finally:
+            host.close()
+        n = got["n_samples"]
+        log(f"devdata (f): validation from the prepared cache with device guidance: "
+            f"{got['seconds'] / n * 1e3:.2f} ms per sample over {n} samples, device "
+            f"busy {busy:.2f} ms of the {window_ms:.2f} ms window, idle share "
+            f"{1.0 - busy / window_ms:.4f}, {len(kernels) / n:.0f} kernels and "
+            f"copies a sample (10b's record in PERF.md: 31.00-48.75 ms at "
+            f"0.85-0.90); "
+            f"Jaccard {got['jaccard']:.6f} against host guidance "
+            f"{ref['jaccard']:.6f} on the same weights")
+        check("12f device vs host guidance validation, Jaccard",
+              abs(got["jaccard"] - ref["jaccard"]), DEV_VAL_JAC_TOL)
+    finally:
+        tr.close()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, runs["device_prefetch=2"][0]
+
+
+def devdata_chaos(torch, work: Path, clean: dict) -> None:
+    """12h: a latency fault at ``device/put`` shows in ``input_wait``; an
+    error fault there fails the fit loudly, leaving no placement thread."""
+    from distributedpytorch_tpu_torch.chaos.faults import InjectedFaultError
+
+    plan = {"name": "slow_put", "seed": 0, "faults": [
+        {"site": "device/put", "kind": "latency", "delay_s": DEV_PUT_DELAY_S}]}
+    run, hist, _, _, fired = _telemetry_fit(torch, work / "latency", plan)
+    puts = sum(1 for site, _, _ in fired.firings if site == "device/put")
+    waited = hist["goodput"]["buckets"]["input_wait"]
+    grew = waited - clean["goodput"]["buckets"]["input_wait"]
+    injected = DEV_PUT_DELAY_S * puts
+    epochs = len(_run_record(run)["epochs"])
+    floor = epochs * DEV_PUT_DELAY_S
+    if puts < 4 or epochs < 2 or waited < floor:
+        raise AssertionError(f"12h: input_wait {waited:.3f} s under {floor:.3f} s "
+                             f"({epochs} epochs x {DEV_PUT_DELAY_S} s) over {puts} "
+                             f"placements {DEV_PUT_DELAY_S} s late")
+    plan = {"name": "dead_put", "seed": 0, "faults": [
+        {"site": "device/put", "kind": "error", "at": [2]}]}
+    try:
+        _telemetry_fit(torch, work / "error", plan, extra=("epochs=1",))
+    except InjectedFaultError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("12h: an error fault at device/put did not fail the fit")
+    left = [t.name for t in threading.enumerate() if t.name.startswith("device-put")]
+    if left:
+        raise AssertionError(f"12h: placement threads left after the failed fit: {left}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"devdata (h): device/put {DEV_PUT_DELAY_S} s late x {puts} placements: "
+        f"input_wait {waited:.4f} s (floor {floor:.2f} s: the first placement of "
+        f"each of {epochs} epochs), up {grew:.4f} s on the clean fit ({grew / injected:.4f} "
+        f"of the {injected:.2f} s injected); an error fault at the 2nd placement "
+        f"failed the fit loudly ({raised!r}), no placement thread left")
+
+
+def devdata_semantic(torch, ca, batch_size: int = 8) -> None:
+    """12i: one config-4 step (DeepLabV3-R101 513², B = 8, bf16) with the
+    device flip and scale-rotate: finite loss, the warped-out ring of
+    ``crop_gt`` filled with 255 and the ids kept, no attention kernel."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.ops.augment import make_device_augment
+    from distributedpytorch_tpu_torch.parallel.step import (
+        create_train_state,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.train.config import Config, OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    rng = np.random.default_rng(5)
+    batch = {"concat": rng.uniform(0, 255, (batch_size, SEM_SIZE, SEM_SIZE, 3)
+                                   ).astype(np.float32),
+             "crop_gt": rng.integers(0, SEM_CLASSES, (batch_size, SEM_SIZE, SEM_SIZE, 1)
+                                     ).astype(np.float32)}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("deeplabv3", nclass=SEM_CLASSES, backbone="resnet101",
+                            aux_head=True, in_channels=3, dtype="bfloat16")
+    optimizer, schedule = make_optimizer(OptimConfig(lr=1e-4), model, 100)
+    state = create_train_state(model, optimizer, schedule, 0, torch.device("cuda"))
+    d = Config().data
+    stage = make_device_augment(hflip=True, scale_rotate=True, rots=tuple(d.rots),
+                                scales=tuple(d.scales), semantic=True)
+    seen = []
+
+    def augment(data, generator):
+        out = stage(data, generator)
+        seen.append(out["crop_gt"])
+        return out
+
+    step = make_train_step(loss_weights=(1.0, 0.4), precision=precision_policy(
+        "bfloat16"), loss_type="multi_softmax", augment=augment, seed=0)
+    before = dict(ca.launches)
+    losses = [step(state, batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses.append(step(state, batch))
+    end.record()
+    end.synchronize()
+    gt = seen[-1]
+    ids = torch.unique(gt)
+    void = float((gt == 255).float().mean())
+    if not torch.isfinite(torch.stack(losses)).all() or void <= 0 \
+            or not bool(((ids == 255) | ((ids >= 0) & (ids < SEM_CLASSES)
+                                          & (ids == ids.round()))).all()):
+        raise AssertionError(f"12i: losses {torch.stack(losses).tolist()}, ids "
+                             f"{ids.tolist()[:25]}, void share {void}")
+    if dict(ca.launches) != before:
+        raise AssertionError(f"12i: attention kernels launched on the semantic "
+                             f"path: {before} -> {dict(ca.launches)}")
+    del state, model, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"devdata (i): config 4 (DeepLabV3-R101 {SEM_SIZE}^2 B={batch_size} bf16) "
+        f"with the device flip and scale-rotate: losses "
+        f"{[round(float(x), 6) for x in losses]}, a step "
+        f"{start.elapsed_time(end):.2f} ms; crop_gt after the stage: 255 on "
+        f"{void:.4f} of pixels (the warped-out ring), ids in 0..20 exact; the "
+        f"attention kernels launched 0 times")
+
+
+def phase_devdata(torch, ca) -> dict:
+    """Phase 12 (a-i); returns the launch counts of the device-stage fit."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_devdata_"))
+    try:
+        stage, stage_ms = devdata_stage(torch, devdata_dataset())
+        log(f"devdata: (a, b) done at {time.perf_counter() - t0:.1f} s")
+        cache = devdata_cache(host_tree(64, (375, 500)), work / "cache")
+        devdata_host_ms(cache, stage_ms)
+        log(f"devdata: (g, c) done at {time.perf_counter() - t0:.1f} s")
+        devdata_step(torch, ca, stage)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"devdata: (d) done at {time.perf_counter() - t0:.1f} s")
+        launches, clean = devdata_fits(torch, work / "fits")
+        log(f"devdata: (e, f) done at {time.perf_counter() - t0:.1f} s")
+        devdata_chaos(torch, work / "chaos", clean)
+        log(f"devdata: (h) done at {time.perf_counter() - t0:.1f} s")
+        devdata_semantic(torch, ca)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"devdata: (i) done; phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"devdata_fit": launches}
+
+
 #: the phases of a whole run, in order
 PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer",
-          "telemetry")
+          "telemetry", "devdata")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4030,6 +4552,8 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(phase_trainer(torch, ca))
     if "telemetry" in phases:
         paths.update(phase_telemetry(torch, ca, Predictor, InferenceService, make_server))
+    if "devdata" in phases:
+        paths.update(phase_devdata(torch, ca))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")

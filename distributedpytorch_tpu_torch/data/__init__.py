@@ -1,3 +1,53 @@
-"""Host data layer of the port (numpy): the VOC instance dataset and its
-in-memory fake, the default train/val transform stacks, guidance synthesis
-and the threaded loader."""
+"""Host data layer of the port (numpy, no torch): the VOC datasets and the
+in-memory fake, the train/val transform stacks and the prepared-sample
+builders, guidance synthesis, the prepared-sample cache, the threaded and
+worker-process loaders and the feed governor."""
+
+from . import guidance, transforms
+from .fake import make_fake_voc
+from .governor import GOVERNOR_MODES, FeedActuators, FeedGovernor, feed_block
+from .grain_pipeline import GrainDataLoader
+from .pipeline import (
+    DataLoader,
+    build_eval_transform,
+    build_prepared_eval_post_transform,
+    build_prepared_post_transform,
+    build_prepared_semantic_eval_post_transform,
+    build_prepared_semantic_post_transform,
+    build_semantic_eval_transform,
+    build_semantic_train_transform,
+    build_train_transform,
+    collate,
+)
+from .prepared import (
+    PreparedInstanceDataset,
+    PreparedSemanticDataset,
+    cache_fingerprint,
+)
+from .voc import VOCInstanceSegmentation, VOCSemanticSegmentation
+
+__all__ = [
+    "DataLoader",
+    "FeedActuators",
+    "FeedGovernor",
+    "GOVERNOR_MODES",
+    "GrainDataLoader",
+    "PreparedInstanceDataset",
+    "PreparedSemanticDataset",
+    "VOCInstanceSegmentation",
+    "VOCSemanticSegmentation",
+    "build_eval_transform",
+    "build_prepared_eval_post_transform",
+    "build_prepared_post_transform",
+    "build_prepared_semantic_eval_post_transform",
+    "build_prepared_semantic_post_transform",
+    "build_semantic_eval_transform",
+    "build_semantic_train_transform",
+    "build_train_transform",
+    "cache_fingerprint",
+    "collate",
+    "feed_block",
+    "guidance",
+    "make_fake_voc",
+    "transforms",
+]

@@ -8,8 +8,13 @@ metadata stay lists), exactly as in the JAX package; the train step turns
 them into NCHW torch tensors on the device.  Every sample's RNG is
 ``default_rng((seed, epoch, index))`` and the epoch's order is
 ``default_rng((seed, epoch))``'s permutation, so data order and content do
-not depend on the worker count.  Only the ``nellipse_gaussians`` guidance
-family is ported.
+not depend on the worker count.  Of the host guidance families only
+``nellipse_gaussians`` is ported, and ``none`` (the bare image channels,
+for a device stage that synthesises the channel,
+``ops/guidance_device.py``).  ``flip``/``geom`` drop the host flip and
+scale-rotate where the device stage owns them (``ops/augment.py``).  The
+prepared builders are the per-access stages downstream of the
+prepared-sample cache (``data/prepared.py``).
 
 Under data parallelism each rank's loader walks its shard
 (:func:`shard_order`, the JAX rule: contiguous per-shard slices of the
@@ -39,10 +44,12 @@ GUIDANCE_KEY = "nellipseWithGaussians"
 
 def _guidance_stage(guidance: str, alpha: float,
                     is_val: bool) -> list[T.Transform]:
+    if guidance == "none":
+        return [T.ConcatInputs(elems=("crop_image",))]
     if guidance != "nellipse_gaussians":
         raise NotImplementedError(
-            f"data.guidance={guidance!r} is not ported yet "
-            "(nellipse_gaussians only)")
+            f"data.guidance={guidance!r} is not ported yet on the host "
+            "(nellipse_gaussians or none)")
     return [T.NEllipseWithGaussians(alpha=alpha, is_val=is_val),
             T.ConcatInputs(elems=("crop_image", GUIDANCE_KEY))]
 
@@ -75,19 +82,57 @@ def build_train_transform(crop_size: tuple[int, int] = (512, 512),
                           scales: tuple[float, float] = (0.75, 1.25),
                           alpha: float = 0.6,
                           guidance: str = "nellipse_gaussians",
+                          flip: bool = True, geom: bool = True,
                           fused_crop_resize: bool = False) -> T.Compose:
     """The training stack: flip -> scale/rotate -> crop around the object
     with ``relax`` -> resize to ``crop_size`` -> guidance -> concat.
-    ``fused_crop_resize`` makes the crop and resize one pass
-    (:func:`build_crop_stage`), clamped, as ScaleNRotate's uint8 cast no
-    longer bounds the resized image."""
+    ``flip=False``/``geom=False`` drop the host flip/scale-rotate (the
+    device stage owns them).  The resized image is clamped to [0, 255]
+    where no ScaleNRotate uint8 cast bounds it: with ``fused_crop_resize``
+    (the crop and resize in one pass, :func:`build_crop_stage`) or
+    without ``geom``."""
     return T.Compose([
-        T.RandomHorizontalFlip(),
-        T.ScaleNRotate(rots=rots, scales=scales),
+        *([T.RandomHorizontalFlip()] if flip else []),
+        *([T.ScaleNRotate(rots=rots, scales=scales)] if geom else []),
         *build_crop_stage(crop_size, relax, zero_pad, fused=fused_crop_resize,
-                          clamp=fused_crop_resize),
+                          clamp=fused_crop_resize or not geom),
         *_guidance_stage(guidance, alpha, is_val=False),
         T.ToArray(),
+    ])
+
+
+def build_prepared_post_transform(rots: tuple[float, float] = (-20, 20),
+                                  scales: tuple[float, float] = (0.75, 1.25),
+                                  alpha: float = 0.6,
+                                  guidance: str = "nellipse_gaussians",
+                                  flip: bool = True,
+                                  geom: bool = True) -> T.Compose:
+    """The per-epoch random stage downstream of the prepared-sample cache,
+    which holds the deterministic decode -> crop -> resize: flip,
+    scale/rotate on the fixed-size crop, guidance, concat, then ``Keep``
+    of what the step consumes.  ``flip``/``geom`` as in
+    :func:`build_train_transform`."""
+    return T.Compose([
+        *([T.RandomHorizontalFlip()] if flip else []),
+        *([T.ScaleNRotate(rots=rots, scales=scales)] if geom else []),
+        *_guidance_stage(guidance, alpha, is_val=False),
+        T.ToArray(),
+        T.Keep(("concat", "crop_gt")),
+    ])
+
+
+def build_prepared_eval_post_transform(alpha: float = 0.6,
+                                       guidance: str = "nellipse_gaussians"
+                                       ) -> T.Compose:
+    """The per-access stage downstream of the prepared eval cache
+    (``data.val_prepared``): deterministic guidance (``is_val``), concat,
+    ``Keep``; the cache adds its full-resolution ``gt``/``void_pixels``
+    and ``bbox`` after it.  With ``guidance='none'`` ``concat`` is the bare
+    image and the eval step appends the channel on the device."""
+    return T.Compose([
+        *_guidance_stage(guidance, alpha, is_val=True),
+        T.ToArray(),
+        T.Keep(("concat", "crop_gt", "meta")),
     ])
 
 
@@ -114,19 +159,50 @@ def build_eval_transform(crop_size: tuple[int, int] = (512, 512),
 def build_semantic_train_transform(
         crop_size: tuple[int, int] = (513, 513),
         rots: tuple[float, float] = (-10, 10),
-        scales: tuple[float, float] = (0.5, 2.0)) -> T.Compose:
+        scales: tuple[float, float] = (0.5, 2.0),
+        flip: bool = True, geom: bool = True) -> T.Compose:
     """The semantic training stack (one sample per image): flip ->
     scale/rotate (class ids nearest, 255 border) -> resize to
     ``crop_size`` (the image by its values' rule, the class ids nearest so
-    ids and the 255 void stay exact) -> clamp -> ``concat``/``crop_gt``."""
+    ids and the 255 void stay exact) -> clamp -> ``concat``/``crop_gt``.
+    ``flip``/``geom`` as in :func:`build_train_transform`."""
     return T.Compose([
-        T.RandomHorizontalFlip(),
-        T.ScaleNRotate(rots=rots, scales=scales, semseg=True),
+        *([T.RandomHorizontalFlip()] if flip else []),
+        *([T.ScaleNRotate(rots=rots, scales=scales, semseg=True)]
+          if geom else []),
         T.FixedResize(resolutions={"image": crop_size, "gt": crop_size},
                       flagvals={"image": None, "gt": 0}),
         T.ClampRange(("image",)),
         T.Rename({"image": "concat", "gt": "crop_gt"}),
         T.ToArray(),
+    ])
+
+
+def build_prepared_semantic_post_transform(
+        rots: tuple[float, float] = (-10, 10),
+        scales: tuple[float, float] = (0.5, 2.0),
+        flip: bool = True, geom: bool = True) -> T.Compose:
+    """The per-epoch random stage downstream of the semantic prepared
+    cache: flip + scale/rotate on the resized arrays (class ids nearest,
+    255 border), renamed onto ``concat``/``crop_gt``."""
+    return T.Compose([
+        *([T.RandomHorizontalFlip()] if flip else []),
+        *([T.ScaleNRotate(rots=rots, scales=scales, semseg=True)]
+          if geom else []),
+        T.Rename({"image": "concat", "gt": "crop_gt"}),
+        T.ToArray(),
+        T.Keep(("concat", "crop_gt")),
+    ])
+
+
+def build_prepared_semantic_eval_post_transform() -> T.Compose:
+    """Downstream of the semantic prepared cache at val: the cache holds
+    the whole crop-resolution eval front (the image resized and clamped,
+    the ids nearest), so only the rename onto the step's keys remains."""
+    return T.Compose([
+        T.Rename({"image": "concat", "gt": "crop_gt"}),
+        T.ToArray(),
+        T.Keep(("concat", "crop_gt", "meta")),
     ])
 
 

@@ -335,6 +335,24 @@ class Rename(Transform):
         return f"Rename({self.mapping})"
 
 
+class Keep(Transform):
+    """Delete every key but the listed ones (``meta`` always survives): the
+    terminal pruning of the prepared pipelines, so ``collate`` stacks
+    nothing the step does not consume."""
+
+    def __init__(self, keys: Sequence[str]):
+        self.keys = tuple(keys)
+
+    def __call__(self, sample, rng=None):
+        for key in list(sample.keys()):
+            if key not in self.keys and not _is_meta(key):
+                del sample[key]
+        return sample
+
+    def __repr__(self):
+        return f"Keep({self.keys})"
+
+
 class ClampRange(Transform):
     """Clamp named elements into ``[lo, hi]`` (cubic resizes overshoot)."""
 

@@ -49,38 +49,42 @@ class VOCTree:
                       "classes": os.path.join(voc, "SegmentationClass"),
                       "sets": os.path.join(voc, "ImageSets", "Segmentation")}
 
+    #: the file extension of each kind of file
+    EXT = {"image": ".jpg", "instances": ".png", "classes": ".png"}
+
+    def path(self, kind: str, im_id: str) -> str:
+        """The file of ``kind`` (image, instances, classes) of ``im_id``."""
+        return os.path.join(self._dirs[kind], im_id + self.EXT[kind])
+
     def split_ids(self, split: str,
                   kinds: tuple[str, ...] = ("image", "instances", "classes")
                   ) -> list[str]:
         """The ids of ``split``; raises if a file of ``kinds`` is missing."""
         with open(os.path.join(self._dirs["sets"], split + ".txt")) as f:
             ids = f.read().splitlines()
-        ext = {"image": ".jpg", "instances": ".png", "classes": ".png"}
         for im_id in ids:
             for kind in kinds:
-                path = os.path.join(self._dirs[kind], im_id + ext[kind])
-                if not os.path.isfile(path):
-                    raise FileNotFoundError(path)
+                if not os.path.isfile(self.path(kind, im_id)):
+                    raise FileNotFoundError(self.path(kind, im_id))
         return ids
 
-    def _read(self, kind: str, im_id: str, ext: str, rgb: bool = False):
+    def _read(self, kind: str, im_id: str, rgb: bool = False):
         from PIL import Image
 
-        with Image.open(os.path.join(self._dirs[kind], im_id + ext)) as im:
+        with Image.open(self.path(kind, im_id)) as im:
             return np.array(im.convert("RGB") if rgb else im)
 
     def image(self, im_id: str) -> np.ndarray:
         """(H, W, 3) uint8 RGB."""
-        return np.asarray(self._read("image", im_id, ".jpg", rgb=True),
-                          np.uint8)
+        return np.asarray(self._read("image", im_id, rgb=True), np.uint8)
 
     def instances(self, im_id: str) -> np.ndarray:
         """(H, W) uint8 object ids, 255 on void pixels."""
-        return self._read("instances", im_id, ".png")
+        return self._read("instances", im_id)
 
     def classes(self, im_id: str) -> np.ndarray:
         """(H, W) uint8 category ids, 255 on void pixels."""
-        return self._read("classes", im_id, ".png")
+        return self._read("classes", im_id)
 
 
 class _DecodeCache:
@@ -159,6 +163,10 @@ class VOCInstanceSegmentation:
     def __len__(self) -> int:
         return len(self.obj_list)
 
+    def sample_image_id(self, index: int) -> str:
+        """The image id of sample ``index``."""
+        return self.im_ids[self.obj_list[index][0]]
+
     def __getitem__(self, index: int,
                     rng: np.random.Generator | None = None) -> dict:
         im_ii, obj_ii = self.obj_list[index]
@@ -218,6 +226,10 @@ class VOCSemanticSegmentation:
 
     def __len__(self) -> int:
         return len(self.im_ids)
+
+    def sample_image_id(self, index: int) -> str:
+        """The image id of sample ``index``."""
+        return self.im_ids[index]
 
     def decode_raw(self, index: int) -> tuple[np.ndarray, np.ndarray]:
         """The decoded (uint8 RGB, raw class-id mask) of image ``index``,

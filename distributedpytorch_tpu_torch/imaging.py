@@ -1,8 +1,9 @@
 """Host image ops with OpenCV's conventions.
 
 Counterpart of ``distributedpytorch_tpu/imaging.py`` (``resize``,
-``warp_affine``, ``flip_h``, ``rotation_matrix``), plus ``crop_resize``,
-the fused zero-padded crop + resize of ``data.fused_crop_resize``.  The
+``warp_affine``, ``flip_h``, ``rotation_matrix``, ``backend``), plus
+``crop_resize``, the fused zero-padded crop + resize of
+``data.fused_crop_resize``.  The
 card's machine is not promised OpenCV, so the port has no cv2 backend:
 ``resize``, ``warp_affine``, ``flip_h`` and ``crop_resize`` run on the
 port's host library (:mod:`.native_ops`, built at first use) unless
@@ -40,6 +41,14 @@ from . import native_ops
 NEAREST, LINEAR, CUBIC = 0, 1, 2
 #: dtypes that float32 holds exactly (a flip through the library is exact)
 _FLOAT32_EXACT = (np.float32, np.uint8, np.int8, np.uint16, np.int16, np.bool_)
+
+
+def backend() -> str:
+    """The name of the host ops' implementation: the port's library
+    (``port-native``) or its numpy forms (``port-numpy``,
+    ``DPTPU_NATIVE=0``).  The prepared cache's fingerprint names it, as the
+    two differ in the last bits of a cubic tap."""
+    return "port-native" if native_ops.enabled() else "port-numpy"
 
 
 def _like(out: np.ndarray, dtype: np.dtype) -> np.ndarray:

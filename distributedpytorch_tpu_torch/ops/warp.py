@@ -10,7 +10,9 @@ matrices — ``W[o, i]``, the tent weight of input row ``i`` for output row
 0.5`` clamped to the input (edge replicate, no antialias) — then argmaxed
 on the device, so only a uint8 class map is read back.  Plain PyTorch on
 the device (the JAX package's form was XLA, not a Pallas kernel).
-Tensors are NCHW; the other warps of the JAX module are not ported yet.
+Tensors are NCHW.  These three functions are the whole JAX module; the
+device augmentation's warps (flip, crop, scale-rotate) are
+:mod:`.augment`'s.
 """
 
 from __future__ import annotations

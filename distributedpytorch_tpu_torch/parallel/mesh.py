@@ -15,17 +15,28 @@ environment describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 process it does nothing, as the JAX function does.  NCCL is the backend
 for CUDA and gloo for the CPU; gloo also carries CUDA tensors, which lets
 two ranks share one card (NCCL refuses that).
+
+:func:`prefetch_to_device` places a window of host batches on the card
+ahead of the step that consumes them (``data.device_prefetch``), the
+counterpart of the JAX function of the same name: one worker thread
+pulls the host batches and copies them from pinned memory on a side CUDA
+stream, so the loader's wait and the copy overlap the step running on
+the consumer's stream.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 import os
-from typing import Mapping
+import threading
+from typing import Callable, Iterable, Iterator, Mapping
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..chaos import sites as chaos_sites
 
 #: the canonical axis name, as in the JAX package
 DATA_AXIS = "data"
@@ -149,3 +160,153 @@ def pad_to_multiple(batch: Mapping[str, np.ndarray], multiple: int
     pad = target - n
     return {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
             for k, v in batch.items()}, n
+
+
+def to_nchw(arr, device: torch.device) -> torch.Tensor:
+    """A host (B, H, W[, C]) array -> a (B, C, H, W) float32 tensor on
+    ``device`` (other ranks as they are); a tensor passes through as
+    already laid out, moved to ``device`` if it is elsewhere."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return _layout(t.to(device, non_blocking=True))
+
+
+def _layout(t: torch.Tensor) -> torch.Tensor:
+    if t.dim() == 3:
+        t = t[..., None]
+    return t.permute(0, 3, 1, 2).contiguous() if t.dim() == 4 else t
+
+
+#: the placement's side stream of each card
+_STREAMS: dict = {}
+
+
+class _Placer:
+    """Places host batches on ``device``: on a card, each array is copied
+    into pinned memory and to the card with ``non_blocking`` on a side
+    stream (the NCHW transpose runs there too), and an event is recorded
+    behind the copies; :meth:`ready` makes the consumer's current stream
+    wait on that event and records the tensors' use on it, so the step
+    never reads a half-copied batch and the caching allocator does not
+    hand their memory to the side stream before the step is done."""
+
+    def __init__(self, device: torch.device, keys):
+        self.device = torch.device(device)
+        self.keys = keys
+        self.stream = None
+        if self.device.type == "cuda":
+            # one side stream per card for the process: the caching
+            # allocator reuses a stream's freed blocks only on that stream,
+            # so a stream per prefetcher (per epoch) would allocate its
+            # batches afresh every epoch and keep the old ones cached
+            if self.device not in _STREAMS:
+                _STREAMS[self.device] = torch.cuda.Stream(device=self.device)
+            self.stream = _STREAMS[self.device]
+
+    def place(self, batch: Mapping):
+        if self.keys is not None:
+            batch = {k: v for k, v in batch.items() if k in self.keys}
+        # chaos seam: latency here is a slow copy, an error a failed one,
+        # a poisoned payload a torn host batch before placement
+        batch = chaos_sites.fire("device/put", payload=batch)
+        if self.stream is None:
+            return {k: to_nchw(v, self.device) for k, v in batch.items()}, None
+        out = {}
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            for k, v in batch.items():
+                host = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                out[k] = _layout(host.pin_memory().to(self.device,
+                                                      non_blocking=True))
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return out, event
+
+    def ready(self, placed) -> dict:
+        out, event = placed
+        if event is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(event)
+            for t in out.values():
+                t.record_stream(consumer)
+        return out
+
+
+#: the worker's end-of-batches marker
+_END = object()
+
+
+def prefetch_to_device(batches: Iterable[Mapping], device: torch.device,
+                       size: int | Callable[[], int] = 2,
+                       keys: tuple[str, ...] | None = None
+                       ) -> Iterator[dict]:
+    """Iterate ``batches`` (host dicts of HWC numpy arrays) as dicts of
+    NCHW float32 tensors on ``device``, with up to ``size`` of them placed
+    ahead of the consumer.
+
+    ``keys`` keeps only the device-bound arrays (metadata and ragged lists
+    cannot be placed).  ``size=0`` places each batch when it is asked for.
+    ``size`` may be a zero-argument callable, read again whenever the
+    window is full, so a window resized mid-epoch applies at once (never
+    below 1).  One worker thread (``device-put``) pulls the host batches
+    and places them, in order, while the consumer steps; it pulls the next
+    one only while fewer than the window's batches wait placed, so the
+    consumer waits only on an empty window (an epoch's first batch, or a
+    loader or placement slower than the step).  The JAX function pulls on
+    the consumer's thread and yields only once the window is full, which
+    makes the first step of an epoch wait for the window's loader batches
+    too.  The ``device/put`` chaos site fires on the worker before each
+    placement; whatever the worker raises (the loader's errors included)
+    surfaces in the consumer at that batch's turn.  An abandoned iterator
+    drops the placed batches and stops the worker before its next pull."""
+    placer = _Placer(device, keys)
+    if not callable(size) and size <= 0:  # synchronous placement
+        for batch in batches:
+            yield placer.ready(placer.place(batch))
+        return
+    bound = (lambda: max(1, int(size()))) if callable(size) \
+        else (lambda: max(1, size))
+    placed: collections.deque = collections.deque()
+    cond = threading.Condition()
+    stop = threading.Event()
+
+    def fill():
+        try:
+            for batch in batches:
+                item = placer.place(batch)
+                with cond:
+                    placed.append(item)
+                    cond.notify_all()
+                    while len(placed) >= bound() and not stop.is_set():
+                        cond.wait(0.05)  # a grown window applies within this
+                if stop.is_set():
+                    return
+        except BaseException as e:  # raised in the consumer, in order
+            with cond:
+                placed.append(e)
+        finally:
+            with cond:
+                placed.append(_END)
+                cond.notify_all()
+
+    worker = threading.Thread(target=fill, name="device-put", daemon=True)
+    worker.start()
+    try:
+        while True:
+            with cond:
+                while not placed:
+                    cond.wait()
+                item = placed.popleft()
+                cond.notify_all()
+            if item is _END:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield placer.ready(item)
+    finally:
+        # an abandoned iterator: the worker ends after the batch in hand
+        stop.set()
+        with cond:
+            cond.notify_all()
+        worker.join()
+        placed.clear()

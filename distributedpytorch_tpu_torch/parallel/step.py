@@ -3,8 +3,17 @@
 process per card under ``DistributedDataParallel``.
 
 A host batch — the loader's dict of HWC float32 numpy arrays — becomes
-NCHW torch tensors on the device once, here (:func:`device_batch`).  A
-train step is forward, the loss, backward and one optimizer update.  The
+NCHW torch tensors on the device once, here (:func:`device_batch`); a
+batch already placed by the device prefetcher (``parallel/mesh.py``,
+``prefetch_to_device``) passes through.  A train step is forward, the
+loss, backward and one optimizer update.  ``augment``
+(``ops/augment.py``, ``make_device_augment``; the device flip,
+scale-rotate and guidance) runs after the batch is placed and before the
+forward, on a ``torch.Generator`` of the step's own seed
+(:func:`step_generator`: the run's seed, the step count and the rank), so
+a resumed fit draws what the straight one drew with nothing added to the
+checkpoint, and each rank draws its own.  ``make_eval_step(preprocess=)``
+runs its stage (the val guidance) before the forward.  The
 loss is ``loss_type``'s: ``multi_sigmoid``, the instance task's multi-output
 balanced BCE, or ``multi_softmax``, the semantic task's per-output
 softmax cross-entropy with ignore index 255 against the class ids in
@@ -66,6 +75,7 @@ from ..ops.losses import (
     multi_softmax_loss,
     valid_count,
 )
+from .mesh import to_nchw
 from ..train.optim import Schedule, apply_update
 from ..train.precision import Policy
 
@@ -165,20 +175,24 @@ def wrap_data_parallel(state: TrainState, reduce_buckets: int = 0,
     return state
 
 
-def _nchw(arr, device: torch.device) -> torch.Tensor:
-    """(B, H, W[, C]) numpy -> (B, C, H, W) float32 on ``device``."""
-    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
-    if t.dim() == 3:
-        t = t[..., None]
-    return t.to(device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
+#: the batch keys placed on the device
+DEVICE_KEYS = (INPUT_KEY, TARGET_KEY, VOID_KEY)
 
 
 def device_batch(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor]:
     """The step's keys of a host batch as NCHW float32 tensors on
-    ``device``: ``concat`` (B, 4, H, W), ``crop_gt`` and ``crop_void`` (B, 1,
-    H, W)."""
-    return {k: _nchw(batch[k], device)
-            for k in (INPUT_KEY, TARGET_KEY, VOID_KEY) if k in batch}
+    ``device``: ``concat`` (B, C, H, W), ``crop_gt`` and ``crop_void`` (B,
+    1, H, W); tensors (a placed batch) pass through."""
+    return {k: to_nchw(batch[k], device) for k in DEVICE_KEYS if k in batch}
+
+
+def step_generator(seed: int, step: int, rank: int,
+                   device: torch.device) -> torch.Generator:
+    """The device stage's generator of one train step, seeded from
+    ``(seed, step, rank)`` alone."""
+    state = np.random.SeedSequence([seed, step, rank]).generate_state(
+        1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
 def _forward(model: nn.Module, inputs: torch.Tensor,
@@ -235,18 +249,25 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
                     grad_clip_norm: float | None = None,
                     precision: Policy | None = None,
                     global_balance: bool = True,
-                    loss_type: str = "multi_sigmoid"
+                    loss_type: str = "multi_sigmoid",
+                    augment: Callable | None = None, seed: int = 0
                     ) -> Callable[[TrainState, Mapping], torch.Tensor]:
     """``(state, host batch) -> loss``: one optimizer update of ``state``
     in place; ``grad_clip_norm`` clips the trainable gradients' global norm
     (optax's ``clip_by_global_norm``) before the update.  Under
     ``state.ddp`` the batch is this rank's rows, and ``global_balance``
-    picks the global loss (see the module docstring)."""
+    picks the global loss (see the module docstring).  ``augment`` is a
+    ``(device batch, generator) -> device batch`` stage, run on
+    :func:`step_generator` of ``seed``."""
 
     def step(state: TrainState, batch: Mapping) -> torch.Tensor:
         ddp = state.ddp
         model = state.model.train() if ddp is None else ddp.train()
         data = device_batch(batch, state.device)
+        if augment is not None:
+            rank = 0 if ddp is None else dist.get_rank(ddp.process_group)
+            data = augment(data, step_generator(seed, state.step, rank,
+                                                state.device))
         b = data[INPUT_KEY].shape[0]
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps "
@@ -290,18 +311,22 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
 
 def make_eval_step(loss_weights: Sequence[float] | None = None,
                    precision: Policy | None = None,
-                   loss_type: str = "multi_sigmoid"
+                   loss_type: str = "multi_sigmoid",
+                   preprocess: Callable[[Mapping], Mapping] | None = None
                    ) -> Callable[[TrainState, Mapping],
                                  tuple[tuple[torch.Tensor, ...], torch.Tensor]]:
     """``(state, host batch) -> (logits, loss)`` in eval mode: the model's
     NCHW logit maps and ``loss_type``'s loss, as device tensors.  Under
     ``precision`` the forward runs in the compute dtype, the loss on the
-    outputs upcast to the loss dtype."""
+    outputs upcast to the loss dtype.  ``preprocess`` (a deterministic
+    ``device batch -> device batch`` stage) runs before the forward."""
 
     def step(state: TrainState, batch: Mapping):
         model = state.model.eval()
         data = device_batch(batch, state.device)
         with torch.inference_mode():
+            if preprocess is not None:
+                data = preprocess(data)
             outputs = _forward(model, data[INPUT_KEY], precision)
             return outputs, _compute_loss(outputs, data, loss_weights,
                                           loss_type=loss_type)

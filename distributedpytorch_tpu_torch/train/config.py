@@ -331,9 +331,7 @@ def flatten(cfg: Config) -> dict[str, Any]:
 UNPORTED = (
     "data.source", "data.pack_path", "data.pack_quarantine",
     "data.session_log", "data.session_only", "data.session_quarantine",
-    "data.sbd_root", "data.download", "data.device_prefetch",
-    "data.device_augment", "data.device_augment_geom",
-    "data.device_guidance", "data.prepared_cache",
+    "data.sbd_root", "data.download",
     "data.uint8_transfer", "data.packbits_masks", "data.coalesce_wire",
     "data.steps_per_dispatch", "data.echo",
     "model.pam_block_size", "model.pam_impl", "model.quantization",

@@ -10,6 +10,13 @@ full-resolution ground truth with void pixels excluded.  An empty ground
 truth scores 1 where the crop prediction is empty at that threshold, else
 0.  The metric is the best threshold's mean IoU.
 
+A prepared val source (``data/prepared.py``, ``eval_protocol``;
+``data.val_prepared``) feeds the same keys: its cached full-resolution
+``gt`` and ``void_pixels`` (uint8 0/1) and the crop's ``bbox`` go to the
+paste-back as they are, and under ``data.device_guidance`` its 3-channel
+``concat`` gets the guidance channel from the eval step's ``preprocess``
+stage on the device.
+
 Under data parallelism each rank scores its shard of the validation set
 (the loader's wrap-padded shard), then ``(jac_sum, n_samples, loss_sum,
 n_batches)`` is summed over the ranks with one ``all_reduce``, as the JAX

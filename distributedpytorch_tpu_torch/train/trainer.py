@@ -25,6 +25,23 @@ so the best checkpoint is chosen the same way).
 ``data.fused_crop_resize`` and ``data.decode_cache`` reach the train
 transform and both datasets.
 
+Device-side data (the JAX trainer's wiring): the train batches reach the
+step through ``parallel.mesh.prefetch_to_device`` with a window of
+``max(data.device_prefetch, data.steps_per_dispatch)`` batches, read live
+(so at least one placement is in flight, as in the JAX trainer).
+``data.device_augment`` moves the flip (and with
+``data.device_augment_geom`` the scale-rotate, on the fixed-size crop)
+from the host stack into the train step, and
+``data.device_guidance`` (instance task, any family of
+``ops/guidance_device.FAMILIES``) the guidance channel: the host then
+ships the bare image (``guidance='none'``).  One constructor,
+:meth:`Trainer._build_device_stage`, builds that stage.
+``data.prepared_cache`` puts both datasets behind the prepared-sample
+cache (``data/prepared.py``); with ``data.val_prepared`` (its default)
+validation reads its crops and full-resolution masks from there too, and
+under ``data.device_guidance`` the eval step appends the val guidance
+channel on the device.
+
 ``train.precision=bfloat16`` builds the model in bf16 compute with float32
 master weights and hands the policy to the train and eval steps
 (``train/precision.py``).  ``checkpoint.warm_start`` imports model weights
@@ -118,17 +135,26 @@ from ..data.grain_pipeline import GrainDataLoader
 from ..data.pipeline import (
     DataLoader,
     build_eval_transform,
+    build_prepared_eval_post_transform,
+    build_prepared_post_transform,
+    build_prepared_semantic_eval_post_transform,
+    build_prepared_semantic_post_transform,
     build_semantic_eval_transform,
     build_semantic_train_transform,
     build_train_transform,
 )
+from ..data.prepared import PreparedInstanceDataset, PreparedSemanticDataset
 from ..data.voc import VOCInstanceSegmentation, VOCSemanticSegmentation
 from ..models import build_model
 from ..ops import cuda_attention
+from ..ops.augment import make_device_augment
+from ..ops.guidance_device import FAMILIES as DEVICE_GUIDANCE_FAMILIES
+from ..ops.guidance_device import make_device_guidance
 from ..parallel import mesh
 from ..parallel import plan as plan_lib
 from ..parallel.consensus import replicated_decision
 from ..parallel.step import (
+    DEVICE_KEYS,
     create_train_state,
     make_eval_step,
     make_train_step,
@@ -158,14 +184,6 @@ from .logging import MultiWriter, make_val_panels, make_writer
 from .optim import make_optimizer
 from .precision import apply_policy, precision_block
 from .preemption import PreemptionGuard
-
-
-#: the guidance families the JAX package synthesises on the device
-#: (``distributedpytorch_tpu/ops/guidance_device.py``): the governor's
-#: flip eligibility names them as the JAX trainer does
-DEVICE_GUIDANCE_FAMILIES = ("nellipse_gaussians", "nellipse",
-                            "extreme_points", "confidence_l1l2",
-                            "confidence_gaussian")
 
 
 class _TrainerFeedActuators(FeedActuators):
@@ -268,6 +286,15 @@ class Trainer:
                 "eval_full_res applies to the semantic task only (the "
                 "instance protocol already scores at full resolution via "
                 "crop2fullmask paste-back)")
+        if cfg.data.device_guidance:
+            if cfg.task != "instance":
+                raise ValueError("data.device_guidance applies to the "
+                                 "instance task only (semantic has no "
+                                 "guidance channel)")
+            if cfg.data.guidance not in DEVICE_GUIDANCE_FAMILIES:
+                raise ValueError(
+                    f"data.device_guidance supports "
+                    f"{DEVICE_GUIDANCE_FAMILIES}, not {cfg.data.guidance!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         #: the data axis: the processes of the group, this one's rank
@@ -309,35 +336,7 @@ class Trainer:
         d = cfg.data
         root = make_fake_voc(n_images=8, size=(96, 128), n_val=3,
                              seed=cfg.seed) if d.fake else d.root
-        if cfg.task == "semantic":
-            self.train_set = VOCSemanticSegmentation(
-                root, split=d.train_split,
-                transform=build_semantic_train_transform(
-                    crop_size=tuple(d.crop_size), rots=tuple(d.rots),
-                    scales=tuple(d.scales)),
-                decode_cache=d.decode_cache)
-            # one sample per image, read once per validation: no cache
-            self.val_set = VOCSemanticSegmentation(
-                root, split=d.val_split,
-                transform=build_semantic_eval_transform(
-                    crop_size=tuple(d.crop_size),
-                    keep_fullres=cfg.eval_full_res))
-        else:
-            train_tf = build_train_transform(
-                crop_size=tuple(d.crop_size), relax=d.relax,
-                zero_pad=d.zero_pad, rots=tuple(d.rots),
-                scales=tuple(d.scales), alpha=d.guidance_alpha,
-                guidance=d.guidance, fused_crop_resize=d.fused_crop_resize)
-            val_tf = build_eval_transform(
-                crop_size=tuple(d.crop_size), relax=d.relax,
-                zero_pad=d.zero_pad, alpha=d.guidance_alpha,
-                guidance=d.guidance)
-            self.train_set = VOCInstanceSegmentation(
-                root, split=d.train_split, transform=train_tf,
-                area_thres=d.area_thres, decode_cache=d.decode_cache)
-            self.val_set = VOCInstanceSegmentation(
-                root, split=d.val_split, transform=val_tf,
-                area_thres=d.area_thres, decode_cache=d.decode_cache)
+        self._build_datasets(root)
         # batch sizes are global: each rank loads its 1/W share of every
         # batch, which must divide over the ranks and the micro-batches
         tb, w, accum = d.train_batch, self.world, cfg.optim.accum_steps
@@ -405,10 +404,18 @@ class Trainer:
             grad_clip_norm=cfg.optim.grad_clip_norm,
             precision=self.precision,
             global_balance=not cfg.train.reduce_buckets,
-            loss_type=self.loss_type)
-        self.eval_step = make_eval_step(loss_weights=cfg.model.loss_weights,
-                                        precision=self.precision,
-                                        loss_type=self.loss_type)
+            loss_type=self.loss_type,
+            augment=self._build_device_stage(cfg.data.device_augment,
+                                             cfg.data.device_guidance),
+            seed=cfg.seed)
+        # the prepared val wire ships the bare image: the eval step appends
+        # the guidance channel with the val semantics (fixed points)
+        self.eval_step = make_eval_step(
+            loss_weights=cfg.model.loss_weights, precision=self.precision,
+            loss_type=self.loss_type,
+            preprocess=make_device_guidance(
+                family=cfg.data.guidance, alpha=cfg.data.guidance_alpha,
+                is_val=True) if self._val_device_guidance else None)
         self.ckpt = CheckpointManager(
             os.path.join(self.run_dir, "checkpoints"),
             keep_latest=cfg.checkpoint.keep_latest,
@@ -474,6 +481,96 @@ class Trainer:
                 f.writelines(f"{k}: {v}\n" for k, v in flat.items())
             config_lib.to_json(cfg, os.path.join(self.run_dir, "config.json"))
         self.writer.hparams(flat)
+
+    def _build_datasets(self, root) -> None:
+        """The train and val sets of the task, as the JAX trainer wires
+        them: the host stacks without the stages the device owns, behind
+        the prepared-sample cache when ``data.prepared_cache`` is set (val
+        too, with ``data.val_prepared``)."""
+        cfg, d = self.cfg, self.cfg.data
+        crop = tuple(d.crop_size)
+        prepared = bool(d.prepared_cache)
+        val_prep = prepared and d.val_prepared
+        flip = not d.device_augment
+        geom = not (d.device_augment and d.device_augment_geom)
+        #: whether the eval step synthesises the val guidance channel
+        self._val_device_guidance = val_prep and d.device_guidance
+        if cfg.task == "semantic":
+            self.train_set = VOCSemanticSegmentation(
+                root, split=d.train_split,
+                transform=None if prepared else build_semantic_train_transform(
+                    crop_size=crop, rots=tuple(d.rots), scales=tuple(d.scales),
+                    flip=flip, geom=geom),
+                decode_cache=d.decode_cache)
+            # one sample per image, read once per validation: no cache
+            self.val_set = VOCSemanticSegmentation(
+                root, split=d.val_split,
+                transform=None if val_prep else build_semantic_eval_transform(
+                    crop_size=crop, keep_fullres=cfg.eval_full_res))
+            if val_prep:
+                self.val_set = PreparedSemanticDataset(
+                    self.val_set, d.prepared_cache, crop_size=crop,
+                    keep_fullres=cfg.eval_full_res,
+                    max_im_size=d.val_max_im_size,
+                    post_transform=build_prepared_semantic_eval_post_transform())
+            if prepared:
+                self.train_set = PreparedSemanticDataset(
+                    self.train_set, d.prepared_cache, crop_size=crop,
+                    post_transform=build_prepared_semantic_post_transform(
+                        rots=tuple(d.rots), scales=tuple(d.scales),
+                        flip=flip, geom=geom))
+            return
+        # the device guidance: the host ships the bare image as 'concat'
+        guidance = "none" if d.device_guidance else d.guidance
+        train_tf = None if prepared else build_train_transform(
+            crop_size=crop, relax=d.relax, zero_pad=d.zero_pad,
+            rots=tuple(d.rots), scales=tuple(d.scales), alpha=d.guidance_alpha,
+            guidance=guidance, flip=flip, geom=geom,
+            fused_crop_resize=d.fused_crop_resize)
+        val_tf = None if val_prep else build_eval_transform(
+            crop_size=crop, relax=d.relax, zero_pad=d.zero_pad,
+            alpha=d.guidance_alpha, guidance=d.guidance)
+        self.train_set = VOCInstanceSegmentation(
+            root, split=d.train_split, transform=train_tf,
+            area_thres=d.area_thres, decode_cache=d.decode_cache)
+        self.val_set = VOCInstanceSegmentation(
+            root, split=d.val_split, transform=val_tf,
+            area_thres=d.area_thres, decode_cache=d.decode_cache)
+        crop_knobs = dict(crop_size=crop, relax=d.relax, zero_pad=d.zero_pad,
+                          fused_crop_resize=d.fused_crop_resize)
+        if val_prep:
+            self.val_set = PreparedInstanceDataset(
+                self.val_set, d.prepared_cache, eval_protocol=True,
+                max_im_size=d.val_max_im_size,
+                post_transform=build_prepared_eval_post_transform(
+                    alpha=d.guidance_alpha, guidance=guidance),
+                **crop_knobs)
+        if prepared:
+            self.train_set = PreparedInstanceDataset(
+                self.train_set, d.prepared_cache,
+                post_transform=build_prepared_post_transform(
+                    rots=tuple(d.rots), scales=tuple(d.scales),
+                    alpha=d.guidance_alpha, guidance=guidance,
+                    flip=flip, geom=geom),
+                **crop_knobs)
+
+    def _build_device_stage(self, device_augment: bool,
+                            device_guidance: bool):
+        """The train step's device stage (flip, scale-rotate with
+        ``data.device_augment_geom``, guidance), or None when both are
+        off: the one constructor for the config path and the governor's
+        future flip to the device path."""
+        if not (device_augment or device_guidance):
+            return None
+        cfg = self.cfg
+        guidance_fn = make_device_guidance(
+            family=cfg.data.guidance, alpha=cfg.data.guidance_alpha) \
+            if device_guidance else None
+        return make_device_augment(
+            hflip=device_augment,
+            scale_rotate=device_augment and cfg.data.device_augment_geom,
+            rots=tuple(cfg.data.rots), scales=tuple(cfg.data.scales),
+            semantic=cfg.task == "semantic", guidance_fn=guidance_fn)
 
     def _model_kwargs(self) -> dict:
         """``build_model``'s arguments for this config."""
@@ -620,13 +717,29 @@ class Trainer:
         # goodput: host perf_counter bookkeeping only, no sync added; the
         # device time the host waits for lands in the bucket it waits in
         acct = get_accountant()
-        batches = iter(self.train_loader)
+        host = iter(self.train_loader)
+
+        def checked(it):
+            for b in it:  # the host batch, before it is placed
+                if cfg.debug_asserts:
+                    self._debug_asserts(b)
+                yield b
+
+        # up to the window's batches pulled and placed ahead on the device
+        # (one worker thread, a side stream on a card); read live, so a
+        # resized window applies mid-epoch
+        batches = mesh.prefetch_to_device(
+            checked(host), self.state.device,
+            size=lambda: max(self._device_prefetch,
+                             cfg.data.steps_per_dispatch),
+            keys=DEVICE_KEYS)
         try:
             while True:
                 t_data = time.perf_counter()
-                # input wait: host time blocked on the loader; an injected
-                # latency here is input stall, a poisoned payload tears
-                # the batch the step is about to consume
+                # input wait: host time blocked on the loader and the
+                # placement; an injected latency here is input stall, a
+                # poisoned payload tears the batch the step is about to
+                # consume
                 with acct.account("input_wait"):
                     batch = next(batches, None)
                     if batch is not None:
@@ -635,8 +748,6 @@ class Trainer:
                 data_s += time.perf_counter() - t_data
                 if batch is None:
                     break
-                if cfg.debug_asserts:
-                    self._debug_asserts(batch)
                 losses.append(self._dispatch(batch))
                 step = self.state.step
                 if guard is not None and guard.should_stop(step):
@@ -655,7 +766,8 @@ class Trainer:
                                          "train/lr": self.schedule(step - 1),
                                          "train/epoch": epoch}, step)
         finally:
-            batches.close()  # stops the loader's threads or workers
+            batches.close()  # drops the placements still queued
+            host.close()  # stops the loader's threads or workers
         with acct.account("step"):  # the epoch's steps landing
             loss_arr = torch.stack(losses).cpu().numpy()
         dt = time.perf_counter() - t0
@@ -714,7 +826,13 @@ class Trainer:
             return
         flops = None
         try:
-            n, h, w, c = np.asarray(batch["concat"]).shape
+            # a placed NCHW batch, or a host NHWC one that the step places;
+            # its channels may be the host's 3, with the guidance channel
+            # still to come on the device
+            x = batch["concat"]
+            n, h, w = (x.shape[0], *x.shape[2:]) if torch.is_tensor(x) \
+                else x.shape[:3]
+            c = self.cfg.model.in_channels
             kwargs = dict(self._model_kwargs(), remat=False,
                           remat_policy=None, dtype="float32",
                           bn_cross_replica=False)
