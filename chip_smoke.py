@@ -238,6 +238,41 @@ it), printing no result.  The phases, each raising on failure:
              bf16) with the device flip and scale-rotate: finite loss, the
              warped-out ``crop_gt`` ring 255 and the ids exact, no attention
              kernel launched.
+13. sessions — head-injected guidance and session serving, DANet-R101 at
+             512², ``guidance_inject="head"``, every weight drawn from seed 0
+             (the gates and ``guidance_proj`` non-zero), in float32 and then
+             bf16 on the same weights: (a) ``decode(encode(x))`` against the
+             ``stage="full"`` forward at B = 1 and 4, in probability,
+             bitwise (the same ops on the same shapes); (b) an encode
+             launches no attention kernel, a decode of B crops exactly one
+             of each; (c) the cold click (prepare,
+             encode, decode, paste-back) and the warm click
+             (``prepare_guidance``, decode, paste-back) on the host's clock,
+             20 each in turns, p50; the encode and decode ms (CUDA events
+             around a lone launch, median of 21, and the profiler's device
+             busy of each stage), the encode share of the device time beside
+             the FLOP counter's share (meta device, plain forms), and one
+             cold click's idle share; (d) ``InferenceService(max_batch
+             =8)``: 8 sessions, one cold and 3 warm clicks each, submitted 8
+             at a time: the cold and warm masks bitwise the references at the
+             service's bucket, 8 (the stateless masks of the same clicks,
+             or the moved clicks' guidance, by 1 and 2 px, decoded in the
+             sessions' crops), and the stateless B = 1 ``predict`` of the
+             same clicks within ``SESSION_CROSS_TOL`` (1e-4 f32, 5e-2 bf16:
+             another batch shape, so another cuDNN algorithm) of bucket 8;
+             every burst one bucket-8 group holding all 8 sessions, and
+             launching exactly one of each kernel; 8 x
+             ``feature_struct(1)`` bytes live (32 MiB a session in f32, 16
+             in bf16), 24 hits and 8 misses; a budget of 3 entries evicting
+             the oldest of 4 sessions; an out-of-crop click re-encoding,
+             bitwise the stateless mask; (e)
+             f32 only: over HTTP, stateless, cold and warm masks bitwise
+             equal, and at lane depth 1 a session's second queued click shed
+             with 429 ``session_lane`` (raised as ``SessionLaneFullError``);
+             (f) the CLI fit with ``model.guidance_inject=head`` (bf16, 2
+             steps of B = 4, one validation): finite losses, launches one per
+             step and val sample, and ``Predictor.from_run`` serving a
+             session whose warm click is the stateless mask, bitwise.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2, grain, tensorboard and matplotlib are
@@ -252,12 +287,18 @@ path, rank 0's counts summed), zeroed just before phase 10a's overlapped
 epoch and read after its join (the overlapped validation path), and
 zeroed by the trainer when phase 10c's fit starts and read from its
 ``fit_summary.json``, and likewise for phase 11a's default fit and phase
-12e's fit with the device stage: every kernel must have run on each.  Every
+12e's fit with the device stage, taken as the difference across 13d's
+service calls (its bursts, the budget and out-of-crop clicks; the
+references are computed before) and across 13e's HTTP calls, in each
+dtype, summed (the session serving path), and read from 13f's
+``fit_summary.json``: every kernel must have run on each.  Launches made
+only to compare the model with its plain forms (phase 2's logits) are
+taken out of the counts.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -315,6 +356,21 @@ def check(name: str, value: float, limit: float) -> None:
     log(f"check {name}: {value:.3e} <= {limit:.3e} (limit/value {ratio:.3g})")
     if not value <= limit:
         raise AssertionError(f"{name}: {value:.3e} > {limit:.3e}")
+
+
+def _launches_since(ca, before: dict) -> dict:
+    return {k: ca.launches[k] - before[k] for k in before}
+
+
+@contextlib.contextmanager
+def _uncounted(ca):
+    """Launches inside the block (a comparison with the plain forms, not a
+    path) are taken back out of the counts."""
+    before = dict(ca.launches)
+    try:
+        yield
+    finally:
+        ca.launches.update(before)
 
 
 def card_peaks(name: str) -> tuple[str, tuple[float, float, float, float]]:
@@ -753,7 +809,7 @@ def phase_predictor(torch, Predictor, ca) -> tuple:
     # heads see their branch right after one conv-BN-ReLU
     x = torch.from_numpy(np.stack([pred.prepare(image, c)[0] for c in clicks]))
     x = x.to("cuda").permute(0, 3, 1, 2).contiguous()
-    with torch.inference_mode():
+    with torch.inference_mode(), _uncounted(ca):
         fast = pred.model(x)
         pred.model.set_attention_impl("xla")
         slow = pred.model(x)
@@ -4480,9 +4536,417 @@ def phase_devdata(torch, ca) -> dict:
     return {"devdata_fit": launches}
 
 
+#: 13d: the stateless B = 1 ``predict`` of a session's clicks against the
+#: session's mask at bucket 8, in probability: another batch shape, so
+#: cuDNN may take another algorithm (seen: 4.530e-06 f32, 2.442e-02 bf16)
+SESSION_CROSS_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+#: 13c: the clicks each timing takes turns over
+SESSION_CLICKS = 20
+#: 13f: the head-injected fit, 2 steps of B = 4 at 512² in bf16, one
+#: validation
+SESSION_FIT_ARGS = ["--fake-data", "train.precision=bfloat16", "data.train_batch=4",
+                    "data.area_thres=0", "epochs=1", "model.guidance_inject=head"]
+
+
+def _session_requests(clicks):
+    """8 sessions' click sets: the 4 of ``synthetic_image`` and the same
+    moved by 3 px."""
+    return [clicks[i % 4] + 3.0 * (i // 4) for i in range(8)]
+
+
+def _stage_flops(torch) -> tuple[float, float]:
+    """Forward FLOPs of one 512² crop through the encode and the decode
+    stage of DANet-R101 (OS 8), counted on the meta device with the plain
+    attention forms (the kernels do the same products)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distributedpytorch_tpu_torch.models import build_model
+
+    with torch.device("meta"):
+        model = build_model("danet", nclass=1, backbone="resnet101",
+                            attention_impl="xla", guidance_inject="head").eval()
+        rgb = torch.zeros(1, 3, 512, 512)
+        g = torch.zeros(1, 1, 512, 512)
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as enc:
+            feats = model(rgb, stage="encode")
+        with FlopCounterMode(display=False) as dec:
+            model((feats, g), stage="decode", out_size=(512, 512))
+    return float(enc.get_total_flops()), float(dec.get_total_flops())
+
+
+def sessions_stages(torch, ca, pred, image, clicks, label: str) -> None:
+    """13a and 13b: stage parity at B = 1 and 4, and the kernels' launches
+    of each stage."""
+    import numpy as np
+
+    concat = np.stack([pred.prepare(image, c)[0] for c in clicks])
+    for b in (1, 4):
+        x = torch.from_numpy(concat[:b]).to(pred.device)
+        ca.reset_launches()
+        feats = pred.encode(x[..., :-1])
+        torch.cuda.synchronize()
+        enc_launches = dict(ca.launches)
+        staged = pred.decode_device(feats, x[..., -1:])
+        torch.cuda.synchronize()
+        dec_launches = dict(ca.launches)
+        if any(enc_launches.values()) or any(n != 1 for n in dec_launches.values()):
+            raise AssertionError(f"13b {label} B={b}: launches after encode "
+                                 f"{enc_launches}, after decode {dec_launches}; "
+                                 "want 0 and exactly 1 of each")
+        with torch.inference_mode():
+            full = pred.model(x.permute(0, 3, 1, 2).contiguous().to(pred.dtype))[0]
+            full = torch.sigmoid(full.float())[:, 0]
+        bitwise = torch.equal(staged, full)
+        err = (staged - full).abs().max().item()
+        log(f"sessions (a, b) {label} B={b}: decode(encode(x)) vs the full forward "
+            f"bitwise {bitwise}, max |diff| {err:.3e}; features "
+            f"{tuple(feats.shape)} {str(feats.dtype).removeprefix('torch.')}; "
+            f"launches encode {enc_launches}, decode {dec_launches}")
+        if not bitwise:
+            raise AssertionError(f"13a {label} B={b}: decode(encode(x)) is not "
+                                 f"bitwise the full forward (max |diff| {err:.3e})")
+
+
+def sessions_latency(torch, pred, image, clicks, flops: tuple[float, float],
+                     label: str) -> dict:
+    """13c: the cold and the warm click on the host's clock, in turns, and
+    the encode and decode device ms with CUDA events; the encode share of
+    the device time and the idle share of a cold click."""
+    import numpy as np
+
+    pts = clicks[0]
+
+    def cold():
+        concat, bbox = pred.prepare(image, pts)
+        feats = pred.encode(concat[None, ..., :-1])
+        prob = pred.decode(feats, concat[None, ..., -1:])[0]
+        return pred.paste_back(prob, bbox, image.shape[:2]), feats, bbox
+
+    _, feats, bbox = cold()
+
+    def warm():
+        g = pred.prepare_guidance(pts, bbox)
+        prob = pred.decode(feats, g[None])[0]
+        return pred.paste_back(prob, bbox, image.shape[:2])
+
+    warm()
+    cold_ms, warm_ms = [], []
+    for _ in range(SESSION_CLICKS):
+        t0 = time.perf_counter()
+        cold()
+        cold_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        warm()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    concat, _ = pred.prepare(image, pts)
+    x = torch.from_numpy(concat[None]).to(pred.device)
+    rgb, g = x[..., :-1].contiguous(), x[..., -1:].contiguous()
+    enc_ms, dec_ms = median_ms([lambda: pred.encode(rgb),
+                                lambda: pred.decode_device(feats, g)])
+    # one profiler session, each stage in a range of its own: the device
+    # time of the kernels each range launched (a profiler per stage once
+    # read 0 for the decode)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    stages = {"encode": lambda: pred.encode(rgb),
+              "decode": lambda: pred.decode_device(feats, g), "cold": cold}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for name, fn in stages.items():
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(f"sessions/{name}"):
+                fn()
+                torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    busy = {name: _op_device_ms(prof, (f"sessions/{name}",)) for name in stages}
+    host = {"prepare_guidance": _host_ms(lambda: pred.prepare_guidance(pts, bbox)),
+            "paste_back": _host_ms(lambda: pred.paste_back(
+                pred.decode(feats, g)[0], bbox, image.shape[:2]))}
+    p50_cold, p50_warm = statistics.median(cold_ms), statistics.median(warm_ms)
+    flop_share = flops[0] / sum(flops)
+    log(f"sessions (c) {label}: cold click p50 {p50_cold:.2f} ms, warm click p50 "
+        f"{p50_warm:.2f} ms (warm / cold {p50_warm / p50_cold:.4f}), "
+        f"{SESSION_CLICKS} each in turns; a lone launch of each stage, CUDA events "
+        f"(median of 21): encode {enc_ms:.4f} ms, decode {dec_ms:.4f} ms (share "
+        f"{enc_ms / (enc_ms + dec_ms):.4f}); profiler device busy: encode "
+        f"{busy['encode']:.4f} ms, decode {busy['decode']:.4f} ms, encode share "
+        f"{busy['encode'] / max(busy['encode'] + busy['decode'], 1e-9):.4f} "
+        f"(reckoned 0.59; "
+        f"FLOP counter {flop_share:.4f}: encode {flops[0] / 1e9:.1f} GFLOP, decode "
+        f"{flops[1] / 1e9:.1f} GFLOP); one cold click: device busy "
+        f"{busy['cold']:.2f} ms of {window_ms:.2f} ms, idle share "
+        f"{1.0 - busy['cold'] / window_ms:.4f}; host ms prepare_guidance "
+        f"{host['prepare_guidance']:.2f}, decode + read-back + paste_back "
+        f"{host['paste_back']:.2f}")
+    return {"cold_ms": p50_cold, "warm_ms": p50_warm, "encode_ms": enc_ms,
+            "decode_ms": dec_ms}
+
+
+def sessions_service(torch, ca, pred, image, clicks, InferenceService,
+                     label: str) -> dict:
+    """13d: 8 sessions, 3 warm clicks each, through ``InferenceService``.
+    Returns the kernels' launches of the service's own calls: the bursts
+    and the budget and out-of-crop clicks (every reference is computed
+    before them, and the warm-up is left out)."""
+    import numpy as np
+
+    requests = _session_requests(clicks)
+    prepared = [pred.prepare(image, pts) for pts in requests]
+    concat = np.stack([c for c, _ in prepared])
+    bboxes = [b for _, b in prepared]
+    # references at the service's bucket: the stateless forward of the 8
+    # crops, and the moved clicks' guidance decoded in the sessions' crops
+    feats = pred.encode(concat[..., :-1])
+    want = {0.0: [pred.paste_back(p, b, image.shape[:2]) for p, b in
+                  zip(pred.decode(feats, concat[..., -1:]), bboxes)]}
+    for moved in (1.0, 2.0):
+        g = np.stack([pred.prepare_guidance(r + moved, b)
+                      for r, b in zip(requests, bboxes)])
+        want[moved] = [pred.paste_back(p, b, image.shape[:2])
+                       for p, b in zip(pred.decode(feats, g), bboxes)]
+    del feats
+    single = [pred.predict(image, pts) for pts in requests]
+    per = pred.feature_struct(1).nbytes
+    # a long wait: each burst of 8 is one bucket-8 group
+    svc = InferenceService(pred, max_batch=8, max_wait_s=1.0)
+    svc.warmup()
+    with svc, ThreadPoolExecutor(8) as pool:
+        def burst(moved: float):
+            futs = list(pool.map(
+                lambda i: svc.submit(image, requests[i] + moved, session_id=f"s{i}"),
+                range(8)))
+            return [f.result(timeout=300) for f in futs]
+
+        start = dict(svc.metrics.batch_buckets)
+        counted = dict(ca.launches)
+        cold = burst(0.0)
+        cold_launches = _launches_since(ca, counted)
+        snap = svc.health()["sessions"]
+        if (snap["live"], snap["live_bytes"], snap["misses"]) != (8, 8 * per, 8):
+            raise AssertionError(f"13d {label}: after 8 cold clicks {snap}; want 8 "
+                                 f"live, {8 * per} bytes, 8 misses")
+        before = dict(svc.metrics.batch_buckets)
+        masks = {"cold": (cold, want[0.0])}
+        warm_from = dict(ca.launches)
+        for moved in (0.0, 1.0, 2.0):
+            masks[f"warm {moved:g} px"] = (burst(moved), want[moved])
+        warm_launches = _launches_since(ca, warm_from)
+        after = dict(svc.metrics.batch_buckets)
+        snap = svc.health()["sessions"]
+    warm_groups = {b: after.get(b, 0) - before.get(b, 0) for b in after}
+    if snap["hits"] != 24 or snap["misses"] != 8:
+        raise AssertionError(f"13d {label}: {snap}; want 24 hits, 8 misses")
+    if warm_groups != {8: 3} or before.get(8, 0) - start.get(8, 0) != 1:
+        raise AssertionError(f"13d {label}: each burst must be one bucket-8 group "
+                             f"({start} -> {before} -> {after})")
+    if any(n != 1 for n in cold_launches.values()) or \
+            any(n != 3 for n in warm_launches.values()):
+        raise AssertionError(f"13d {label}: launches of the cold burst "
+                             f"{cold_launches}, of the 3 warm bursts "
+                             f"{warm_launches}; want 1 and 3 of each")
+    diff = {name: max(float(np.abs(m - w).max()) for m, w in zip(got, ref))
+            for name, (got, ref) in masks.items()}
+    cross = max(float(np.abs(a - b).max()) for a, b in zip(single, want[0.0]))
+    log(f"sessions (d) {label}: 8 sessions x (1 cold + 3 warm) clicks; live "
+        f"{snap['live']} sessions, {snap['live_bytes']} bytes = 8 x "
+        f"{per} ({per / 2**20:g} MiB a session); each burst one bucket-8 "
+        f"group (warm decodes {warm_groups}), launches cold {cold_launches}, "
+        f"warm {warm_launches}; max |diff| vs the bucket-8 references {diff} "
+        f"(bitwise required); the same clicks at B = 1 differ from bucket 8 "
+        f"by up to {cross:.3e}")
+    if any(diff.values()):
+        raise AssertionError(f"13d {label}: session masks are not bitwise the "
+                             f"bucket-8 references: {diff}")
+    check(f"13d {label} stateless B = 1 vs bucket 8", cross, SESSION_CROSS_TOL[label])
+
+    with InferenceService(pred, max_batch=8, max_wait_s=0.0,
+                          session_budget_bytes=3 * per) as svc:
+        budget_from = dict(ca.launches)
+        for i in range(4):
+            svc.predict(image, requests[i], timeout=300, session_id=f"b{i}")
+        snap = svc.health()["sessions"]
+        if (snap["live"], snap["evictions"]["lru"]) != (3, 1) or \
+                svc._store.get("b0") is not None:
+            raise AssertionError(f"13d {label}: budget of 3 entries: {snap}")
+        far = np.array([[5.0, 5.0], [40.0, 3.0], [75.0, 5.0], [40.0, 30.0]])
+        moved = svc.predict(image, far, timeout=300, session_id="b3")
+        plain = svc.predict(image, far, timeout=300)
+        budget_launches = _launches_since(ca, budget_from)
+        snap = svc.health()["sessions"]
+        if snap["misses"] != 5 or not np.array_equal(moved, plain):
+            raise AssertionError(f"13d {label}: an out-of-crop click must re-encode "
+                                 f"and give the stateless mask: {snap}")
+    log(f"sessions (d) {label}: a budget of 3 entries evicts the oldest of 4 "
+        f"(lru {snap['evictions']['lru']}); an out-of-crop click re-encodes "
+        f"(misses {snap['misses']}), bitwise the stateless mask; launches "
+        f"{budget_launches}")
+    return {k: cold_launches[k] + warm_launches[k] + budget_launches[k]
+            for k in cold_launches}
+
+
+def sessions_http(torch, ca, pred, image, clicks, InferenceService, make_server,
+                  ServeClient) -> dict:
+    """13e: a session over HTTP, and a 429 with ``code: session_lane``.
+    Returns the kernels' launches of the HTTP calls (a stateless click, a
+    session's cold click and two warm ones; the shed click launches
+    nothing): exactly 4 of each."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.serve.service import SessionLaneFullError
+
+    svc = InferenceService(pred, max_batch=4, session_lane_depth=1).start()
+    server = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    gate = threading.Event()
+    try:
+        client = ServeClient(f"http://127.0.0.1:{server.server_port}", timeout_s=300)
+        pts = clicks[1]
+        counted = dict(ca.launches)
+        plain = client.predict(image, pts)
+        cold = client.predict(image, pts, session_id="h")
+        t0 = time.perf_counter()
+        warm = client.predict(image, pts, session_id="h")
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(plain, cold) and np.array_equal(cold, warm)):
+            raise AssertionError("13e: stateless, cold and warm HTTP masks differ")
+        decode = pred.decode
+
+        def gated(*a, **kw):
+            gate.wait(timeout=60)
+            return decode(*a, **kw)
+
+        pred.decode = gated
+        pending = ThreadPoolExecutor(1).submit(client.predict, image, pts,
+                                               session_id="h")
+        deadline = time.time() + 30
+        while not svc._lanes.get("h") and time.time() < deadline:
+            time.sleep(0.01)
+        try:
+            client.predict(image, pts, session_id="h")
+            raise AssertionError("13e: a second queued click of one session "
+                                 "was not shed at lane depth 1")
+        except SessionLaneFullError as e:
+            shed = str(e)
+        gate.set()
+        if not np.array_equal(pending.result(timeout=300), warm):
+            raise AssertionError("13e: the gated warm click changed its mask")
+        launches = _launches_since(ca, counted)
+        if any(n != 4 for n in launches.values()):
+            raise AssertionError(f"13e: launches of the HTTP calls {launches}; "
+                                 "want 4 of each")
+        health = client.health()
+        log(f"sessions (e): HTTP stateless == cold == warm bitwise (warm round trip "
+            f"{warm_ms:.2f} ms); a second click of one session at lane depth 1 -> "
+            f"429 session_lane ({shed[:60]}...); /healthz sessions "
+            f"{json.dumps(health['sessions'])}; launches {launches}")
+        return launches
+    finally:
+        gate.set()
+        pred.__dict__.pop("decode", None)
+        server.shutdown()
+        server.server_close()
+        svc.stop()
+        thread.join(timeout=30)
+
+
+def sessions_fit(torch, ca, Predictor) -> dict:
+    """13f: a head-injected fit through the CLI, served with a session."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.serve.service import InferenceService
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_sessions_"))
+    try:
+        cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch",
+               *SESSION_FIT_ARGS, f"work_dir={work}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"13f: the fit exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        (run,) = work.glob("run_*")
+        rec = _run_record(run)
+        final = rec["summary"]["final_step"]
+        losses = [x for r in rec["epochs"] for x in r["train/step_losses"]]
+        launches = rec["summary"]["kernel_launches"]
+        want = final + sum(int(r["val/n_samples"]) for r in rec["vals"])
+        if final != 2 or not all(x is not None and math.isfinite(x) for x in losses):
+            raise AssertionError(f"13f: {final} steps, losses {losses}")
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"13f: launches {launches}, want {want} each")
+        pred = Predictor.from_run(str(run), device="cuda")
+        image, clicks = synthetic_image()
+        with InferenceService(pred, max_batch=2) as svc:
+            plain = svc.predict(image, clicks[0], timeout=300)
+            cold = svc.predict(image, clicks[0], timeout=300, session_id="f")
+            warm = svc.predict(image, clicks[0], timeout=300, session_id="f")
+            snap = svc.health()["sessions"]
+        if not (pred.supports_sessions and np.array_equal(plain, cold)
+                and np.array_equal(cold, warm) and snap["hits"] == 1
+                and np.isfinite(warm).all()):
+            raise AssertionError(f"13f: the fit's run does not serve a session: {snap}")
+        log(f"sessions (f): `{' '.join(SESSION_FIT_ARGS)}`: {final} steps in "
+            f"{time.perf_counter() - t0:.1f} s wall, losses "
+            f"{[round(x, 6) for x in losses]}, val jaccard "
+            f"{[round(r['val/jaccard'], 6) for r in rec['vals']]}, launches "
+            f"{launches}; Predictor.from_run serves it in "
+            f"{str(pred.dtype).removeprefix('torch.')}: a session's warm click "
+            f"bitwise the stateless one, {snap['live_bytes']} bytes cached")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_sessions(torch, ca, Predictor, InferenceService, make_server,
+                   ServeClient) -> dict:
+    """Phase 13 (a-f); returns the launch counts of the session serving
+    path (13d's service calls and 13e's HTTP calls, both dtypes) and of the
+    head-injected fit."""
+    t0 = time.perf_counter()
+    pred = Predictor.fresh(512, "resnet101", seed=0, device="cuda",
+                           guidance_inject="head")
+    drawn = {n: float(p.detach().abs().max())
+             for n, p in pred.model.named_parameters()
+             if n.endswith("gamma") or n.startswith("guidance_proj")}
+    if not all(v > 0 for v in drawn.values()):
+        raise AssertionError(f"13: a gate or the guidance projection is zero: {drawn}")
+    image, clicks = synthetic_image()
+    flops = _stage_flops(torch)
+    launches = dict.fromkeys(TPU_KERNELS, 0)
+    for label, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        if dtype != torch.float32:
+            pred = Predictor(pred.model, resolution=(512, 512), device="cuda",
+                             dtype=dtype)
+        log(f"sessions: DANet-R101 512^2 guidance_inject=head, {label}, fresh seed "
+            f"0 (|gate|, max |guidance_proj| {drawn}); feature_struct(1) "
+            f"{pred.feature_struct(1)}")
+        sessions_stages(torch, ca, pred, image, clicks, label)
+        sessions_latency(torch, pred, image, clicks, flops, label)
+        counted = [sessions_service(torch, ca, pred, image, clicks,
+                                    InferenceService, label)]
+        if label == "float32":
+            counted.append(sessions_http(torch, ca, pred, image, clicks,
+                                         InferenceService, make_server, ServeClient))
+        for path in counted:
+            for k in launches:
+                launches[k] += path[k]
+        log(f"sessions: {label} done at {time.perf_counter() - t0:.1f} s")
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    fit = sessions_fit(torch, ca, Predictor)
+    log(f"sessions: (f) done; phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"sessions": launches, "sessions_fit": fit}
+
+
 #: the phases of a whole run, in order
 PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer",
-          "telemetry", "devdata")
+          "telemetry", "devdata", "sessions")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4554,6 +5018,9 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(phase_telemetry(torch, ca, Predictor, InferenceService, make_server))
     if "devdata" in phases:
         paths.update(phase_devdata(torch, ca))
+    if "sessions" in phases:
+        paths.update(phase_sessions(torch, ca, Predictor, InferenceService,
+                                    make_server, ServeClient))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")

@@ -34,7 +34,8 @@ def build_model(name: str = "danet", nclass: int = 1,
                 aux_head: bool = False,
                 encnet_codes: int = 32, ccnet_recurrence: int = 2,
                 bn_cross_replica: bool = False,
-                bn_fp32_stats: bool = True) -> nn.Module:
+                bn_fp32_stats: bool = True,
+                guidance_inject: str = "stem") -> nn.Module:
     """Construct a segmentation model by name: ``danet``, ``deeplabv3``,
     ``deeplabv3plus`` or ``fcn``, each at the JAX package's default
     output stride (8 for DANet and FCN, 16 for DeepLab) unless given.
@@ -58,7 +59,10 @@ def build_model(name: str = "danet", nclass: int = 1,
     the FCN head on ``c3`` to DeepLab and FCN; ``aux_head``,
     ``encnet_codes`` and ``ccnet_recurrence`` raise away from their
     defaults on a family that lacks them, DANet's knobs on the others,
-    as in the JAX package."""
+    as in the JAX package.  ``guidance_inject`` is DANet's: ``stem`` (the
+    backbone takes the whole concat) or ``head`` (the backbone takes the
+    RGB channels, the guidance joins at the head; the model then runs
+    ``stage="encode"`` and ``stage="decode"`` apart)."""
     if name in UNPORTED_MODELS:
         raise ValueError(f"model {name!r} is not ported "
                          f"({' | '.join(PORTED_MODELS)})")
@@ -69,7 +73,8 @@ def build_model(name: str = "danet", nclass: int = 1,
     if name != "danet":
         for knob, value, default in (
                 ("attention_impl", attention_impl, "auto"),
-                ("pam_score_dtype", pam_score_dtype, None)):
+                ("pam_score_dtype", pam_score_dtype, None),
+                ("guidance_inject", guidance_inject, "stem")):
             if value != default:
                 raise ValueError(f"{knob} is DANet-only; model {name!r} "
                                  "does not support it")
@@ -100,7 +105,8 @@ def build_model(name: str = "danet", nclass: int = 1,
                       dtype=dtype,
                       pam_score_dtype=None if pam_score_dtype is None
                       else torch_dtype(pam_score_dtype),
-                      remat=remat, remat_policy=remat_policy)
+                      remat=remat, remat_policy=remat_policy,
+                      guidance_inject=guidance_inject)
     else:
         if dropout_rate not in (None, 0.0):
             raise ValueError(

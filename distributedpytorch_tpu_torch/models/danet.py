@@ -1,6 +1,7 @@
 """DANet, the dual-attention segmentation network (NCHW), the counterpart
-of ``distributedpytorch_tpu/models/danet.py`` with ``guidance_inject="stem"``
-and ``stage="full"``.
+of ``distributedpytorch_tpu/models/danet.py``: both guidance injections
+(``stem`` and ``head``) and the ``head`` model's three stages (``full``,
+``encode`` and ``decode``).
 
 A dilated ResNet feeds two attention branches over its stage-4 features:
 position attention (self-attention over the H/8 x W/8 tokens) and channel
@@ -32,6 +33,19 @@ the two differ by at most a bf16 rounding of the intermediate.
 ``pam_score_dtype`` rounds the position branch's N x N scores on the plain
 path (the kernels never hold them), and ``remat`` recomputes the
 backbone's blocks in the backward.
+
+``guidance_inject`` picks where the click guidance (the input's last
+channel) enters.  ``stem``: the backbone takes the whole RGB + guidance
+concat.  ``head``: the backbone takes the RGB channels only (its stem conv
+has ``in_channels - 1`` inputs, as flax infers from ``x[..., :-1]``), and
+the guidance, resized to the stage-4 grid, goes through a zero-init,
+bias-free 1x1 ``guidance_proj`` (1 -> C) added to the stage-4 features
+before the head.  The backbone's output is then a function of the image
+alone: ``stage="encode"`` computes it once per session, ``stage="decode"``
+runs the head on it with each click's guidance (``serve/sessions.py``).
+The guidance's downsample antialiases, as ``jax.image.resize`` does when
+it shrinks: on random [0, 1] maps at 512 -> 64, torch's
+``antialias=False`` is 0.43 off it, ``antialias=True`` within 2e-7.
 """
 
 from __future__ import annotations
@@ -160,28 +174,58 @@ class DANetHead(nn.Module):
                 self.cam_cls(drop(ca)))
 
 
+def resize_guidance(g: torch.Tensor, size) -> torch.Tensor:
+    """The guidance (B, 1, H, W) bilinearly resized to ``size`` as
+    ``jax.image.resize`` resizes it: half-pixel centres, antialiased when
+    it shrinks.  It interpolates in float32 (torch has no bf16 antialiased
+    resize on the CPU) and returns ``g``'s dtype: in bf16 within one
+    rounding of JAX's bf16 arithmetic."""
+    return F.interpolate(g.float(), size=tuple(size), mode="bilinear",
+                         align_corners=False, antialias=True).to(g.dtype)
+
+
 class DANet(nn.Module):
     """Backbone + dual-attention head.  ``forward(x)`` with ``x`` the
     (B, C, H, W) RGB + guidance crop -> ``(fused, pam, cam)`` logits, each
     (B, nclass, H, W) in the compute dtype; in train mode ``generator``
-    draws the dropout masks."""
+    draws the dropout masks.
+
+    A ``guidance_inject="head"`` model also runs its stages apart:
+    ``stage="encode"`` takes the (B, C - 1, H, W) RGB crop and returns the
+    stage-4 features (B, C_feat, H / os, W / os); ``stage="decode"`` takes
+    ``x = (features, guidance)`` with the guidance (B, 1, H, W) in crop
+    space and returns the logits at ``out_size``.  ``decode(encode(rgb),
+    g)`` is the full forward of the concat, op for op."""
 
     def __init__(self, nclass: int = 1, backbone_depth: int = 101,
                  output_stride: int = 8, in_channels: int = 4,
                  attention_impl: str = "auto", dropout_rate: float = 0.1,
                  dtype: torch.dtype | None = None,
                  pam_score_dtype: torch.dtype | None = None,
-                 remat: bool = False, remat_policy: str | None = None):
+                 remat: bool = False, remat_policy: str | None = None,
+                 guidance_inject: str = "stem"):
         super().__init__()
+        if guidance_inject not in ("stem", "head"):
+            raise ValueError(f"unknown guidance_inject: "
+                             f"{guidance_inject!r} (stem | head)")
         self.nclass = nclass
+        self.guidance_inject = guidance_inject
+        head = guidance_inject == "head"
         self.backbone = ResNet(depth=backbone_depth,
                                output_stride=output_stride,
-                               in_channels=in_channels, remat=remat,
+                               in_channels=in_channels - 1 if head
+                               else in_channels, remat=remat,
                                remat_policy=remat_policy)
+        if head:
+            c = self.backbone.out_channels
+            self.guidance_proj = Conv2d(1, c, 1, bias=False)
         self.head = DANetHead(self.backbone.out_channels, nclass,
                               dropout_rate=dropout_rate,
                               pam_score_dtype=pam_score_dtype)
         flax_init_(self)
+        if head:
+            with torch.no_grad():
+                self.guidance_proj.weight.zero_()
         self.set_attention_impl(attention_impl)
         self.set_compute_dtype(dtype)
 
@@ -203,12 +247,49 @@ class DANet(nn.Module):
         self.head.pam.impl = impl
         self.head.cam.impl = impl
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """The backbone's stage-4 features: the session-invariant stage."""
+        return self.backbone(x)["c4"]
+
+    def _decode(self, feats: torch.Tensor, guidance: torch.Tensor | None,
+                out_size, generator: torch.Generator | None
                 ) -> tuple[torch.Tensor, ...]:
-        size = x.shape[-2:]
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-        outs = self.head(self.backbone(x)["c4"], generator)
-        return tuple(F.interpolate(o, size=size, mode="bilinear",
+        """The head on the (guidance-conditioned) stage-4 features, its
+        logits upsampled to ``out_size``."""
+        if guidance is not None:
+            feats = feats + self.guidance_proj(
+                resize_guidance(guidance, feats.shape[-2:]))
+        outs = self.head(feats, generator)
+        return tuple(F.interpolate(o, size=tuple(out_size), mode="bilinear",
                                    align_corners=False) for o in outs)
+
+    def forward(self, x, generator: torch.Generator | None = None,
+                stage: str = "full", out_size=None):
+        if stage == "full":
+            size = out_size or x.shape[-2:]
+            x = self._cast(x)
+            if self.guidance_inject == "stem":
+                return self._decode(self._encode(x), None, size, generator)
+            # the same concat as the stem model takes: the backbone sees
+            # the RGB channels, the guidance re-enters at the head
+            return self._decode(self._encode(x[:, :-1]), x[:, -1:], size,
+                                generator)
+        if self.guidance_inject != "head":
+            raise ValueError(
+                f"stage={stage!r} needs guidance_inject='head' — the stem "
+                "architecture folds the guidance into the backbone, so "
+                "its encoding cannot be reused across clicks")
+        if stage == "encode":
+            return self._encode(self._cast(x))
+        if stage == "decode":
+            if out_size is None:
+                raise ValueError("stage='decode' needs out_size (the "
+                                 "logit-map resolution)")
+            feats, guidance = x
+            return self._decode(feats, self._cast(guidance), out_size,
+                                generator)
+        raise ValueError(f"unknown stage: {stage!r} "
+                         "(full | encode | decode)")

@@ -16,7 +16,16 @@ forward — ``bfloat16`` computes in bf16 on float32 parameters, as the JAX
 package's ``dtype`` does, and never casts the module's weights.
 ``Predictor.from_run`` serves the weights of a run the port's ``Trainer``
 wrote, in the run's precision: a ``train.precision=bfloat16`` run serves
-in bf16.
+in bf16.  ``mean``/``std`` normalise the input channel-wise before the
+forward, as the JAX predictor's ``_apply_with_normalize`` does.
+
+A DANet built with ``guidance_inject="head"`` splits into two stages
+(``supports_sessions``): :meth:`Predictor.encode` (the RGB crop -> the
+backbone's features, kept on the device in the compute dtype) and
+:meth:`Predictor.decode` (features + guidance -> probabilities).  Its
+``forward_prepared`` is ``decode(encode(rgb), guidance)``, so a stateless
+click and a session's warm click (cached features, new guidance from
+:meth:`Predictor.prepare_guidance`) run the same two forwards.
 
 ``SemanticPredictor`` serves a ``task=semantic`` run: the image resized
 to the training crop (cubic, clamped), the argmax of the primary logits
@@ -28,8 +37,9 @@ run with the predictor of its task and writes a PNG.
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -92,15 +102,18 @@ def prepare_input(
 
 def _randomize_(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter and BatchNorm statistic of a DANet from
-    ``generator``, the residual gates and the zero-init last-BN scales
-    included (at 0 they would cut the attention branches out of the
-    logits).  Scales keep the activations of a 101-layer net finite."""
+    ``generator``, the residual gates, the zero-init last-BN scales and a
+    head model's zero-init ``guidance_proj`` included (at 0 they would
+    cut the attention branches, or the clicks, out of the logits).  Scales
+    keep the activations of a 101-layer net finite."""
     with torch.no_grad():
         for name, module in model.named_modules():
             if isinstance(module, torch.nn.Conv2d):
                 fan_in = module.weight[0].numel()
-                # the classifiers get logits of order 1, not 0.1
-                gain = 100.0 if name.endswith("_cls") else 2.0
+                # the classifiers get logits of order 1, not 0.1; the
+                # guidance projection sees [0, 255] maps, not unit ones
+                gain = 100.0 if name.endswith("_cls") else \
+                    2.0 / 255.0 ** 2 if name == "guidance_proj" else 2.0
                 module.weight.normal_(0.0, (gain / fan_in) ** 0.5,
                                       generator=generator)
                 if module.bias is not None:
@@ -145,9 +158,51 @@ def load_run_model(run_dir: str, cfg, step: int | None = None
                         pam_score_dtype=cfg.model.pam_score_dtype,
                         aux_head=cfg.model.aux_head,
                         encnet_codes=cfg.model.encnet_codes,
-                        ccnet_recurrence=cfg.model.ccnet_recurrence)
+                        ccnet_recurrence=cfg.model.ccnet_recurrence,
+                        guidance_inject=cfg.model.guidance_inject)
     model.load_state_dict(payload["model"], strict=True)
     return model, dtype
+
+
+def _split_channel_stats(vals, n_channels: int):
+    """Split per-channel normalisation stats into (rgb, guidance) parts.
+
+    Each stage of a split predictor normalises its own part of the input;
+    slicing here keeps that bitwise what normalising the concat and then
+    splitting gives.  A single value applies to both parts; per-channel
+    stats must cover every channel, or the guidance would silently reuse
+    an RGB constant."""
+    if vals is None:
+        return None, None
+    vals = tuple(vals)
+    if len(vals) == 1:
+        return vals, vals
+    if len(vals) != n_channels:
+        raise ValueError(
+            f"normalization stats have {len(vals)} entries for "
+            f"{n_channels} input channels — pass 1 (broadcast) or "
+            f"{n_channels} (per-channel incl. guidance)")
+    return vals[:-1], vals[-1:]
+
+
+def _normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """Channel-wise ``(x - mean) / std`` of an NCHW float32 batch; nothing
+    when neither is given, ``(0,)`` / ``(255,)`` for the one left out (the
+    JAX predictor's defaults)."""
+    if mean is None and std is None:
+        return x
+    from .ops.augment import normalize
+
+    return normalize({"concat": x}, mean or (0.0,),
+                     std or (255.0,))["concat"]
+
+
+class FeatureStruct(NamedTuple):
+    """Shape, dtype and bytes of one batch of encoded features: what a
+    session's cache entry holds, and what the store's budget charges."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    nbytes: int
 
 
 class Predictor:
@@ -162,7 +217,9 @@ class Predictor:
                  relax: int = 50, zero_pad: bool = True, alpha: float = 0.6,
                  guidance: str = "nellipse_gaussians", in_channels: int = 4,
                  device: str | torch.device | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 mean: Sequence[float] | None = None,
+                 std: Sequence[float] | None = None):
         if guidance not in guidance_lib.POINT_GUIDANCE:
             raise ValueError(f"guidance {guidance!r} is not derivable from "
                              "clicks alone "
@@ -178,20 +235,32 @@ class Predictor:
         self.alpha = alpha
         self.guidance = guidance
         self.in_channels = in_channels
+        self.mean, self.std = mean, std
+        #: a guidance_inject="head" DANet runs encode and decode apart
+        self.supports_sessions = \
+            getattr(model, "guidance_inject", "stem") == "head"
+        if self.supports_sessions:
+            rgb_mean, g_mean = _split_channel_stats(mean, in_channels)
+            rgb_std, g_std = _split_channel_stats(std, in_channels)
+            self._rgb_stats = (rgb_mean, rgb_std)
+            self._guidance_stats = (g_mean, g_std)
+        self._feature_shape: tuple[int, ...] | None = None
 
     @classmethod
     def fresh(cls, size: int = 512, backbone: str = "resnet101",
               seed: int = 0, device: str | torch.device | None = None,
-              dtype: torch.dtype = torch.float32, **kwargs) -> "Predictor":
-        """A predictor on DANet(nclass=1, ``backbone``, output stride 8) at
-        ``size``², every weight drawn from ``torch.Generator`` seeded with
-        ``seed`` — no checkpoint needed; ``dtype`` is the compute dtype
-        (the weights are float32)."""
+              dtype: torch.dtype = torch.float32,
+              guidance_inject: str = "stem", **kwargs) -> "Predictor":
+        """A predictor on DANet(nclass=1, ``backbone``, output stride 8,
+        ``guidance_inject``) at ``size``², every weight drawn from
+        ``torch.Generator`` seeded with ``seed`` — no checkpoint needed;
+        ``dtype`` is the compute dtype (the weights are float32)."""
         from .models import build_model
 
         device = resolve_device(device)
         model = build_model("danet", nclass=1, backbone=backbone,
-                            output_stride=8, dtype=dtype)
+                            output_stride=8, dtype=dtype,
+                            guidance_inject=guidance_inject)
         _randomize_(model, torch.Generator().manual_seed(seed))
         return cls(model, resolution=(size, size), device=device, dtype=dtype,
                    **kwargs)
@@ -231,17 +300,96 @@ class Predictor:
                              resolution=self.resolution,
                              alpha=self.alpha, guidance=self.guidance)
 
+    def _nchw(self, x) -> torch.Tensor:
+        """(B, H, W, C) or (H, W, C) numpy or tensor -> an NCHW float32
+        tensor on this predictor's device."""
+        t = x if torch.is_tensor(x) else \
+            torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        if t.ndim == 3:
+            t = t[None]
+        return t.to(self.device, torch.float32).permute(0, 3, 1, 2)
+
     def forward_prepared(self, concat: np.ndarray) -> np.ndarray:
         """(B, H, W, C) prepared crops -> (B, H, W) float32 probabilities of
-        the fused head.  A single (H, W, C) crop is treated as B = 1."""
-        concat = np.asarray(concat, np.float32)
-        if concat.ndim == 3:
-            concat = concat[None]
-        x = torch.from_numpy(concat).to(self.device).permute(0, 3, 1, 2)
+        the fused head.  A single (H, W, C) crop is treated as B = 1.  A
+        split predictor runs ``decode(encode(rgb), guidance)``."""
+        if self.supports_sessions:
+            concat = np.asarray(concat, np.float32)
+            if concat.ndim == 3:
+                concat = concat[None]
+            return self.decode(self.encode(concat[..., :-1]),
+                               concat[..., -1:])
+        x = _normalize(self._nchw(concat), self.mean, self.std)
         with torch.inference_mode():
             logits = self.model(x.to(self.dtype).contiguous())[0]
             probs = torch.sigmoid(logits.float())[:, 0]
         return probs.cpu().numpy()
+
+    def _need_sessions(self, what: str) -> None:
+        if not self.supports_sessions:
+            raise ValueError(f"{what}: this predictor has no encode stage "
+                             "(guidance_inject='stem')")
+
+    def encode(self, rgb) -> torch.Tensor:
+        """(B, H, W, C - 1) RGB crops (numpy or tensor, [0, 255]) -> the
+        backbone's features (B, C_feat, H / os, W / os), in the compute
+        dtype, on the device: a session's cache entry."""
+        self._need_sessions("encode")
+        x = _normalize(self._nchw(rgb), *self._rgb_stats)
+        with torch.inference_mode():
+            return self.model(x.to(self.dtype).contiguous(), stage="encode")
+
+    def decode_device(self, features: torch.Tensor,
+                      guidance) -> torch.Tensor:
+        """Encoded ``features`` + (B, H, W, 1) guidance -> (B, H, W) float32
+        probabilities of the fused head, left on the device."""
+        self._need_sessions("decode")
+        g = _normalize(self._nchw(guidance), *self._guidance_stats)
+        with torch.inference_mode():
+            logits = self.model((features, g.to(self.dtype).contiguous()),
+                                stage="decode", out_size=self.resolution)[0]
+            return torch.sigmoid(logits.float())[:, 0]
+
+    def decode(self, features: torch.Tensor, guidance) -> np.ndarray:
+        """:meth:`decode_device`, read back: (B, H, W) float32 numpy."""
+        return self.decode_device(features, guidance).cpu().numpy()
+
+    def feature_struct(self, batch: int = 1) -> FeatureStruct:
+        """Shape, dtype and bytes of ``batch`` encoded crops, found once by
+        running the encode stage on the ``meta`` device (no dispatch)."""
+        self._need_sessions("feature_struct")
+        if self._feature_shape is None:
+            h, w = self.resolution
+            meta = {k: torch.empty_like(v, device="meta") for k, v in
+                    [*self.model.named_parameters(),
+                     *self.model.named_buffers()]}
+            x = torch.empty((1, self.in_channels - 1, h, w), device="meta",
+                            dtype=self.dtype)
+            with torch.inference_mode():
+                out = torch.func.functional_call(self.model, meta, (x,),
+                                                 {"stage": "encode"})
+            self._feature_shape = tuple(out.shape[1:])
+        shape = (batch, *self._feature_shape)
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        return FeatureStruct(shape, self.dtype, math.prod(shape) * itemsize)
+
+    def prepare_guidance(self, points: Any,
+                         bbox: tuple[int, int, int, int]) -> np.ndarray:
+        """A warm click's guidance: new clicks in an existing crop.
+
+        A session's first click fixed ``bbox`` (and the cached features of
+        that crop); a later click re-synthesises only the guidance in the
+        same crop's coordinates, by :func:`prepare_input`'s point rule
+        with the bbox held.  Returns (H, W, 1) float32 at
+        ``resolution``."""
+        points = np.asarray(points, np.float64)
+        if points.shape != (4, 2):
+            raise ValueError(f"expected 4 xy extreme points, got "
+                             f"{points.shape}")
+        heat = guidance_lib.crop_point_guidance(
+            points, bbox, self.resolution, alpha=self.alpha,
+            family=self.guidance)
+        return heat.astype(np.float32)[..., None]
 
     def paste_back(self, prob: np.ndarray, bbox: tuple[int, int, int, int],
                    shape_hw: tuple[int, int]) -> np.ndarray:

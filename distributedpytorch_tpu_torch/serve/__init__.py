@@ -1,3 +1,4 @@
 """Batched click-to-mask serving of the port: the bounded-queue
-micro-batcher (``service``), its bucket ladder (``batching``), the wire
-format and client (``client``) and the HTTP front (``__main__``)."""
+micro-batcher (``service``), its bucket ladder (``batching``), the
+session feature cache (``sessions``), the wire format and client
+(``client``) and the HTTP front (``__main__``)."""

@@ -4,10 +4,12 @@ A stdlib ``http.server`` shell around :class:`service.InferenceService`;
 each request thread submits into the shared queue and blocks on its future.
 
     POST /v1/predict   {"image": <wire array>, "points": [[x, y]] * 4,
-                        "deadline_ms": optional}
+                        "deadline_ms": optional, "session_id": optional}
                     -> {"mask": <wire array>, "latency_ms": ...}
-                       429 shed (queue full) | 504 deadline | 400 bad input
-                       | 503 service stopped or no result in time
+                       429 shed (queue full; with "code": "session_lane"
+                       when one session's lane is full) | 504 deadline
+                       | 400 bad input | 503 service stopped or no result
+                       in time
     GET  /healthz   -> 200 / 503 with the service's health
     GET  /stats     -> the metrics snapshot
     GET  /metrics   -> Prometheus text exposition of the process-wide
@@ -21,10 +23,13 @@ each request thread submits into the shared queue and blocks on its future.
                        capture.  Traces land under ``--trace-dir``.
 
 The model is DANet with random weights from a seed (``--fresh-init
-SIZE:BACKBONE:SEED``), a saved ``state_dict`` of the port's DANet
-(``--state-dict PTH``), or a training run of the port (``--run-dir RUN``,
-its best checkpoint, or ``--step N``).  It runs on CUDA unless ``--device
-cpu``, in float32 with TF32 off, or in the run's precision with
+SIZE:BACKBONE:SEED[:INJECT]``, INJECT ``stem`` or ``head``), a saved
+``state_dict`` of the port's DANet (``--state-dict PTH``), or a training run of the port (``--run-dir RUN``, its best
+checkpoint, or ``--step N``).  A ``guidance_inject=head`` model serves
+sessions: a request's ``session_id`` keeps its crop's features on the
+card (``--session-budget-mb``, ``--session-ttl-s``), and one session holds
+at most ``--session-lane-depth`` queued requests.  It runs on CUDA unless
+``--device cpu``, in float32 with TF32 off, or in the run's precision with
 ``--run-dir`` (a bf16 run serves in bf16 on its float32 weights).
 SIGTERM/SIGINT stop the server, fail the queued requests and exit 0.
 An ``InjectedFaultError`` from an armed ``serve/enqueue`` fault
@@ -55,6 +60,7 @@ from .service import (
     InferenceService,
     QueueFullError,
     ServiceUnhealthyError,
+    SessionLaneFullError,
 )
 
 
@@ -128,14 +134,23 @@ def make_handler(service: InferenceService,
                 deadline_ms = body.get("deadline_ms")
                 deadline_s = None if deadline_ms is None \
                     else float(deadline_ms) / 1e3
+                # no session_id: the stateless request
+                session_id = body.get("session_id")
+                if session_id is not None:
+                    session_id = str(session_id)
                 t0 = time.perf_counter()
-                fut = service.submit(image, points, deadline_s=deadline_s)
+                fut = service.submit(image, points, deadline_s=deadline_s,
+                                     session_id=session_id)
                 mask = fut.result(timeout=request_timeout_s
                                   if deadline_s is None
                                   else min(deadline_s + 5.0, request_timeout_s))
                 self._reply(200, {
                     "mask": encode_array(mask),
                     "latency_ms": (time.perf_counter() - t0) * 1e3})
+            except SessionLaneFullError as e:
+                # a 429 as a full queue, with a code so that the client
+                # raises the same type
+                self._reply(429, {"error": str(e), "code": "session_lane"})
             except QueueFullError as e:
                 self._reply(429, {"error": str(e)})
             except DeadlineExceededError as e:
@@ -160,6 +175,20 @@ def make_server(service: InferenceService, host: str = "127.0.0.1",
     return server
 
 
+def parse_fresh_spec(spec: str) -> tuple[int, str, int, str]:
+    """``SIZE:BACKBONE:SEED[:INJECT]`` -> (size, backbone, seed, inject);
+    INJECT is ``stem`` (the default) or ``head``."""
+    parts = spec.split(":")
+    if len(parts) not in (3, 4) or not (parts[0].isdigit() and parts[2].isdigit()):
+        raise SystemExit(f"--fresh-init wants SIZE:BACKBONE:SEED[:INJECT], "
+                         f"got {spec!r}")
+    inject = parts[3] if len(parts) == 4 else "stem"
+    if inject not in ("stem", "head"):
+        raise SystemExit(f"--fresh-init: unknown guidance inject {inject!r} "
+                         "(stem | head)")
+    return int(parts[0]), parts[1], int(parts[2]), inject
+
+
 def build_predictor(args):
     """The served Predictor from ``--fresh-init``, ``--state-dict`` or
     ``--run-dir``."""
@@ -172,15 +201,15 @@ def build_predictor(args):
         return Predictor.from_run(args.run_dir, step=args.step,
                                   device=args.device)
     if args.fresh_init:
-        parts = args.fresh_init.split(":")
-        if len(parts) != 3:
-            raise SystemExit(f"--fresh-init wants SIZE:BACKBONE:SEED, got "
-                             f"{args.fresh_init!r}")
-        size, backbone, seed = int(parts[0]), parts[1], int(parts[2])
-        return Predictor.fresh(size, backbone, seed=seed, device=args.device)
-    model = build_model("danet", nclass=1, backbone=args.backbone,
-                        output_stride=8)
+        size, backbone, seed, inject = parse_fresh_spec(args.fresh_init)
+        return Predictor.fresh(size, backbone, seed=seed, device=args.device,
+                               guidance_inject=inject)
     state = torch.load(args.state_dict, map_location="cpu", weights_only=True)
+    # a head model's state_dict carries the guidance projection
+    model = build_model("danet", nclass=1, backbone=args.backbone,
+                        output_stride=8,
+                        guidance_inject="head" if "guidance_proj.weight"
+                        in state else "stem")
     model.load_state_dict(state, strict=True)
     return Predictor(model, resolution=(args.resolution, args.resolution),
                      device=args.device)
@@ -193,7 +222,8 @@ def main(argv: list[str] | None = None) -> int:
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--fresh-init", metavar="SIZE:BACKBONE:SEED",
                      help="serve DANet with random weights drawn from SEED "
-                          "at SIZE² (e.g. 512:resnet101:0)")
+                          "at SIZE² (e.g. 512:resnet101:0); a fourth field "
+                          "head serves sessions (512:resnet101:0:head)")
     src.add_argument("--state-dict", metavar="PTH",
                      help="a torch state_dict of the port's DANet")
     src.add_argument("--run-dir", metavar="RUN",
@@ -220,6 +250,16 @@ def main(argv: list[str] | None = None) -> int:
                         help="default per-request deadline (none = wait)")
     parser.add_argument("--warmup", action="store_true",
                         help="run every bucket once before taking traffic")
+    parser.add_argument("--session-budget-mb", type=float, default=256.0,
+                        help="device byte budget of the session feature "
+                             "cache (split predictors only); LRU evicts "
+                             "past it")
+    parser.add_argument("--session-ttl-s", type=float, default=600.0,
+                        help="idle seconds before a session's cached "
+                             "features are reaped")
+    parser.add_argument("--session-lane-depth", type=int, default=4,
+                        help="queued requests one session may hold (more "
+                             "shed with 429, code session_lane)")
     parser.add_argument("--trace-dir", default=None,
                         help="where POST /debug/trace and SIGUSR2 write "
                              "bounded profiler captures (default: "
@@ -233,7 +273,10 @@ def main(argv: list[str] | None = None) -> int:
         predictor, max_batch=args.max_batch, queue_depth=args.queue_depth,
         max_wait_s=args.max_wait_ms / 1e3,
         default_deadline_s=None if args.deadline_ms is None
-        else args.deadline_ms / 1e3, trace=trace)
+        else args.deadline_ms / 1e3, trace=trace,
+        session_budget_bytes=int(args.session_budget_mb * 2**20),
+        session_ttl_s=args.session_ttl_s,
+        session_lane_depth=args.session_lane_depth)
     if args.warmup:
         service.warmup()
     service.start()
@@ -251,7 +294,8 @@ def main(argv: list[str] | None = None) -> int:
                       "device": str(predictor.device),
                       "dtype": str(predictor.dtype).removeprefix("torch."),
                       "buckets": list(service.buckets),
-                      "resolution": list(predictor.resolution)}), flush=True)
+                      "resolution": list(predictor.resolution),
+                      "sessions": service.sessions_enabled}), flush=True)
     try:
         httpd.serve_forever()
     finally:

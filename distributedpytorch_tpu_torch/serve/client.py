@@ -6,9 +6,10 @@ raw C-order bytes>}`` — the JAX package's wire format
 talks to either package's server.  No pickle: the dtype set is closed.
 
 :class:`ServeClient` posts to a running HTTP front and maps its status codes
-back to the service's exceptions (429 -> :class:`QueueFullError`, 504 ->
-:class:`DeadlineExceededError`, 503 -> :class:`ServiceUnhealthyError`,
-400 -> ``ValueError``).
+back to the service's exceptions (429 -> :class:`QueueFullError`, or
+:class:`SessionLaneFullError` when the body's ``code`` is
+``session_lane``; 504 -> :class:`DeadlineExceededError`, 503 ->
+:class:`ServiceUnhealthyError`, 400 -> ``ValueError``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,12 @@ from typing import Any
 
 import numpy as np
 
-from .service import DeadlineExceededError, QueueFullError, ServiceUnhealthyError
+from .service import (
+    DeadlineExceededError,
+    QueueFullError,
+    ServiceUnhealthyError,
+    SessionLaneFullError,
+)
 
 #: dtypes the wire accepts — a closed set, so a payload cannot name an
 #: object dtype
@@ -33,6 +39,11 @@ _STATUS_ERRORS = {
     503: ServiceUnhealthyError,
     400: ValueError,
 }
+
+#: an error body's ``code`` -> the exception, refining the status: both
+#: sheds are 429, but a session-lane shed means only that session should
+#: back off
+_CODE_ERRORS = {"session_lane": SessionLaneFullError}
 
 
 def encode_array(arr: np.ndarray) -> dict:
@@ -65,6 +76,7 @@ class ServeClient:
 
     >>> client = ServeClient("http://127.0.0.1:8801")
     >>> mask = client.predict(image, points)           # (H, W) float32
+    >>> mask = client.predict(image, points, session_id="u1")  # a session
     """
 
     def __init__(self, url: str, timeout_s: float = 60.0):
@@ -72,11 +84,16 @@ class ServeClient:
         self.timeout_s = timeout_s
 
     def predict(self, image: np.ndarray, points: Any,
-                deadline_s: float | None = None) -> np.ndarray:
+                deadline_s: float | None = None,
+                session_id: str | None = None) -> np.ndarray:
+        """One mask; ``session_id`` makes the click part of a session (a
+        split predictor's server only), absent it is stateless."""
         body: dict = {"image": encode_array(np.asarray(image)),
                       "points": np.asarray(points, np.float64).tolist()}
         if deadline_s is not None:
             body["deadline_ms"] = deadline_s * 1e3
+        if session_id is not None:
+            body["session_id"] = str(session_id)
         data = json.dumps(body).encode("utf-8")
         req = urllib.request.Request(
             self.url + "/v1/predict", data=data, method="POST",
@@ -86,10 +103,12 @@ class ServeClient:
                 reply = json.loads(r.read().decode("utf-8"))
         except urllib.error.HTTPError as e:
             try:
-                detail = json.loads(e.read().decode("utf-8")).get("error", "")
+                reply = json.loads(e.read().decode("utf-8"))
             except ValueError:
-                detail = ""
-            exc = _STATUS_ERRORS.get(e.code)
+                reply = {}
+            detail = reply.get("error", "")
+            exc = _CODE_ERRORS.get(reply.get("code")) or \
+                _STATUS_ERRORS.get(e.code)
             if exc is None:
                 raise RuntimeError(f"serve endpoint returned HTTP {e.code}: "
                                    f"{detail}") from e

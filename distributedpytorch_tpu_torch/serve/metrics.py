@@ -25,8 +25,7 @@ from ..telemetry.registry import MetricsRegistry, get_registry
 from ..utils.profiling import percentile
 
 #: counter slug -> help string (also fixes the exported metric set; the
-#: session-lane and retrace counters stay 0 until the port has sessions
-#: and a compile watchdog)
+#: retrace counter stays 0 until the port has a compile watchdog)
 _COUNTERS = {
     "requests": "requests accepted into the queue",
     "completed": "requests answered with a mask",

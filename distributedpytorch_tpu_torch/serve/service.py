@@ -1,7 +1,7 @@
 """The inference service: bounded queue -> micro-batcher -> bucketed forward.
 
-Counterpart of ``distributedpytorch_tpu/serve/service.py`` without sessions,
-hot-swap, AOT or the compile watchdog::
+Counterpart of ``distributedpytorch_tpu/serve/service.py`` with its
+sessions, without hot swap, AOT or the compile watchdog::
 
     client threads --submit()--> bounded queue --drain--> micro-batcher
                                                               |
@@ -16,6 +16,18 @@ hot-swap, AOT or the compile watchdog::
   (``batching``), so the forward sees a fixed, small set of batch shapes.
 * A request whose deadline passed while queued is dropped at drain time
   (:class:`DeadlineExceededError`).
+* With a split predictor (``supports_sessions``, a ``guidance_inject=
+  "head"`` DANet) a request may carry a ``session_id``.  The session's
+  first click, or one outside its crop or on another image, is a cold
+  ``full`` request: encode and decode, and the crop's features are kept
+  on the device (:class:`.sessions.SessionStore`).  A later click inside
+  the crop is a warm ``decode`` request: only the guidance is drawn anew,
+  and the decode runs on the cached features.  A drain dispatches one
+  group per kind, so warm clicks of many sessions share one bucketed
+  decode, their features concatenated on the device.  One session may
+  hold at most ``session_lane_depth`` queued requests
+  (:class:`SessionLaneFullError`), so a busy session cannot take every
+  queue slot.
 
 Host preprocessing (clicks -> guidance -> crop) runs on the caller's thread
 in :meth:`InferenceService.submit`; the worker owns the forward and the
@@ -37,6 +49,7 @@ from concurrent.futures import Future
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..chaos import sites as chaos_sites
 from . import batching
@@ -45,6 +58,14 @@ from .metrics import ServeMetrics
 
 class QueueFullError(RuntimeError):
     """Load shed: the bounded request queue is full — retry later."""
+
+
+class SessionLaneFullError(QueueFullError):
+    """Load shed: one session overfilled its per-session lane.
+
+    A :class:`QueueFullError` (the same 429 and retry advice), but its own
+    type: a full queue means the service is saturated, a full lane that
+    one session outpaces its share and only it should back off."""
 
 
 class DeadlineExceededError(TimeoutError):
@@ -57,13 +78,25 @@ class ServiceUnhealthyError(RuntimeError):
 
 @dataclasses.dataclass
 class _Request:
-    """One queued request, already host-preprocessed."""
-    concat: np.ndarray                    # prepared (H, W, C) network input
+    """One queued request, already host-preprocessed.
+
+    ``kind="full"``: a stateless request or a session's cold click;
+    ``concat`` is the prepared (H, W, C) input, and with ``store_session``
+    the encoded features are cached under ``session_id``.
+    ``kind="decode"``: a warm click; ``guidance`` is the new (H, W, 1)
+    guidance and ``session`` the cached entry it decodes against."""
     bbox: tuple[int, int, int, int]       # paste-back crop box
     shape_hw: tuple[int, int]             # full-image size for paste-back
     future: Future                        # resolves to the (H, W) mask
     submitted: float                      # perf_counter at submit
     deadline: float | None                # absolute perf_counter, or None
+    kind: str = "full"                    # full | decode
+    concat: np.ndarray | None = None      # full: prepared network input
+    guidance: np.ndarray | None = None    # decode: (H, W, 1) guidance
+    session: object | None = None        # decode: the sessions.Session
+    session_id: str | None = None
+    store_session: bool = False           # full: cache the features
+    digest: int = 0                       # session: image fingerprint
 
 
 class InferenceService:
@@ -78,16 +111,25 @@ class InferenceService:
     lone request hoping for company; ``default_deadline_s`` applies to
     requests submitted without a deadline (``None``: no deadline).
     ``trace`` is the on-demand profiler capture the worker drives
-    (``POST /debug/trace``, SIGUSR2 on the HTTP front).
+    (``POST /debug/trace``, SIGUSR2 on the HTTP front).  With a split
+    predictor, ``session_budget_bytes`` and ``session_ttl_s`` bound the
+    session store and ``session_lane_depth`` one session's queued
+    requests.
     """
 
     def __init__(self, predictor, max_batch: int = 8, queue_depth: int = 64,
                  max_wait_s: float = 0.005,
-                 default_deadline_s: float | None = None, trace=None):
+                 default_deadline_s: float | None = None, trace=None,
+                 session_budget_bytes: int = 256 << 20,
+                 session_ttl_s: float = 600.0,
+                 session_lane_depth: int = 4):
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
         if max_wait_s < 0:
             raise ValueError(f"max_wait_s must be >= 0, got {max_wait_s}")
+        if session_lane_depth < 1:
+            raise ValueError(f"session_lane_depth must be >= 1, got "
+                             f"{session_lane_depth}")
         self.predictor = predictor
         self.buckets = batching.bucket_sizes(max_batch)
         self.max_batch = max_batch
@@ -95,6 +137,21 @@ class InferenceService:
         self.default_deadline_s = default_deadline_s
         self.metrics = ServeMetrics()
         self.trace = trace
+        self.sessions_enabled = bool(
+            getattr(predictor, "supports_sessions", False))
+        self.session_lane_depth = session_lane_depth
+        self._store = None
+        if self.sessions_enabled:
+            from .sessions import SessionStore
+
+            self._store = SessionStore(budget_bytes=session_budget_bytes,
+                                       ttl_s=session_ttl_s)
+        #: queued requests per session (the fairness lane)
+        self._lane_lock = threading.Lock()
+        self._lanes: dict[str, int] = {}
+        #: max_batch - 1 zero feature lanes, of the features' shape and
+        #: dtype, whose head pads a decode to its bucket
+        self._feat_pad = None
         self._queue: queue.Queue[_Request] = queue.Queue(maxsize=queue_depth)
         self._stop = threading.Event()
         #: "new" (accepting, queued until start) -> "running" -> "stopped"
@@ -106,7 +163,9 @@ class InferenceService:
     def warmup(self) -> dict:
         """Run every bucket's batch shape once before taking traffic (the
         first forward at a shape pays cuDNN's algorithm search and, on the
-        card, the kernels' build).  Returns per-bucket milliseconds."""
+        card, the kernels' build); a split predictor's forward is its
+        encode and its decode, so both stages warm at each bucket.
+        Returns per-bucket milliseconds."""
         h, w = self.predictor.resolution
         ch = self.predictor.in_channels
         out = {}
@@ -168,14 +227,25 @@ class InferenceService:
     # ------------------------------------------------------------ front door
 
     def submit(self, image: np.ndarray, points: Any,
-               deadline_s: float | None = None) -> Future:
+               deadline_s: float | None = None,
+               session_id: str | None = None) -> Future:
         """Enqueue one request; returns a Future resolving to the mask.
 
         Raises :class:`QueueFullError` at once when the queue is full,
+        :class:`SessionLaneFullError` when ``session_id`` already holds
+        ``session_lane_depth`` queued requests,
         :class:`ServiceUnhealthyError` when the service is stopped, and
-        ``ValueError`` for bad inputs, before anything is queued."""
+        ``ValueError`` for bad inputs, before anything is queued.
+        ``session_id`` (a split predictor only) makes the click part of a
+        session: the first encodes and caches the crop's features, later
+        clicks inside the crop only decode."""
         if self._state == "stopped":
             raise ServiceUnhealthyError("service stopped")
+        if session_id is not None and not self.sessions_enabled:
+            raise ValueError(
+                "session_id needs a split predictor (model built with "
+                "guidance_inject='head'); this service's predictor folds "
+                "the guidance into the backbone — submit statelessly")
         # chaos seam, on the caller's thread: latency is a slow host
         # preprocess, an error a front-door dependency failing — both
         # before anything is queued
@@ -186,17 +256,18 @@ class InferenceService:
             raise QueueFullError(
                 f"request queue full ({self._queue.maxsize} deep) — "
                 "overloaded; retry with backoff")
-        now = time.perf_counter()
-        if deadline_s is None:
-            deadline_s = self.default_deadline_s
-        concat, bbox = self.predictor.prepare(image, points)
-        req = _Request(concat=concat, bbox=bbox,
-                       shape_hw=tuple(np.asarray(image).shape[:2]),
-                       future=Future(), submitted=now,
-                       deadline=None if deadline_s is None else now + deadline_s)
+        if session_id is not None:
+            self._reserve_lane(session_id, check_only=True)
+        req = self._build_request(image, points, deadline_s, session_id)
+        if session_id is not None:
+            self._reserve_lane(session_id)
+            req.future.add_done_callback(
+                lambda _f: self._release_lane(session_id))
         try:
             self._queue.put_nowait(req)
         except queue.Full:
+            if session_id is not None:
+                self._release_lane(session_id)
             self.metrics.count("shed_queue_full")
             raise QueueFullError(
                 f"request queue full ({self._queue.maxsize} deep) — "
@@ -207,11 +278,85 @@ class InferenceService:
             self._fail_stopped(req.future)
         return req.future
 
+    def _build_request(self, image, points, deadline_s,
+                       session_id) -> _Request:
+        """Route and host-preprocess one request on the caller's thread."""
+        now = time.perf_counter()
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        deadline = None if deadline_s is None else now + deadline_s
+        shape_hw = tuple(np.asarray(image).shape[:2])
+        if session_id is None:
+            concat, bbox = self.predictor.prepare(image, points)
+            return _Request(concat=concat, bbox=bbox, shape_hw=shape_hw,
+                            future=Future(), submitted=now,
+                            deadline=deadline)
+        from .sessions import image_digest
+
+        # the warm path skips prepare_input, so it validates the clicks
+        # as prepare_input does: a bad click is a ValueError on every path
+        pts = np.asarray(points, np.float64)
+        if pts.shape != (4, 2):
+            raise ValueError(f"expected 4 xy extreme points, got {pts.shape}")
+        h_img, w_img = shape_hw
+        if (pts[:, 0].max() >= w_img or pts[:, 1].max() >= h_img
+                or pts.min() < 0):
+            raise ValueError(f"points {pts.tolist()} outside image "
+                             f"{w_img}x{h_img}")
+        digest = image_digest(image)
+        sess = self._store.get(session_id)
+        if sess is not None and sess.covers(pts, shape_hw, digest=digest):
+            # warm click: only the guidance is drawn, in the session's crop
+            self._store.hit()
+            return _Request(kind="decode",
+                            guidance=self.predictor.prepare_guidance(
+                                pts, sess.bbox),
+                            session=sess, session_id=session_id,
+                            bbox=sess.bbox, shape_hw=sess.shape_hw,
+                            digest=digest, future=Future(), submitted=now,
+                            deadline=deadline)
+        # cold click: a new or expired session, clicks outside its crop,
+        # or another image under the same id
+        self._store.miss()
+        concat, bbox = self.predictor.prepare(image, pts)
+        return _Request(concat=concat, bbox=bbox, shape_hw=shape_hw,
+                        session_id=session_id, store_session=True,
+                        digest=digest, future=Future(), submitted=now,
+                        deadline=deadline)
+
+    def _reserve_lane(self, session_id: str, check_only: bool = False
+                      ) -> None:
+        """Take one of ``session_id``'s lane slots, or only check that one
+        is free (the cheap shed before the host preprocessing); the
+        check-and-take under one lock is the authoritative one."""
+        with self._lane_lock:
+            n = self._lanes.get(session_id, 0)
+            if n >= self.session_lane_depth:
+                self.metrics.count("shed_session_lane")
+                raise SessionLaneFullError(
+                    f"session {session_id!r} already holds "
+                    f"{self.session_lane_depth} queued request(s) — one "
+                    "session cannot starve the others; retry with backoff")
+            if not check_only:
+                self._lanes[session_id] = n + 1
+
+    def _release_lane(self, session_id: str) -> None:
+        """Give a lane slot back; the request's future calls it when it
+        resolves, however it resolves."""
+        with self._lane_lock:
+            n = self._lanes.get(session_id, 1) - 1
+            if n <= 0:
+                self._lanes.pop(session_id, None)
+            else:
+                self._lanes[session_id] = n
+
     def predict(self, image: np.ndarray, points: Any,
                 deadline_s: float | None = None,
-                timeout: float | None = None) -> np.ndarray:
+                timeout: float | None = None,
+                session_id: str | None = None) -> np.ndarray:
         """Blocking convenience: :meth:`submit` + ``Future.result``."""
-        return self.submit(image, points, deadline_s).result(timeout)
+        return self.submit(image, points, deadline_s,
+                           session_id=session_id).result(timeout)
 
     def health(self) -> dict:
         """Liveness and the counters a probe reads."""
@@ -224,11 +369,14 @@ class InferenceService:
             "queue_capacity": self._queue.maxsize,
             "buckets": list(self.buckets),
             "stats": self.metrics.snapshot(),
+            "sessions": (self._store.snapshot()
+                         if self._store is not None else None),
         }
 
     # ------------------------------------------------------------ worker
 
     def _run(self) -> None:
+        last_sweep = time.perf_counter()
         while not self._stop.is_set():
             batch = self._gather()
             if self.trace is not None:
@@ -237,6 +385,11 @@ class InferenceService:
                 self.trace.tick(1 if batch else 0)
             if batch:
                 self._process(batch)
+            now = time.perf_counter()
+            if self._store is not None and now - last_sweep > 1.0:
+                # reap abandoned sessions between drains
+                last_sweep = now
+                self._store.sweep()
         if self.trace is not None:
             self.trace.close()
 
@@ -287,14 +440,21 @@ class InferenceService:
                     "saturated; shed instead of serving a stale answer"))
                 continue
             live.append(req)
-        if not live:
-            return
+        # one dispatch group per kind, in drain order: warm clicks of any
+        # sessions decode together, cold and stateless ones run whole
+        groups: dict[str, list[_Request]] = {}
+        for req in live:
+            groups.setdefault(req.kind, []).append(req)
+        for kind, reqs in groups.items():
+            self._dispatch_group(kind, reqs)
+
+    def _dispatch_group(self, kind: str, live: list[_Request]) -> None:
         try:
             bucket = batching.bucket_for(len(live), self.buckets)
-            padded = batching.pad_to_bucket(
-                np.stack([r.concat for r in live]), bucket)
-            probs = batching.unpad(self.predictor.forward_prepared(padded),
-                                   len(live))
+            if kind == "decode":
+                probs = self._decode_batch(live, bucket)
+            else:
+                probs = self._full_batch(live, bucket)
             for i, req in enumerate(live):
                 req.future.set_result(self.predictor.paste_back(
                     probs[i], req.bbox, req.shape_hw))
@@ -311,3 +471,47 @@ class InferenceService:
         done = time.perf_counter()
         for req in live:
             self.metrics.observe_latency(done - req.submitted)
+
+    def _full_batch(self, live: list[_Request], bucket: int) -> np.ndarray:
+        """Cold and stateless requests at one bucket.  A split predictor
+        runs its two stages here, the same two its ``forward_prepared``
+        runs, so a cold click's mask is the stateless one, bit for bit;
+        a cold click's features stay on the device in the store (a copy
+        of its lane, so the bucket's batch is not kept alive)."""
+        pred = self.predictor
+        padded = batching.pad_to_bucket(
+            np.stack([r.concat for r in live]), bucket)
+        if not self.sessions_enabled:
+            return batching.unpad(pred.forward_prepared(padded), len(live))
+        feats = pred.encode(padded[..., :-1])
+        probs = pred.decode(feats, padded[..., -1:])
+        for i, req in enumerate(live):
+            if req.store_session:
+                with torch.inference_mode():
+                    lane = feats[i:i + 1].clone()
+                self._store.put(req.session_id, lane, req.bbox,
+                                req.shape_hw, digest=req.digest)
+        return batching.unpad(probs, len(live))
+
+    def _decode_batch(self, live: list[_Request], bucket: int) -> np.ndarray:
+        """Warm clicks of many sessions in one bucketed decode: their
+        cached features are concatenated on the device, padded with
+        cached zero lanes, and never leave it."""
+        guidance = batching.pad_to_bucket(
+            np.stack([r.guidance for r in live]), bucket)
+        feats = [r.session.features for r in live]
+        n_pad = bucket - len(feats)
+        with torch.inference_mode():
+            if n_pad:
+                pad = self._feat_pad
+                if pad is None or pad.shape[1:] != feats[0].shape[1:] \
+                        or pad.dtype != feats[0].dtype:
+                    pad = self._feat_pad = torch.zeros(
+                        (self.max_batch - 1, *feats[0].shape[1:]),
+                        dtype=feats[0].dtype, device=feats[0].device)
+                feats = feats + [pad[:n_pad]]
+            batch = torch.cat(feats) if len(feats) > 1 else feats[0]
+        probs = self.predictor.decode(batch, guidance)
+        for req in live:
+            self._store.touch_click(req.session)
+        return batching.unpad(probs, len(live))

@@ -335,7 +335,7 @@ UNPORTED = (
     "data.uint8_transfer", "data.packbits_masks", "data.coalesce_wire",
     "data.steps_per_dispatch", "data.echo",
     "model.pam_block_size", "model.pam_impl", "model.quantization",
-    "model.moe_experts", "model.guidance_inject",
+    "model.moe_experts",
     "parallel.model", "parallel.hbm_budget_gb",
     "mesh.model", "mesh.slices", "mesh.process_is_granule",
     "mesh.shard_params",

@@ -586,7 +586,8 @@ class Trainer:
             encnet_codes=m.encnet_codes,
             ccnet_recurrence=m.ccnet_recurrence,
             bn_cross_replica=self.distributed,
-            bn_fp32_stats=m.bn_fp32_stats)
+            bn_fp32_stats=m.bn_fp32_stats,
+            guidance_inject=m.guidance_inject)
 
     def _print(self, msg: str) -> None:
         """Print on rank 0 only."""
@@ -632,7 +633,10 @@ class Trainer:
             if depth != int(backbone[len("resnet"):]):
                 raise ValueError(f"{path} is a torchvision resnet{depth} "
                                  f"checkpoint but model.backbone={backbone!r}")
-            sd = weights.inflate_stem_channels(sd, self.cfg.model.in_channels)
+            # a head model's stem takes the RGB channels only
+            stem = self.cfg.model.in_channels - (
+                self.cfg.model.guidance_inject == "head")
+            sd = weights.inflate_stem_channels(sd, stem)
             rename = weights.torchvision_resnet_rename(depth)
             partial = True
             self._print(f"warm start: torchvision ResNet naming detected in "

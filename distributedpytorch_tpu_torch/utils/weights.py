@@ -17,6 +17,8 @@ flax leaf           port key                     conversion
 ``gamma``           ``gamma``                    scalar, as is
 ==================  ===========================  ==========================
 
+A head-injected DANet's ``guidance_proj/kernel`` (HWIO (1, 1, 1, C)) is a
+conv kernel like any other, and its stem kernel has 3 input channels.
 Loading is ``strict=True``: a leaf with no key, or a key with no leaf,
 raises.  (BatchNorm's ``num_batches_tracked`` counter has no flax
 counterpart and keeps the module's value.)  :func:`state_dict_to_jax` is

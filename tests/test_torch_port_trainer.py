@@ -14,7 +14,9 @@
 * ``Trainer.fit`` on the CPU (R18, 64², the in-memory fake fixture, one
   epoch) writes ``config.json``, ``metrics.jsonl`` and a committed
   checkpoint; ``Predictor.from_run`` on that run, and the serve CLI's
-  ``--run-dir``, give the trained model's logits bit for bit.
+  ``--run-dir``, give the trained model's logits bit for bit.  A
+  ``model.guidance_inject=head`` fit of two steps resumes for two more,
+  and its run serves a session whose warm click is the stateless mask.
 * ``param_digest`` sees every tensor, 0-dim ones included.
 * The semantic task through the CLI on the CPU (DeepLabV3-R18 at 65²,
   full-res validation): mIoU logged and used as the checkpoint gate, the
@@ -51,6 +53,7 @@ from distributedpytorch_tpu_torch.ops import metrics
 from distributedpytorch_tpu_torch.parallel.step import TrainState, make_eval_step
 from distributedpytorch_tpu_torch.predict import Predictor
 from distributedpytorch_tpu_torch.serve.__main__ import build_predictor
+from distributedpytorch_tpu_torch.serve.service import InferenceService
 from distributedpytorch_tpu_torch.train import config, precision
 from distributedpytorch_tpu_torch.train.checkpoint import param_digest
 from distributedpytorch_tpu_torch.train.evaluate import evaluate
@@ -73,7 +76,8 @@ TINY = ["data.fake=true", "model.backbone=resnet18", "data.crop_size=[64,64]",
 
 
 class TestConfig:
-    @pytest.mark.parametrize("overrides", [[], OVERRIDES])
+    @pytest.mark.parametrize("overrides", [
+        [], OVERRIDES, OVERRIDES + ["model.guidance_inject=head"]])
     def test_json_identical_both_ways(self, overrides):
         port = config.apply_overrides(config.Config(), overrides)
         ref = jax_config.apply_overrides(jax_config.Config(), overrides)
@@ -85,7 +89,7 @@ class TestConfig:
 
     @pytest.mark.parametrize("knob", ["model.pam_impl=ring",
                                       "data.source=packed", "mesh.model=2",
-                                      "model.guidance_inject=head",
+                                      "model.moe_experts=2",
                                       "sentinel.enabled=true"])
     def test_unported_knob_raises(self, knob, tmp_path):
         cfg = config.apply_overrides(config.Config(), TINY + [
@@ -246,6 +250,51 @@ def test_fit_then_predictor_from_run(tmp_path):
     served = build_predictor(argparse.Namespace(run_dir=run, step=None,
                                                 device="cpu"))
     assert torch.equal(served.model(x)[0], got[0])
+
+
+def test_head_fit_resumes_and_serves_sessions(tmp_path):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        over = TINY + ["model.guidance_inject=head", "data.train_batch=4",
+                       f"work_dir={tmp_path}"]
+        first = Trainer(config.apply_overrides(config.Config(), over),
+                        device="cpu")
+        first.fit()
+        first.close()
+        assert first.state.step == 2
+        assert first.model.backbone.Conv_0.in_channels == 3
+        assert first.model.guidance_proj.weight.shape == (512, 1, 1, 1)
+        resumed = Trainer(config.apply_overrides(
+            config.Config(), over + ["epochs=2", "resume=auto"]),
+            device="cpu")
+        assert resumed.state.step == 2
+        resumed.fit()
+        resumed.close()
+        assert resumed.state.step == 4
+        # the projection trained away from its zero init
+        assert resumed.model.guidance_proj.weight.abs().max() > 0
+
+        pred = Predictor.from_run(resumed.run_dir, device="cpu")
+        assert pred.supports_sessions and pred.resolution == (64, 64)
+        x = torch.rand(2, 4, 64, 64) * 255
+        with torch.no_grad():
+            assert torch.equal(pred.model(x)[0],
+                               resumed.model.eval()(x)[0])
+        image = np.random.default_rng(0).integers(
+            0, 256, (80, 96, 3)).astype(np.uint8)
+        points = np.array([[20, 40], [70, 40], [45, 15], [45, 65]], float)
+        with InferenceService(pred, max_batch=2, max_wait_s=0.0) as svc:
+            stateless = svc.predict(image, points, timeout=60)
+            cold = svc.predict(image, points, timeout=60, session_id="u")
+            warm = svc.predict(image, points, timeout=60, session_id="u")
+            sessions = svc.health()["sessions"]
+        np.testing.assert_array_equal(cold, stateless)
+        np.testing.assert_array_equal(warm, stateless)
+        assert (sessions["hits"], sessions["misses"], sessions["live"]) \
+            == (1, 1, 1)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_param_digest_covers_every_tensor():
