@@ -273,6 +273,31 @@ it), printing no result.  The phases, each raising on failure:
              steps of B = 4, one validation): finite losses, launches one per
              step and val sample, and ``Predictor.from_run`` serving a
              session whose warm click is the stateless mask, bitwise.
+14. head_knobs — DANet's head knobs at DANet-R101's width: (a) the position
+             branch's module (C = 512: Ck = 64, Cv = 512) at B = 2, N =
+             4096, weights drawn from seed 0, gate 1, in float32 and bf16:
+             the blocked plain form at key blocks 512 and 1000 (a ragged
+             last block) and ``flash`` with ``pam_block_size=128`` held to
+             the full plain form, forward and every gradient by the bounds
+             of phases 2 and 6a/6d (``PAM_FORM_TOL``; the key bias's
+             gradient, 0 in exact arithmetic, scaled by the key weight's),
+             ``flash`` launching one PAM kernel a forward and ``einsum``
+             none, and each form's forward ms; (b) ``moe_ffn`` against
+             ``moe_ffn_dense`` at B = 1 (N = 4096, d = h = 512, E = 4) for
+             k = 1 and 2 at capacity factors 1.25 and 0.5: the routing
+             equal, output, aux and every gradient within ``MOE_TOL`` of
+             the dense form's largest value, the forward + backward ms
+             and peak memory of both; (c) DANet-R101 bf16 with
+             ``moe_experts=4 moe_k=2`` at B = 8: the first step's loss the
+             task loss plus 0.01 x the aux on the same dropout masks, the
+             step against the same model without its MoE in turns (median
+             of 5, peak memory), each launching each kernel once; then
+             the CLI fit ``MOE_FIT_ARGS`` (2 steps of B = 8, one
+             validation of 8 samples) served by ``Predictor.from_run``
+             (one ``predict_batch`` of 4 click sets): finite losses and
+             2 + 8 + 1 launches of each kernel; and the same fit with
+             ``model.pam_impl=einsum model.pam_block_size=1024``: no PAM
+             launch, the CAM kernels 11 each.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2, grain, tensorboard and matplotlib are
@@ -291,14 +316,16 @@ zeroed by the trainer when phase 10c's fit starts and read from its
 service calls (its bursts, the budget and out-of-crop clicks; the
 references are computed before) and across 13e's HTTP calls, in each
 dtype, summed (the session serving path), and read from 13f's
-``fit_summary.json``: every kernel must have run on each.  Launches made
+``fit_summary.json``, and read from each of 14c's fits'
+``fit_summary.json`` plus the served batch's launches: every kernel must
+have run on each, but PAM on 14c's blocked-form fit, where it must not.  Launches made
 only to compare the model with its plain forms (phase 2's logits) are
 taken out of the counts.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -4944,9 +4971,329 @@ def phase_sessions(torch, ca, Predictor, InferenceService, make_server,
     return {"sessions": launches, "sessions_fit": fit}
 
 
+#: 14a: the position branch's forms held to the full plain form, each
+#: with its ``pam_block_size``; the bounds of phases 2 (forward) and 6a/6d
+#: (gradients)
+PAM_FORMS = {"blocked 512": ("einsum", 512), "blocked 1000": ("einsum", 1000),
+             "flash, block 128": ("flash", 128)}
+PAM_FORM_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+PAM_GRAD_SCALE_OF = {"key.bias": "key.weight"}
+#: 14b: moe_ffn against moe_ffn_dense in float32 (TF32 off), relative to
+#: the dense form's largest value: the two sum the same products in
+#: another order
+MOE_TOL = 1e-4
+#: 14c: the MoE fit, 2 steps of B = 8 at 512² in bf16 (one step an epoch
+#: on the fixture's 11 objects), one validation of its 8 val samples
+MOE_FIT_ARGS = ["--fake-data", "train.precision=bfloat16", "data.train_batch=8",
+                "data.area_thres=0", "epochs=2", "eval_every=2",
+                "model.moe_experts=4", "model.moe_k=2"]
+#: 14c's second fit: the blocked plain position form, so no PAM launch
+EINSUM_FIT_ARGS = ["model.pam_impl=einsum", "model.pam_block_size=1024"]
+#: the paths on which a kernel is not meant to run
+PATHS_WITHOUT = {"head_knobs_einsum": ("position_attention",)}
+
+
+def _pam_module(torch, dtype, seed: int = 0):
+    """DANet-R101's position branch at its width (C = 512: Ck = 64, Cv =
+    512), weights drawn from ``seed`` as flax draws them, the gate 1."""
+    from distributedpytorch_tpu_torch.models.danet import PositionAttentionModule
+    from distributedpytorch_tpu_torch.models.resnet import flax_init_, set_compute_dtype
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        module = flax_init_(PositionAttentionModule(512))
+    with torch.no_grad():
+        module.gamma.fill_(1.0)
+    set_compute_dtype(module, dtype)
+    return module.cuda()
+
+
+def head_knobs_pam(torch, ca) -> None:
+    """14a: the PAM forms at B = 2, N = 4096, f32 and bf16."""
+    for label, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        module = _pam_module(torch, dtype)
+        x = torch.randn(2, 512, 64, 64, generator=torch.Generator().manual_seed(1))
+        x = x.to("cuda", dtype)
+
+        def run(impl, block):
+            module.impl, module.block_size = impl, block
+            xx = x.detach().requires_grad_()
+            before = dict(ca.launches)
+            out = module(xx)
+            fwd = _launches_since(ca, before)["position_attention"]
+            out.float().square().sum().backward()
+            grads = {"x": xx.grad, **{n: p.grad.clone()
+                                      for n, p in module.named_parameters()}}
+            module.zero_grad(set_to_none=True)
+            return out.detach().float(), grads, fwd
+
+        with _uncounted(ca):
+            ref, ref_grads, n = run("einsum", None)
+            if n:
+                raise AssertionError(f"14a: the full plain form launched {n} PAM kernels")
+            tol, gtol = PAM_FORM_TOL[label]
+            for form, (impl, block) in PAM_FORMS.items():
+                out, grads, n = run(impl, block)
+                want = 1 if impl == "flash" else 0
+                if n != want:
+                    raise AssertionError(f"14a {form} {label}: {n} PAM launches a "
+                                         f"forward, want {want}")
+                check(f"14a {form} {label} forward", (out - ref).abs().max().item(),
+                      tol * ref.abs().max().item())
+                # the key bias's gradient is 0 in exact arithmetic (a
+                # softmax is blind to a per-row constant): scaled as 6a does
+                worst = max((g.float() - ref_grads[k].float()).abs().max().item()
+                            / ref_grads[PAM_GRAD_SCALE_OF.get(k, k)].float().abs().max().item()
+                            for k, g in grads.items())
+                check(f"14a {form} {label} gradients (worst tensor, relative)",
+                      worst, gtol)
+            forms = {"full": ("einsum", None), **PAM_FORMS}
+
+            def timed(impl, block):
+                def call():
+                    module.impl, module.block_size = impl, block
+                    with torch.no_grad():
+                        module(x)
+                return call
+
+            ms = median_ms([timed(*f) for f in forms.values()], reps=7)
+        module.impl, module.block_size = "auto", None
+        log(f"head_knobs (a): PAM forms at B=2 N=4096 Ck=64 Cv=512 {label}, forward ms "
+            + ", ".join(f"{f} {t:.4f}" for f, t in zip(forms, ms)))
+
+
+def head_knobs_moe(torch) -> None:
+    """14b: ``moe_ffn`` against ``moe_ffn_dense`` at DANet-R101's head width,
+    B = 1 (N = 4096 tokens, d = h = 512, E = 4)."""
+    from distributedpytorch_tpu_torch.parallel import moe
+
+    g = torch.Generator().manual_seed(2)
+    mlp = moe.MoEMlp(512, 4, 512, generator=g)
+    with torch.no_grad():
+        for b in (mlp.b1, mlp.b2):
+            b.normal_(0.0, 0.1, generator=g)
+    mlp.cuda()
+    x0 = torch.randn(4096, 512, generator=g).cuda()
+    for k in (1, 2):
+        for factor in (1.25, 0.5):
+            n, e = x0.shape[0], 4
+            cap = moe.expert_capacity(n, e, factor)
+            route = moe.router(x0, mlp.w_gate, k=k, capacity=cap)
+            dispatch, _, aux_dense = moe.router_dense(x0, mlp.w_gate.detach(), k=k,
+                                                      capacity=cap)
+            rows = torch.arange(n, device="cuda").expand(k, n)[route.keep]
+            kept = dispatch[rows, route.expert[route.keep], route.slot[route.keep]]
+            if not (bool((kept == 1).all()) and int(dispatch.sum()) == int(route.keep.sum())):
+                raise AssertionError(f"14b k={k} factor {factor}: the routing differs "
+                                     "from the dense form's")
+            results, peaks = {}, {}
+            for name in ("moe_ffn", "moe_ffn_dense"):
+                fn = getattr(moe, name)
+                params = {p: t.detach().clone().requires_grad_()
+                          for p, t in mlp.params().items()}
+                x = x0.clone().requires_grad_()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                y, aux = fn(params, x, k=k, capacity_factor=factor)
+                (y.square().sum() + aux).backward()
+                torch.cuda.synchronize()
+                peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+                results[name] = [y.detach(), aux.detach(), x.grad,
+                                 *(params[p].grad for p in moe.PARAM_NAMES)]
+            worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                        for a, b in zip(*results.values()))
+            check(f"14b k={k} factor {factor} output, aux and gradients "
+                  "(worst tensor, relative)", worst, MOE_TOL)
+            if abs(float(aux_dense) - float(results["moe_ffn"][1])) > 1e-6:
+                raise AssertionError(f"14b: aux {float(aux_dense)} vs "
+                                     f"{float(results['moe_ffn'][1])}")
+
+            def fwd_bwd(name):
+                fn = getattr(moe, name)
+                params = {p: t.detach().requires_grad_() for p, t in mlp.params().items()}
+                x = x0.detach().requires_grad_()
+
+                def call():
+                    y, aux = fn(params, x, k=k, capacity_factor=factor)
+                    (y.square().sum() + aux).backward()
+                return call
+
+            ms = median_ms([fwd_bwd("moe_ffn"), fwd_bwd("moe_ffn_dense")], reps=7)
+            log(f"head_knobs (b): k={k} factor {factor}: capacity {cap}, kept "
+                f"{int(route.keep.sum())} of {k * n} choices, aux {float(aux_dense):.6f}; "
+                f"forward+backward ms moe_ffn {ms[0]:.4f}, dense {ms[1]:.4f}; peak "
+                f"memory above the inputs MiB moe_ffn {peaks['moe_ffn']:.1f}, dense "
+                f"{peaks['moe_ffn_dense']:.1f}")
+    # the B = 8 step's token count (N = 32768, k = 2, factor 1.25): the
+    # index form alone (the dense one would hold two 5.4 GB tensors)
+    x0 = torch.randn(8 * 4096, 512, generator=g).cuda().requires_grad_()
+    params = {p: t.detach().requires_grad_() for p, t in mlp.params().items()}
+
+    def call():
+        y, aux = moe.moe_ffn(params, x0, k=2, capacity_factor=1.25)
+        (y.square().sum() + aux).backward()
+
+    (ms,) = median_ms([call], reps=7)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in _device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"head_knobs (b): N=32768 k=2 factor 1.25 moe_ffn forward+backward {ms:.4f} "
+        f"ms, device busy {sum(by_name.values()):.4f} ms; top kernels "
+        + "; ".join(f"{name[:60]} {t:.4f} ms" for name, t in top))
+
+
+def head_knobs_step(torch, ca, batch_size: int = 8, rounds: int = 5) -> None:
+    """14c (in process): the bf16 B = 8 step of DANet-R101 with
+    ``moe_experts=4 moe_k=2`` against the same model without its MoE, in
+    turns; the step's loss holds the aux term."""
+    from distributedpytorch_tpu_torch.models import build_model
+    from distributedpytorch_tpu_torch.ops.losses import multi_output_loss
+    from distributedpytorch_tpu_torch.parallel.step import (
+        _forward,
+        create_train_state,
+        make_train_step,
+    )
+    from distributedpytorch_tpu_torch.train.config import OptimConfig
+    from distributedpytorch_tpu_torch.train.optim import make_optimizer
+    from distributedpytorch_tpu_torch.train.precision import precision_policy
+
+    policy = precision_policy("bfloat16")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model("danet", dtype="bfloat16", moe_experts=4, moe_k=2)
+    optimizer, schedule = make_optimizer(OptimConfig(), model, total_steps=100)
+    state = create_train_state(model, optimizer, schedule, 0, torch.device("cuda"))
+    step = make_train_step(precision=policy, aux_loss_weight=0.01)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"concat": torch.rand(batch_size, 4, 512, 512, device="cuda",
+                                  generator=g) * 255,
+             "crop_gt": (torch.rand(batch_size, 1, 512, 512, device="cuda",
+                                    generator=g) < 0.3).float()}
+    # the step's loss is the task loss plus 0.01 x the aux, on the same
+    # dropout masks (a copy of the state's generator)
+    saved = state.generator.get_state()
+    with torch.no_grad():
+        outs, aux = _forward(model.train(), batch["concat"], policy, state.generator,
+                             with_aux=True)
+        task = multi_output_loss(outs, batch["crop_gt"]).item()
+    state.generator.set_state(saved)
+    loss = step(state, batch).item()
+    aux = aux.item()
+    log(f"head_knobs (c): first MoE step loss {loss:.6f}, task loss {task:.6f} + "
+        f"0.01 x aux {aux:.6f} = {task + 0.01 * aux:.6f}")
+    if not (math.isfinite(loss) and abs(loss - (task + 0.01 * aux)) < 0.25 * 0.01 * aux):
+        raise AssertionError(f"14c: the step's loss {loss} is not the task loss "
+                             f"{task} + 0.01 x aux {aux}")
+    moe_module = model.head.moe
+    variants = {"moe": moe_module, "no moe": None}
+    times = {k: [] for k in variants}
+    peak = {}
+    before = dict(ca.launches)
+    for r in range(rounds + 1):
+        for label, m in variants.items():
+            model.head.moe = m
+            if r == 0:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, batch)
+            end.record()
+            end.synchronize()
+            if r == 0:
+                peak[label] = torch.cuda.max_memory_allocated() / 2**30
+            else:
+                times[label].append(start.elapsed_time(end))
+    model.head.moe = moe_module
+    rise = _launches_since(ca, before)
+    if any(n != 2 * (rounds + 1) for n in rise.values()):
+        raise AssertionError(f"14c: {2 * (rounds + 1)} steps launched {rise}")
+    ms = {k: statistics.median(t) for k, t in times.items()}
+    log(f"head_knobs (c): bf16 B={batch_size} 512^2 step, median of {rounds} in "
+        f"turns: MoE (E=4, k=2) {ms['moe']:.2f} ms (all "
+        f"{', '.join(f'{t:.2f}' for t in times['moe'])}), peak {peak['moe']:.2f} GiB; "
+        f"without {ms['no moe']:.2f} ms (all "
+        f"{', '.join(f'{t:.2f}' for t in times['no moe'])}), peak "
+        f"{peak['no moe']:.2f} GiB; MoE / without {ms['moe'] / ms['no moe']:.4f}")
+
+
+def head_knobs_fit(torch, ca, Predictor, work: Path, *extra: str) -> tuple[dict, object]:
+    """14c: a MoE fit through the CLI, then ``Predictor.from_run`` serving
+    one batch of 4 click sets; the fit's launches plus the served batch's."""
+    import numpy as np
+
+    cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *MOE_FIT_ARGS,
+           *extra, f"work_dir={work}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"14c: the fit exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    (run,) = work.glob("run_*")
+    rec = _run_record(run)
+    final = rec["summary"]["final_step"]
+    losses = [x for r in rec["epochs"] for x in r["train/step_losses"]]
+    launches = rec["summary"]["kernel_launches"]
+    n_val = sum(int(r["val/n_samples"]) for r in rec["vals"])
+    if final != 2 or n_val != 8 or not all(
+            x is not None and math.isfinite(x) for x in losses):
+        raise AssertionError(f"14c: {final} steps, {n_val} val samples, losses {losses}")
+    pred = Predictor.from_run(str(run), device="cuda")
+    image, clicks = synthetic_image()
+    before = dict(ca.launches)
+    masks = pred.predict_batch(image, clicks)
+    served = _launches_since(ca, before)
+    if not all(m.shape == image.shape[:2] and np.isfinite(m).all() for m in masks):
+        raise AssertionError("14c: the served masks are not finite")
+    total = {k: launches[k] + served[k] for k in TPU_KERNELS}
+    log(f"head_knobs (c): `{' '.join(MOE_FIT_ARGS + list(extra))}`: {final} steps in "
+        f"{time.perf_counter() - t0:.1f} s wall, losses {[round(x, 6) for x in losses]}, "
+        f"val jaccard {[round(r['val/jaccard'], 6) for r in rec['vals']]}, fit launches "
+        f"{launches}, served batch of {len(clicks)} launches {served}")
+    return total, pred.model
+
+
+def phase_head_knobs(torch, ca, Predictor) -> dict:
+    """Phase 14 (a-c); returns the launch counts of the MoE fit and serve,
+    with the kernel and with the blocked plain position form."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    head_knobs_pam(torch, ca)
+    head_knobs_moe(torch)
+    head_knobs_step(torch, ca)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"head_knobs: (a-b) and the step done at {time.perf_counter() - t0:.1f} s")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_head_knobs_"))
+    try:
+        moe_path, model = head_knobs_fit(torch, ca, Predictor, work / "moe")
+        want = {k: 2 + 8 + 1 for k in TPU_KERNELS}
+        if moe_path != want or model.head.moe is None:
+            raise AssertionError(f"14c: MoE launches {moe_path}, want {want}")
+        einsum_path, model = head_knobs_fit(torch, ca, Predictor, work / "einsum",
+                                            *EINSUM_FIT_ARGS)
+        want["position_attention"] = 0
+        if einsum_path != want or (model.head.pam.impl, model.head.pam.block_size) \
+                != ("einsum", 1024):
+            raise AssertionError(f"14c: einsum launches {einsum_path}, want {want}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"head_knobs: phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"head_knobs_moe": moe_path, "head_knobs_einsum": einsum_path}
+
+
 #: the phases of a whole run, in order
 PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer",
-          "telemetry", "devdata", "sessions")
+          "telemetry", "devdata", "sessions", "head_knobs")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -5021,8 +5368,11 @@ def main(argv: list[str] | None = None) -> int:
     if "sessions" in phases:
         paths.update(phase_sessions(torch, ca, Predictor, InferenceService,
                                     make_server, ServeClient))
+    if "head_knobs" in phases:
+        paths.update(phase_head_knobs(torch, ca, Predictor))
     for path, launches in paths.items():
-        if not all(launches[k] > 0 for k in TPU_KERNELS):
+        if not all(launches[k] > 0 for k in TPU_KERNELS
+                   if k not in PATHS_WITHOUT.get(path, ())):
             raise AssertionError(f"a kernel never ran on the {path} path: {launches}")
     if phases != set(PHASES):
         log(f"partial run of phases {sorted(phases)}: no result")

@@ -35,14 +35,23 @@ def build_model(name: str = "danet", nclass: int = 1,
                 encnet_codes: int = 32, ccnet_recurrence: int = 2,
                 bn_cross_replica: bool = False,
                 bn_fp32_stats: bool = True,
-                guidance_inject: str = "stem") -> nn.Module:
+                guidance_inject: str = "stem", pam_impl: str = "",
+                pam_block_size: int | None = None, moe_experts: int = 0,
+                moe_hidden: int | None = None, moe_k: int = 1,
+                moe_capacity_factor: float = 1.25) -> nn.Module:
     """Construct a segmentation model by name: ``danet``, ``deeplabv3``,
     ``deeplabv3plus`` or ``fcn``, each at the JAX package's default
     output stride (8 for DANet and FCN, 16 for DeepLab) unless given.
 
     ``attention_impl`` is DANet's one knob for both attention branches:
     ``auto`` (CUDA kernels on a CUDA tensor, plain forms on the CPU),
-    ``xla`` (plain forms everywhere) or ``flash`` (kernels).
+    ``xla`` (plain forms everywhere) or ``flash`` (kernels).  A non-empty
+    ``pam_impl`` (``auto`` | ``einsum`` | ``flash``; ``ring`` is not
+    ported) overrides it for the position branch only, and
+    ``pam_block_size`` picks the blocked position form (see
+    ``models/danet.py``).  ``moe_experts > 0`` adds the head's MoE FFN
+    of ``moe_hidden`` (the fused channels when None) units per expert,
+    top-``moe_k`` routing at ``moe_capacity_factor`` (``parallel/moe.py``).
     ``dropout_rate`` is DANet's head dropout (flax's 0.1 when ``None``);
     the DeepLab family's rates are fixed (ASPP 0.5, FCN heads 0.1), and
     ``dropout_rate=0.0`` turns them off for parity runs.
@@ -71,11 +80,19 @@ def build_model(name: str = "danet", nclass: int = 1,
             f"unknown model: {name!r} (danet | deeplabv3 | deeplabv3plus | "
             "fcn | pspnet | encnet | ccnet)")
     if name != "danet":
-        for knob, value, default in (
-                ("attention_impl", attention_impl, "auto"),
-                ("pam_score_dtype", pam_score_dtype, None),
-                ("guidance_inject", guidance_inject, "stem")):
-            if value != default:
+        # the JAX package's order and accepted defaults (pam_impl: the
+        # inherit sentinel and the spelled-out legacy default)
+        for knob, value, defaults in (
+                ("pam_block_size", pam_block_size, (None,)),
+                ("pam_impl", pam_impl, ("", "einsum")),
+                ("attention_impl", attention_impl, ("auto",)),
+                ("pam_score_dtype", pam_score_dtype, (None,)),
+                ("moe_experts", moe_experts, (0,)),
+                ("moe_hidden", moe_hidden, (None,)),
+                ("moe_k", moe_k, (1,)),
+                ("moe_capacity_factor", moe_capacity_factor, (1.25,)),
+                ("guidance_inject", guidance_inject, ("stem",))):
+            if value not in defaults:
                 raise ValueError(f"{knob} is DANet-only; model {name!r} "
                                  "does not support it")
     if encnet_codes != 32:
@@ -106,7 +123,10 @@ def build_model(name: str = "danet", nclass: int = 1,
                       pam_score_dtype=None if pam_score_dtype is None
                       else torch_dtype(pam_score_dtype),
                       remat=remat, remat_policy=remat_policy,
-                      guidance_inject=guidance_inject)
+                      guidance_inject=guidance_inject, pam_impl=pam_impl,
+                      pam_block_size=pam_block_size,
+                      moe_experts=moe_experts, moe_hidden=moe_hidden,
+                      moe_k=moe_k, moe_capacity_factor=moe_capacity_factor)
     else:
         if dropout_rate not in (None, 0.0):
             raise ValueError(

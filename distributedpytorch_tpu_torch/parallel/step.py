@@ -23,6 +23,10 @@ micro-batches in order, BatchNorm's running statistics move once per
 micro-batch, the loss is the mean of the micro-batch losses and the
 gradients are averaged, as the JAX step's scan does.  ``loss_scale``
 multiplies the loss before the backward and divides the gradients after.
+``aux_loss_weight`` adds that multiple of the model's auxiliary loss (DANet's
+MoE load-balancing term, which the forward returns under ``with_aux=True``)
+to each micro-batch's train loss, under autograd; the eval loss has none,
+as in the JAX step.
 The returned loss is a device scalar: reading it synchronises, so callers
 read it when they log.
 
@@ -197,14 +201,20 @@ def step_generator(seed: int, step: int, rank: int,
 
 def _forward(model: nn.Module, inputs: torch.Tensor,
              precision: Policy | None,
-             generator: torch.Generator | None = None
-             ) -> tuple[torch.Tensor, ...]:
+             generator: torch.Generator | None = None,
+             with_aux: bool = False):
     """The model's outputs on ``inputs`` across the policy's boundaries:
-    inputs in the compute dtype, outputs in the loss dtype."""
-    if precision is None:
-        return model(inputs, generator)
-    return precision.cast_to_loss(
-        model(precision.cast_to_compute(inputs), generator))
+    inputs in the compute dtype, outputs in the loss dtype; with
+    ``with_aux``, the pair of them and the model's auxiliary loss."""
+    if precision is not None:
+        inputs = precision.cast_to_compute(inputs)
+    if with_aux:
+        outputs, aux = model(inputs, generator, with_aux=True)
+    else:
+        outputs, aux = model(inputs, generator), None
+    if precision is not None:
+        outputs = precision.cast_to_loss(outputs)
+    return outputs if aux is None else (outputs, aux)
 
 
 def _labels(batch: Mapping) -> torch.Tensor:
@@ -250,7 +260,8 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
                     precision: Policy | None = None,
                     global_balance: bool = True,
                     loss_type: str = "multi_sigmoid",
-                    augment: Callable | None = None, seed: int = 0
+                    augment: Callable | None = None, seed: int = 0,
+                    aux_loss_weight: float = 0.0
                     ) -> Callable[[TrainState, Mapping], torch.Tensor]:
     """``(state, host batch) -> loss``: one optimizer update of ``state``
     in place; ``grad_clip_norm`` clips the trainable gradients' global norm
@@ -258,7 +269,8 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
     ``state.ddp`` the batch is this rank's rows, and ``global_balance``
     picks the global loss (see the module docstring).  ``augment`` is a
     ``(device batch, generator) -> device batch`` stage, run on
-    :func:`step_generator` of ``seed``."""
+    :func:`step_generator` of ``seed``.  ``aux_loss_weight`` weights the
+    model's auxiliary loss into the train loss (0: none is asked for)."""
 
     def step(state: TrainState, batch: Mapping) -> torch.Tensor:
         ddp = state.ddp
@@ -285,9 +297,14 @@ def make_train_step(loss_weights: Sequence[float] | None = None,
             last = ddp is None or i == accum_steps - 1
             with contextlib.nullcontext() if last else ddp.no_sync():
                 outputs = _forward(model, part[INPUT_KEY], precision,
-                                   state.generator)
+                                   state.generator,
+                                   with_aux=bool(aux_loss_weight))
+                if aux_loss_weight:
+                    outputs, aux = outputs
                 loss = _compute_loss(outputs, part, loss_weights, counts,
                                      loss_type)
+                if aux_loss_weight:
+                    loss = loss + aux_loss_weight * aux
                 scale = loss_scale * (world if counts is not None else 1)
                 (loss * scale).backward()
             losses.append(loss.detach())

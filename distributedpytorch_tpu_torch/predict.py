@@ -159,7 +159,17 @@ def load_run_model(run_dir: str, cfg, step: int | None = None
                         aux_head=cfg.model.aux_head,
                         encnet_codes=cfg.model.encnet_codes,
                         ccnet_recurrence=cfg.model.ccnet_recurrence,
-                        guidance_inject=cfg.model.guidance_inject)
+                        guidance_inject=cfg.model.guidance_inject,
+                        # a ring-trained run serves with the plain form
+                        # (JAX's predict does the same); the moe_* knobs
+                        # shape the parameters
+                        pam_impl="einsum" if cfg.model.pam_impl == "ring"
+                        else cfg.model.pam_impl,
+                        pam_block_size=cfg.model.pam_block_size,
+                        moe_experts=cfg.model.moe_experts,
+                        moe_hidden=cfg.model.moe_hidden,
+                        moe_k=cfg.model.moe_k,
+                        moe_capacity_factor=cfg.model.moe_capacity_factor)
     model.load_state_dict(payload["model"], strict=True)
     return model, dtype
 

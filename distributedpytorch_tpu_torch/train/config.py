@@ -334,8 +334,7 @@ UNPORTED = (
     "data.sbd_root", "data.download",
     "data.uint8_transfer", "data.packbits_masks", "data.coalesce_wire",
     "data.steps_per_dispatch", "data.echo",
-    "model.pam_block_size", "model.pam_impl", "model.quantization",
-    "model.moe_experts",
+    "model.quantization",
     "parallel.model", "parallel.hbm_budget_gb",
     "mesh.model", "mesh.slices", "mesh.process_is_granule",
     "mesh.shard_params",
@@ -348,6 +347,8 @@ PORTED_VALUES = {
     "model.name": ("danet", "deeplabv3", "deeplabv3plus", "fcn"),
     "model.dtype": ("float32", "bfloat16"),
     "model.pam_score_dtype": (None, "float32", "bfloat16"),
+    # ring needs the sequence-parallel mesh
+    "model.pam_impl": ("", "auto", "einsum", "flash"),
     # the data-only rungs; dp_tp, dp_tp_zero1 and auto are not ported
     "parallel.strategy": ("", "dp", "dp_zero1"),
     # the governor observes; auto needs the actuators (data.echo) first

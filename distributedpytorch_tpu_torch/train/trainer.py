@@ -54,7 +54,10 @@ run continues at that batch.
 
 It runs on CUDA unless ``device`` says otherwise.  A knob this port does
 not run yet, set away from its default, raises at construction
-(``config.unported_knobs``).  Left out for now: the sentinel (the fit
+(``config.unported_knobs``); so does ``model.moe_experts`` at a world
+size above 1 (JAX routes the global batch's tokens).  With an MoE head
+the train loss adds ``model.moe_aux_weight`` times the router's
+load-balancing loss.  Left out for now: the sentinel (the fit
 summary's ``recovery`` block is null), elastic membership, and the feed
 governor's ``auto`` mode.
 
@@ -70,8 +73,12 @@ validation under ``eval`` (on its own thread when overlapped) and the
 checkpoints under ``checkpoint``, with no synchronisation added; at the
 fit's end the breakdown and the MFU (model FLOPs from
 ``telemetry.step_flops`` on a meta-device copy of the model, or
-``6 x params x batch`` if that fails) go to the writers (``goodput/*``,
-``mfu``), the registry and ``history``.  ``SIGUSR2`` arms a bounded
+``6 x params x batch`` if that fails; counted once per model and batch
+shape in a process) go to the writers (``goodput/*``, ``mfu``), the
+registry and ``history``.  An MoE head's count is what the port runs: the
+expert products over every capacity slot and none of the (N, E, C)
+dispatch einsums that the JAX trainer's XLA count includes, so the two
+MFUs differ there.  ``SIGUSR2`` arms a bounded
 ``torch.profiler`` capture under ``run_dir/trace_on_demand`` (refused,
 and counted, while ``profile_epoch``'s profiler runs).  The feed governor
 (``data.governor=observe``, ``data/governor.py``) reads the input-wait
@@ -121,6 +128,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import os
 import threading
 import time
@@ -249,6 +257,16 @@ class _FrozenOptimizer:
         return self._state
 
 
+@functools.lru_cache(maxsize=16)
+def _meta_step_flops(kwargs: tuple, shape: tuple) -> float:
+    """``step_flops`` of ``build_model(**dict(kwargs))`` built on the meta
+    device, on a meta batch of ``shape``: counted once per model and shape
+    in a process (the count walks ~1 s of Python dispatch)."""
+    with torch.device("meta"):
+        model = build_model(**dict(kwargs))
+    return step_flops(model.train(), torch.zeros(shape, device="meta"))
+
+
 def rank_seed(seed: int, rank: int) -> int:
     """The dropout generator's seed of ``rank``: ``seed`` itself on rank 0
     (the single-process run's), one drawn from ``(seed, rank)`` on the
@@ -301,6 +319,15 @@ class Trainer:
         self.world, self.rank = mesh.data_axis_size(), mesh.process_index()
         self.is_main = self.rank == 0
         self.distributed = mesh.is_distributed()
+        if cfg.model.moe_experts and self.world > 1:
+            # JAX routes the global batch's tokens under its data mesh; a
+            # rank here sees its own rows, so capacity and slot order would
+            # differ without the token exchange of expert parallelism
+            raise NotImplementedError(
+                f"model.moe_experts={cfg.model.moe_experts} at world size "
+                f"{self.world} is not ported: the MoE routes the global "
+                "batch's tokens, which needs expert parallelism's token "
+                "exchange")
         if cfg.val_overlap and self.world > 1:
             raise ValueError(
                 "val_overlap is single-rank only: the val thread and "
@@ -407,7 +434,9 @@ class Trainer:
             loss_type=self.loss_type,
             augment=self._build_device_stage(cfg.data.device_augment,
                                              cfg.data.device_guidance),
-            seed=cfg.seed)
+            seed=cfg.seed,
+            aux_loss_weight=(cfg.model.moe_aux_weight
+                             if cfg.model.moe_experts else 0.0))
         # the prepared val wire ships the bare image: the eval step appends
         # the guidance channel with the val semantics (fixed points)
         self.eval_step = make_eval_step(
@@ -587,7 +616,10 @@ class Trainer:
             ccnet_recurrence=m.ccnet_recurrence,
             bn_cross_replica=self.distributed,
             bn_fp32_stats=m.bn_fp32_stats,
-            guidance_inject=m.guidance_inject)
+            guidance_inject=m.guidance_inject, pam_impl=m.pam_impl,
+            pam_block_size=m.pam_block_size, moe_experts=m.moe_experts,
+            moe_hidden=m.moe_hidden, moe_k=m.moe_k,
+            moe_capacity_factor=m.moe_capacity_factor)
 
     def _print(self, msg: str) -> None:
         """Print on rank 0 only."""
@@ -841,11 +873,9 @@ class Trainer:
                           remat_policy=None, dtype="float32",
                           bn_cross_replica=False)
             if self.cfg.model.name == "danet":
-                kwargs["attention_impl"] = "xla"
-            with torch.device("meta"):
-                model = build_model(**kwargs)
-            flops = step_flops(model.train(), torch.zeros(
-                (n, c, h, w), device="meta")) * self.world
+                kwargs.update(attention_impl="xla", pam_impl="")
+            flops = _meta_step_flops(tuple(sorted(kwargs.items())),
+                                     (n, c, h, w)) * self.world
         except Exception as e:  # a count failure must not kill the fit
             self._print(f"warning: FLOP count failed ({type(e).__name__}: "
                         f"{e}); MFU from the parameter estimate")

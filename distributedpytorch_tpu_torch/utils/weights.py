@@ -15,6 +15,8 @@ flax leaf           port key                     conversion
 ``BN/mean``         ``BN.running_mean``          (from batch_stats)
 ``BN/var``          ``BN.running_var``           (from batch_stats)
 ``gamma``           ``gamma``                    scalar, as is
+``moe/w_gate`` ...  ``moe.w_gate`` ...           as is (``w_gate``, ``w1``,
+                                                 ``b1``, ``w2``, ``b2``)
 ==================  ===========================  ==========================
 
 A head-injected DANet's ``guidance_proj/kernel`` (HWIO (1, 1, 1, C)) is a
@@ -42,8 +44,10 @@ import numpy as np
 import torch
 from torch import nn
 
-_PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                "gamma": "gamma"}
+#: leaves carried under their own names: the gates and the MoE's stacks
+_AS_IS = ("bias", "gamma", "w_gate", "w1", "b1", "w2", "b2")
+_PARAM_NAMES = {"kernel": "weight", "scale": "weight",
+                **{name: name for name in _AS_IS}}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -112,7 +116,7 @@ def state_dict_to_jax(state: Mapping[str, torch.Tensor]
                     raise ValueError(f"{key}: expected an OIHW conv weight, "
                                      f"got shape {arr.shape}")
                 arr = arr.transpose(2, 3, 1, 0)
-        elif leaf in ("bias", "gamma"):
+        elif leaf in _AS_IS:
             tree, name = params, leaf
         else:
             raise KeyError(f"no JAX counterpart for port key {key}")

@@ -537,7 +537,8 @@ def test_train_step_on_jax_draws():
 TINY = ["data.fake=true", "model.backbone=resnet18", "data.crop_size=[32,32]",
         "data.relax=10", "data.area_thres=0", "data.train_batch=2",
         "data.val_batch=8", "data.num_workers=0", "log_every_steps=100",
-        "checkpoint.preempt_check_every=1", "optim.lr=1e-3"]
+        "checkpoint.preempt_check_every=1", "optim.lr=1e-3",
+        "checkpoint.keep_latest=1"]
 DEVICE_STAGE = ["data.device_augment=true", "data.device_augment_geom=true",
                 "data.device_guidance=true"]
 

@@ -142,10 +142,11 @@ class TestAdamW:
         assert delta["head.w"] == pytest.approx(10.0 * delta["base.w"], rel=1e-5)
 
     def test_resume_equals_straight_run(self, tmp_path):
-        straight = fit(tiny(tmp_path / "straight", "optim.name=adamw"))
+        adamw = ("optim.name=adamw", "checkpoint.keep_latest=1")
+        straight = fit(tiny(tmp_path / "straight", *adamw))
         work = tmp_path / "preempted"
-        stopped = fit(tiny(work, "optim.name=adamw"), StopAt(7))
-        resumed = Trainer(tiny(work, "optim.name=adamw", "resume=auto"),
+        stopped = fit(tiny(work, *adamw), StopAt(7))
+        resumed = Trainer(tiny(work, *adamw, "resume=auto"),
                           device="cpu")
         restored = copy.deepcopy(resumed.state.optimizer.state_dict())
         resumed.fit()
@@ -203,10 +204,17 @@ class _CountConvolutions(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+@pytest.fixture(scope="module")
+def no_remat_grads(r18_danet):
+    """The step without remat, which every policy is held to."""
+    return _port_grads(r18_danet, remat=False)
+
+
 class TestRematPolicy:
     @pytest.mark.parametrize("policy", sorted(REMAT_POLICIES))
-    def test_gradients_and_statistics_match_no_remat(self, r18_danet, policy):
-        g0, state0, _ = _port_grads(r18_danet, remat=False)
+    def test_gradients_and_statistics_match_no_remat(self, r18_danet, policy,
+                                                     no_remat_grads):
+        g0, state0, _ = no_remat_grads
         g1, state1, _ = _port_grads(r18_danet, policy)
         assert_grads_close(g0, g1)
         for k, v in state0.items():

@@ -269,7 +269,7 @@ TINY = ["data.fake=true", "model.backbone=resnet18", "data.crop_size=[32,32]",
         "data.val_batch=8", "data.loader=grain", "data.num_workers=2",
         "data.fused_crop_resize=true", "data.decode_cache=4", "epochs=2",
         "log_every_steps=100", "checkpoint.preempt_check_every=1",
-        "optim.lr=1e-3"]
+        "optim.lr=1e-3", "checkpoint.keep_latest=1"]
 
 
 def test_trainer_resumes_a_worker_fed_fit_exactly(tmp_path):

@@ -51,9 +51,11 @@ def randomize(variables, seed=1):
 def jax_danet(backbone, size):
     model = jax_build_model("danet", nclass=1, backbone=backbone,
                             output_stride=8, attention_impl="xla")
-    variables = model.init(jax.random.PRNGKey(0),
-                           jnp.zeros((1, size, size, 4)), train=False)
-    return model, randomize(variables)
+    # randomize redraws every leaf from its shape: the shapes suffice,
+    # and tracing them skips the eager init's op-by-op dispatch
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, size, size, 4)), train=False))
+    return model, randomize(shapes)
 
 
 def port_danet(backbone, variables):

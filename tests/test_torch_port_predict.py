@@ -175,8 +175,8 @@ def twin_predictors():
     """A JAX Predictor and the port's, on the same randomized weights."""
     model = jax_build_model("danet", nclass=1, backbone="resnet18",
                             output_stride=8, attention_impl="xla")
-    variables = randomize(model.init(jax.random.PRNGKey(0),
-                                     jnp.zeros((1, 64, 64, 4)), train=False))
+    variables = randomize(jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 4)), train=False)))
     ref = jax_predict.Predictor(model, variables["params"],
                                 variables["batch_stats"],
                                 resolution=(64, 64), relax=10)

@@ -72,7 +72,8 @@ OVERRIDES = ["data.fake=true", "optim.lr=1e-3", "data.crop_size=[64,64]",
 #: the port's tiny CPU run
 TINY = ["data.fake=true", "model.backbone=resnet18", "data.crop_size=[64,64]",
         "data.relax=10", "data.area_thres=0", "data.train_batch=2",
-        "data.num_workers=0", "epochs=1", "log_every_steps=2"]
+        "data.num_workers=0", "epochs=1", "log_every_steps=2",
+        "checkpoint.keep_latest=1"]
 
 
 class TestConfig:
@@ -89,7 +90,7 @@ class TestConfig:
 
     @pytest.mark.parametrize("knob", ["model.pam_impl=ring",
                                       "data.source=packed", "mesh.model=2",
-                                      "model.moe_experts=2",
+                                      "data.sbd_root=sbd",
                                       "sentinel.enabled=true"])
     def test_unported_knob_raises(self, knob, tmp_path):
         cfg = config.apply_overrides(config.Config(), TINY + [
