@@ -139,7 +139,8 @@ it), printing no result.  The phases, each raising on failure:
              B = 8 DeepLabV3-R101 train step, bf16 and float32 in turns
              (median of 5, CUDA events), images/s, peak memory, a profiler
              split (convolutions, BatchNorm, loss, resize, the rest) and the
-             idle share; (d) the semantic CLI fit (``task=semantic``
+             idle share; (d) the semantic fit, a ``Trainer`` in this
+             process (``task=semantic``
              DeepLabV3-R101 513² bf16, train batch 4, full-res validation
              under 3-scale + flip TTA, 2 steps): finite losses, mIoU and
              pixel accuracy in [0, 1] with 21 per-class entries, a committed
@@ -184,11 +185,14 @@ it), printing no result.  The phases, each raising on failure:
              the card's peak (not the fallback) from the FLOP counter, every
              ``governor.jsonl`` line in the JAX schema and not applied, and
              one launch per kernel per step and val sample; (b) the same fit
-             with every batch fetch 200 ms late (``DPTPU_CHAOS_PLAN``): the
-             ``input_wait`` bucket up by at least 0.9 x the injected sleep,
-             ``governor.jsonl`` recording the stall above the target and the
-             would-be escalation, the loader's depth and the echo factor
-             unchanged; (c) the B = 16 bf16 step through the trainer's
+             with every batch fetch 200 ms late (``DPTPU_CHAOS_PLAN``), then
+             the clean fit again: the ``input_wait`` bucket up by at least
+             0.9 x the injected sleep over the lower of the two clean fits
+             around it (the first fit of a process books one-time costs to
+             its first fetches), each fetch's wait of the three fits
+             printed, ``governor.jsonl`` recording the stall above the
+             target and the would-be escalation, the loader's depth and the
+             echo factor unchanged; (c) the B = 16 bf16 step through the trainer's
              per-step body with telemetry on and off, in turns, median of 5
              (CUDA events), and the body's host microseconds (printed, not
              gated); (d) SIGUSR2 during a fit with ``profile_epoch=1``:
@@ -269,7 +273,8 @@ it), printing no result.  The phases, each raising on failure:
              f32 only: over HTTP, stateless, cold and warm masks bitwise
              equal, and at lane depth 1 a session's second queued click shed
              with 429 ``session_lane`` (raised as ``SessionLaneFullError``);
-             (f) the CLI fit with ``model.guidance_inject=head`` (bf16, 2
+             (f) a fit (a ``Trainer`` in this process) with
+             ``model.guidance_inject=head`` (bf16, 2
              steps of B = 4, one validation): finite losses, launches one per
              step and val sample, and ``Predictor.from_run`` serving a
              session whose warm click is the stateless mask, bitwise.
@@ -295,9 +300,31 @@ it), printing no result.  The phases, each raising on failure:
              the CLI fit ``MOE_FIT_ARGS`` (2 steps of B = 8, one
              validation of 8 samples) served by ``Predictor.from_run``
              (one ``predict_batch`` of 4 click sets): finite losses and
-             2 + 8 + 1 launches of each kernel; and the same fit with
+             2 + 8 + 1 launches of each kernel; and the same fit (a ``Trainer``
+             in this process) with
              ``model.pam_impl=einsum model.pam_block_size=1024``: no PAM
              launch, the CAM kernels 11 each.
+15. host_data — the instance task's host data: (a) each of the five host
+             guidance families (``HOST_FAMILIES``) on 512² crops of 375x500
+             fake masks against the port's device form for the same fixed
+             points, within the JAX package's bounds for its own pair
+             (``HOST_DEVICE_TOL``: 0.5 on [0, 255], 2e-3 for
+             ``extreme_points``), and the host's ms per sample of the
+             family's val stage and of the whole train stack; (b) the CLI
+             fit ``HOST_DATA_ARGS`` (DANet-R101 512² float32, DEXTR's
+             ``extreme_points`` guidance) with ``data.sbd_root`` on a fake
+             SBD tree written by the port (``make_fake_sbd``, SBD's 375x500,
+             repeating the fake VOC's val ids): its parameter report's
+             ``train_set`` a ``Combined(...)`` of the length counted part by
+             part with the val ids excluded, one step per full batch,
+             finite losses, a Jaccard in [0, 1], launches one per step and
+             val sample, then ``Predictor.from_run`` serving a batch of 4
+             click sets with that family (one launch each); (c) the same
+             fit with ``confidence_l1l2`` (a ``Trainer`` in this process),
+             launches exact, and ``Predictor.from_run`` refusing its run
+             with the JAX package's message; (d) DeepLabV3-R101 at 513² in
+             bf16 with ``data.sbd_root``: the combined semantic set, finite
+             losses, no attention kernel launched.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2, grain, tensorboard and matplotlib are
@@ -318,14 +345,16 @@ references are computed before) and across 13e's HTTP calls, in each
 dtype, summed (the session serving path), and read from 13f's
 ``fit_summary.json``, and read from each of 14c's fits'
 ``fit_summary.json`` plus the served batch's launches: every kernel must
-have run on each, but PAM on 14c's blocked-form fit, where it must not.  Launches made
+have run on each, but PAM on 14c's blocked-form fit, where it must not,
+and read from 15b's ``fit_summary.json`` plus its served batch's
+launches, 15c's and 15d's (where none may run).  Launches made
 only to compare the model with its plain forms (phase 2's logits) are
 taken out of the counts.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs,host_data``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -2093,8 +2122,8 @@ def loader_ms(loader, n: int) -> tuple[float, float, list]:
 def phase_loaders(tree=None, n_images: int = 64,
                   size: tuple[int, int] = (375, 500),
                   crop: tuple[int, int] = (512, 512), batch: int = 16,
-                  n_samples: int = 256, workers: tuple[int, ...] = (2, 4, 8),
-                  decode_cache: int = 64, numpy_batches: int = 3) -> dict:
+                  n_samples: int = 128, workers: tuple[int, ...] = (2, 4, 8),
+                  decode_cache: int = 64, numpy_batches: int = 2) -> dict:
     """6i: ms per batch of ``batch`` for the threaded loader on the numpy
     forms and on the host library, the worker loader at each of
     ``workers`` (capped by the CPU affinity), with the fused crop + resize,
@@ -3125,7 +3154,8 @@ SEM_FIT_ARGS = ["--fake-data", "task=semantic", "model.name=deeplabv3",
 
 
 def semantic_fit(torch) -> None:
-    """9d: the semantic CLI fit, then its run served."""
+    """9d: the semantic fit (a ``Trainer`` in this process), then its run
+    served, through ``--predict`` too."""
     import shutil
     import tempfile
 
@@ -3142,17 +3172,11 @@ def semantic_fit(torch) -> None:
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_semantic_"))
     try:
-        cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *SEM_FIT_ARGS,
-               f"work_dir={work}"]
-        log(f"semantic (d): {' '.join(cmd[1:])}")
+        log(f"semantic (d): {' '.join(SEM_FIT_ARGS)}")
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"the semantic fit exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        run = _in_process_fit(torch, _trainer_args(SEM_FIT_ARGS)
+                              + [f"work_dir={work}"])
         fit_s = time.perf_counter() - t0
-        (run,) = work.glob("run_*")
         with open(run / "fit_summary.json") as f:
             summary = json.load(f)
         records = _read_jsonl(run / "metrics.jsonl")
@@ -3173,6 +3197,8 @@ def semantic_fit(torch) -> None:
             ledger = json.load(f)
         if final not in ledger["latest"]:
             raise AssertionError(f"COMMITTED.json {ledger} does not name step {final}")
+        if any(summary["kernel_launches"].values()):
+            raise AssertionError(f"semantic fit launches {summary['kernel_launches']}")
         log(f"semantic (d): {fit_s:.1f} s wall, {final} steps, losses "
             f"{[round(x, 6) for x in step_losses]}; val mIoU "
             f"{[round(r['val/miou'], 6) for r in vals]}, pixel accuracy "
@@ -3274,6 +3300,9 @@ def phase_semantic(torch, ca) -> None:
     semantic_forward(torch)
     semantic_step_checks(torch)
     semantic_step_timed(torch)
+    if any(ca.launches.values()):  # before 9d's Trainer zeroes the counters
+        raise AssertionError(f"attention kernels launched on the semantic path: "
+                             f"{dict(ca.launches)}")
     semantic_fit(torch)
     semantic_fullres(torch)
     if any(ca.launches.values()):
@@ -3714,12 +3743,33 @@ def _telemetry_trainer(work: Path, *extra: str):
                    device="cuda")
 
 
+@contextlib.contextmanager
+def fetch_waits():
+    """The seconds of each ``input_wait`` account the main thread closes
+    inside the block (one per batch fetch of a fit), in order."""
+    from distributedpytorch_tpu_torch.telemetry import goodput
+
+    waits: list[float] = []
+    credit = goodput.GoodputAccountant._credit
+
+    def recording(self, bucket, seconds):
+        if bucket == "input_wait" and threading.current_thread() is threading.main_thread():
+            waits.append(seconds)
+        credit(self, bucket, seconds)
+
+    goodput.GoodputAccountant._credit = recording
+    try:
+        yield waits
+    finally:
+        goodput.GoodputAccountant._credit = credit
+
+
 def _telemetry_fit(torch, work: Path, plan: dict | None = None,
                    extra: tuple[str, ...] = ()):
     """One fit of ``TELEMETRY_ARGS`` and ``extra`` (through
     ``DPTPU_CHAOS_PLAN`` when a plan is given); returns its run dir,
-    history, events block and the loader's prefetch depth and echo factor
-    after the fit."""
+    history, events block, the loader's prefetch depth and echo factor
+    after the fit, the fired plan and each batch fetch's input wait."""
     import os
 
     from distributedpytorch_tpu_torch.chaos import sites
@@ -3728,7 +3778,8 @@ def _telemetry_fit(torch, work: Path, plan: dict | None = None,
     if plan is not None:
         os.environ[sites.PLAN_ENV] = json.dumps(plan)
     try:
-        history = tr.fit()
+        with fetch_waits() as waits:
+            history = tr.fit()
         block = tr._events.block()
         knobs = (tr.train_loader.prefetch, tr._echo, tr._host_prefetch)
     finally:
@@ -3740,7 +3791,7 @@ def _telemetry_fit(torch, work: Path, plan: dict | None = None,
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    return run, history, block, knobs, fired
+    return run, history, block, knobs, fired, waits
 
 
 def _event_records(run: Path) -> list[dict]:
@@ -3748,11 +3799,12 @@ def _event_records(run: Path) -> list[dict]:
     return _read_jsonl(path)
 
 
-def telemetry_default_fit(torch, work: Path) -> tuple[dict, dict]:
+def telemetry_default_fit(torch, work: Path) -> tuple[dict, dict, list]:
     """11a: the default fit's flight recorder, summary blocks, goodput, MFU,
-    governor ledger and launches.  Returns its history and launches."""
+    governor ledger and launches.  Returns its history, launches and each
+    batch fetch's input wait."""
     t0 = time.perf_counter()
-    run, hist, block, knobs, _ = _telemetry_fit(torch, work)
+    run, hist, block, knobs, _, waits = _telemetry_fit(torch, work)
     wall = time.perf_counter() - t0
     rec = _run_record(run)
     summary = rec["summary"]
@@ -3796,19 +3848,30 @@ def telemetry_default_fit(torch, work: Path) -> tuple[dict, dict]:
         f"{mfu['flops_source']}); feed {json.dumps(feed)}; governor.jsonl "
         f"{len(lines)} lines {[x['action'] for x in lines]}; kernel launches "
         f"{launches} = {want} each ({steps} steps + val samples), exact")
-    return hist, launches
+    return hist, launches, waits
 
 
-def telemetry_fault_fit(torch, work: Path, clean: dict) -> None:
+def _waits_ms(waits: list[float]) -> str:
+    return "[" + ", ".join(f"{w * 1e3:.1f}" for w in waits) + "] ms"
+
+
+def telemetry_fault_fit(torch, work: Path, clean: dict, clean_waits: list) -> None:
     """11b: the same fit with every batch fetch 200 ms late through
-    ``DPTPU_CHAOS_PLAN``: the input_wait bucket grows by at least 0.9 x the
-    injected sleep, governor.jsonl records the stall above the target and
-    the would-be escalation, and nothing is actuated."""
+    ``DPTPU_CHAOS_PLAN``, then the clean fit again: the input_wait bucket
+    grows by at least 0.9 x the injected sleep over the lower of the two
+    clean fits around it (the first fit of a process also books one-time
+    costs to its first fetches), governor.jsonl records the stall above
+    the target and the would-be escalation, and nothing is actuated."""
     plan = {"name": "slow_feed", "seed": 0, "faults": [
         {"site": "trainer/batch_fetch", "kind": "latency", "delay_s": FETCH_DELAY_S}]}
-    run, hist, _, knobs, fired = _telemetry_fit(torch, work, plan)
+    run, hist, _, knobs, fired, waits = _telemetry_fit(torch, work / "fault", plan)
+    _, again, *_, again_waits = _telemetry_fit(torch, work / "clean")
     fetches = sum(1 for site, _, _ in fired.firings if site == "trainer/batch_fetch")
-    grew = hist["goodput"]["buckets"]["input_wait"] - clean["goodput"]["buckets"]["input_wait"]
+    cleans = [clean["goodput"]["buckets"]["input_wait"],
+              again["goodput"]["buckets"]["input_wait"]]
+    grew = hist["goodput"]["buckets"]["input_wait"] - min(cleans)
+    log(f"telemetry (b): input wait per fetch: clean (a) {_waits_ms(clean_waits)}, "
+        f"faulted {_waits_ms(waits)}, clean again {_waits_ms(again_waits)}")
     if fetches < 4 or grew < 0.9 * FETCH_DELAY_S * fetches:
         raise AssertionError(f"11b: input_wait grew {grew:.3f} s over {fetches} "
                              f"fetches of {FETCH_DELAY_S} s")
@@ -3824,8 +3887,8 @@ def telemetry_fault_fit(torch, work: Path, clean: dict) -> None:
                              f"prefetch {knobs}")
     gp = hist["goodput"]
     log(f"telemetry (b): {fetches} fetches x {FETCH_DELAY_S} s injected; input_wait "
-        f"{gp['buckets']['input_wait']:.4f} s vs (a) "
-        f"{clean['goodput']['buckets']['input_wait']:.4f} s: +{grew:.4f} s (>= "
+        f"{gp['buckets']['input_wait']:.4f} s vs the clean fits {cleans[0]:.4f} s "
+        f"(a) and {cleans[1]:.4f} s (after): +{grew:.4f} s over the lower (>= "
         f"{0.9 * FETCH_DELAY_S * fetches:.2f}); buckets " + json.dumps(
             {k: round(v, 4) for k, v in gp["buckets"].items()})
         + f"; governor.jsonl {[(x['action'], x['stall'], x['applied']) for x in lines]}"
@@ -4065,8 +4128,8 @@ def phase_telemetry(torch, ca, Predictor, InferenceService, make_server) -> dict
     t0 = time.perf_counter()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_telemetry_"))
     try:
-        clean, launches = telemetry_default_fit(torch, work / "default")
-        telemetry_fault_fit(torch, work / "fault", clean)
+        clean, launches, waits = telemetry_default_fit(torch, work / "default")
+        telemetry_fault_fit(torch, work / "fault", clean, waits)
         log(f"telemetry: (a, b) done at {time.perf_counter() - t0:.1f} s")
         telemetry_cost(torch, train_dataset(), work / "cost")
         gc.collect()
@@ -4367,7 +4430,7 @@ def devdata_fits(torch, work: Path) -> tuple[dict, dict]:
         if label == "in-step copy":
             mesh.prefetch_to_device = _in_step_copy
         try:
-            run, hist, _, _, _ = _telemetry_fit(torch, work / f"fit{i}", extra=extra)
+            run, hist, *_ = _telemetry_fit(torch, work / f"fit{i}", extra=extra)
         finally:
             mesh.prefetch_to_device = placer
         runs.setdefault(label, []).append(hist)
@@ -4434,7 +4497,7 @@ def devdata_chaos(torch, work: Path, clean: dict) -> None:
 
     plan = {"name": "slow_put", "seed": 0, "faults": [
         {"site": "device/put", "kind": "latency", "delay_s": DEV_PUT_DELAY_S}]}
-    run, hist, _, _, fired = _telemetry_fit(torch, work / "latency", plan)
+    run, hist, _, _, fired, _ = _telemetry_fit(torch, work / "latency", plan)
     puts = sum(1 for site, _, _ in fired.firings if site == "device/put")
     waited = hist["goodput"]["buckets"]["input_wait"]
     grew = waited - clean["goodput"]["buckets"]["input_wait"]
@@ -4878,7 +4941,8 @@ def sessions_http(torch, ca, pred, image, clicks, InferenceService, make_server,
 
 
 def sessions_fit(torch, ca, Predictor) -> dict:
-    """13f: a head-injected fit through the CLI, served with a session."""
+    """13f: a head-injected fit (a ``Trainer`` in this process), served
+    with a session."""
     import shutil
     import tempfile
 
@@ -4888,15 +4952,9 @@ def sessions_fit(torch, ca, Predictor) -> dict:
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_sessions_"))
     try:
-        cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch",
-               *SESSION_FIT_ARGS, f"work_dir={work}"]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"13f: the fit exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        (run,) = work.glob("run_*")
+        run = _in_process_fit(torch, _trainer_args(SESSION_FIT_ARGS)
+                              + [f"work_dir={work}"])
         rec = _run_record(run)
         final = rec["summary"]["final_step"]
         losses = [x for r in rec["epochs"] for x in r["train/step_losses"]]
@@ -4990,7 +5048,8 @@ MOE_FIT_ARGS = ["--fake-data", "train.precision=bfloat16", "data.train_batch=8",
 #: 14c's second fit: the blocked plain position form, so no PAM launch
 EINSUM_FIT_ARGS = ["model.pam_impl=einsum", "model.pam_block_size=1024"]
 #: the paths on which a kernel is not meant to run
-PATHS_WITHOUT = {"head_knobs_einsum": ("position_attention",)}
+PATHS_WITHOUT = {"head_knobs_einsum": ("position_attention",),
+                 "host_data_semantic": tuple(TPU_KERNELS)}
 
 
 def _pam_module(torch, dtype, seed: int = 0):
@@ -5224,19 +5283,26 @@ def head_knobs_step(torch, ca, batch_size: int = 8, rounds: int = 5) -> None:
         f"{peak['no moe']:.2f} GiB; MoE / without {ms['moe'] / ms['no moe']:.4f}")
 
 
-def head_knobs_fit(torch, ca, Predictor, work: Path, *extra: str) -> tuple[dict, object]:
-    """14c: a MoE fit through the CLI, then ``Predictor.from_run`` serving
-    one batch of 4 click sets; the fit's launches plus the served batch's."""
+def head_knobs_fit(torch, ca, Predictor, work: Path, *extra: str,
+                   cli: bool = True) -> tuple[dict, object]:
+    """14c: a MoE fit through the CLI (or, without ``cli``, a ``Trainer``
+    in this process), then ``Predictor.from_run`` serving one batch of 4
+    click sets; the fit's launches plus the served batch's."""
     import numpy as np
 
-    cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *MOE_FIT_ARGS,
-           *extra, f"work_dir={work}"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"14c: the fit exited {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    (run,) = work.glob("run_*")
+    if cli:
+        cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *MOE_FIT_ARGS,
+               *extra, f"work_dir={work}"]
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"14c: the fit exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        (run,) = work.glob("run_*")
+    else:
+        run = _in_process_fit(torch, _trainer_args(MOE_FIT_ARGS) + [
+            *extra, f"work_dir={work}"])
     rec = _run_record(run)
     final = rec["summary"]["final_step"]
     losses = [x for r in rec["epochs"] for x in r["train/step_losses"]]
@@ -5280,7 +5346,7 @@ def phase_head_knobs(torch, ca, Predictor) -> dict:
         if moe_path != want or model.head.moe is None:
             raise AssertionError(f"14c: MoE launches {moe_path}, want {want}")
         einsum_path, model = head_knobs_fit(torch, ca, Predictor, work / "einsum",
-                                            *EINSUM_FIT_ARGS)
+                                            *EINSUM_FIT_ARGS, cli=False)
         want["position_attention"] = 0
         if einsum_path != want or (model.head.pam.impl, model.head.pam.block_size) \
                 != ("einsum", 1024):
@@ -5291,14 +5357,299 @@ def phase_head_knobs(torch, ca, Predictor) -> dict:
     return {"head_knobs_moe": moe_path, "head_knobs_einsum": einsum_path}
 
 
+#: phase 15's host guidance families (``data.guidance``) and each one's
+#: bound against the port's device form on the same mask and fixed
+#: points: the JAX package's own pair's (tests/test_device_guidance.py),
+#: 0.5 on [0, 255], 2e-3 for ``extreme_points`` on [0, 1]
+HOST_FAMILIES = ("nellipse_gaussians", "nellipse", "extreme_points",
+                 "confidence_l1l2", "confidence_gaussian")
+HOST_DEVICE_TOL = {"extreme_points": 2e-3}
+#: 15b's fit: the default DANet-R101 512² float32 fit on the fake fixture
+#: with DEXTR's extreme-point guidance and SBD merged, one epoch of B = 4
+HOST_DATA_ARGS = ["--fake-data", "data.guidance=extreme_points",
+                  "data.train_batch=4", "data.area_thres=0", "epochs=1"]
+#: 15d's fit: DeepLabV3-R101 at 513² in bf16 on the fake fixture with SBD
+SBD_SEMANTIC_ARGS = ["data.fake=true", "task=semantic", "model.name=deeplabv3",
+                     "model.nclass=21", "model.in_channels=3",
+                     "data.crop_size=[513,513]", "train.precision=bfloat16",
+                     "data.train_batch=4", "epochs=1"]
+#: the fake SBD tree: 4 images at SBD's usual 375x500, one of them val,
+#: plus the fake VOC's val images written into its train split
+SBD_SIZE = (375, 500)
+#: the JAX package's refusal of a run whose guidance clicks cannot give
+CONFIDENCE_REFUSAL = ("this run's guidance family ('confidence_l1l2') is not "
+                      "derivable from clicks alone (confidence maps need the gt "
+                      "mask; 'none' has no channel) — click-based prediction "
+                      "does not apply to it")
+
+
+def host_data_families(torch) -> None:
+    """15a: each host guidance family on 512² crops of 375x500 fake masks
+    against the port's device form (fixed points), and the host's ms per
+    sample: the family's val stage on a cached crop, and the whole train
+    stack (flip, scale-rotate, crop, resize, guidance) from the image."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.data import pipeline, voc
+    from distributedpytorch_tpu_torch.data import transforms as T
+    from distributedpytorch_tpu_torch.ops import guidance_device
+
+    tree = host_tree(8, SBD_SIZE, seed=0)
+    crops = voc.VOCInstanceSegmentation(
+        tree, split="train", area_thres=0,
+        transform=T.Compose(pipeline.build_crop_stage((512, 512), 50, True)))
+    samples = [crops[i] for i in range(min(len(crops), 12))]
+    masks = np.stack([s["crop_gt"] for s in samples]).astype(np.float32)
+    dev_masks = torch.from_numpy(masks).to("cuda")
+    parts = []
+    for family in HOST_FAMILIES:
+        stage = T.Compose(pipeline._guidance_stage(family, 0.6, is_val=True))
+        host, ms = [], []
+        for s in samples:
+            t0 = time.perf_counter()
+            out = stage({"crop_image": s["crop_image"], "crop_gt": s["crop_gt"]})
+            ms.append((time.perf_counter() - t0) * 1e3)
+            host.append(out["concat"][..., 3])
+        with torch.inference_mode():
+            dev = guidance_device.guidance_map(dev_masks, family=family,
+                                               is_val=True).cpu().numpy()
+        torch.cuda.synchronize()
+        gap = float(np.abs(dev - np.stack(host)).max())
+        check(f"15a {family}, host vs device form, max |diff|", gap,
+              HOST_DEVICE_TOL.get(family, 0.5))
+        train = voc.VOCInstanceSegmentation(
+            tree, split="train", area_thres=0,
+            transform=pipeline.build_train_transform(crop_size=(512, 512),
+                                                     guidance=family))
+        stack_ms = []
+        for i in range(len(samples)):
+            t0 = time.perf_counter()
+            x = train.__getitem__(i, rng=pipeline.sample_rng(0, 0, i))
+            stack_ms.append((time.perf_counter() - t0) * 1e3)
+            if x["concat"].shape != (512, 512, 4) or not np.isfinite(x["concat"]).all():
+                raise AssertionError(f"15a {family}: concat {x['concat'].shape}")
+        parts.append(f"{family} stage {statistics.median(ms):.2f} ms, train stack "
+                     f"{statistics.median(stack_ms):.2f} ms, max |host - device| "
+                     f"{gap:.3e}")
+    log(f"host_data (a): {len(samples)} crops of 512² from {SBD_SIZE[0]}x"
+        f"{SBD_SIZE[1]}, median ms per sample on one host thread: "
+        + "; ".join(parts))
+
+
+def _fake_sbd(root: Path) -> tuple[list[str], int, int]:
+    """The fake SBD tree under ``root`` (the port's writer), the fake VOC
+    val ids it repeats, and the instance and semantic lengths of the
+    combined train sets ``--fake-data`` builds, counted here part by part:
+    VOC train, plus SBD less the VOC val ids."""
+    from distributedpytorch_tpu_torch.data import (
+        SBDInstanceSegmentation,
+        SBDSemanticSegmentation,
+        VOCInstanceSegmentation,
+        fake,
+        make_fake_sbd,
+    )
+
+    voc_tree = fake.make_fake_voc(n_images=8, size=(96, 128), n_val=3, seed=0)
+    val_ids = voc_tree.split_ids("val")
+    make_fake_sbd(str(root), n_images=4, size=SBD_SIZE, n_val=1, seed=0,
+                  overlap_ids=val_ids)
+    inst = SBDInstanceSegmentation(str(root), split=["train", "val"])
+    sem = SBDSemanticSegmentation(str(root), split=["train", "val"])
+    n_inst = len(VOCInstanceSegmentation(voc_tree, split="train")) + sum(
+        inst.sample_image_id(i) not in val_ids for i in range(len(inst)))
+    n_sem = len(voc_tree.split_ids("train")) + sum(
+        im_id not in val_ids for im_id in sem.im_ids)
+    return val_ids, n_inst, n_sem
+
+
+def _param_report(run: Path) -> dict:
+    """The run's parameter report, ``key: value`` per line."""
+    from distributedpytorch_tpu_torch.train.config import from_json
+
+    cfg = from_json(str(run / "config.json"))
+    with open(run / f"{cfg.experiment_name}.txt") as f:
+        return dict(line.rstrip("\n").split(": ", 1) for line in f if ": " in line)
+
+
+def _combined_fit_checks(tag: str, run: Path, n_train: int,
+                         batch: int = 4) -> tuple[dict, list, list]:
+    """A one-epoch fit over a combined set of ``n_train`` samples: the
+    param report names it, one step per full batch, finite losses, one
+    validation with its metric in [0, 1].  Returns the summary, losses and
+    validation records."""
+    rec = _run_record(run)
+    final = rec["summary"]["final_step"]
+    losses = [x for r in rec["epochs"] for x in r["train/step_losses"]]
+    train_set = _param_report(run)["train_set"]
+    if not (train_set.startswith("Combined(") and train_set.endswith(f", n={n_train})")):
+        raise AssertionError(f"{tag}: train_set {train_set}, want Combined(..., "
+                             f"n={n_train})")
+    if final != n_train // batch or len(losses) != final or not all(
+            x is not None and math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: {final} steps over {n_train} samples, losses "
+                             f"{losses}")
+    if len(rec["vals"]) != 1 or not 0.0 <= rec["vals"][0]["val/jaccard"] <= 1.0:
+        raise AssertionError(f"{tag}: validations {rec['vals']}")
+    return rec["summary"], losses, rec["vals"]
+
+
+def host_data_fit(torch, ca, Predictor, work: Path, sbd: Path,
+                  n_train: int) -> dict:
+    """15b: the CLI fit with ``data.guidance=extreme_points`` and
+    ``data.sbd_root``, served by ``Predictor.from_run``; its launches plus
+    the served batch's."""
+    import numpy as np
+
+    cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *HOST_DATA_ARGS,
+           f"data.sbd_root={sbd}", f"work_dir={work}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"15b: the fit exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    (run,) = work.glob("run_*")
+    summary, losses, vals = _combined_fit_checks("15b", run, n_train)
+    launches = summary["kernel_launches"]
+    want = summary["final_step"] + int(vals[0]["val/n_samples"])
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"15b: launches {launches}, want {want} each")
+    pred = Predictor.from_run(str(run), device="cuda")
+    if pred.guidance != "extreme_points":
+        raise AssertionError(f"15b: served with {pred.guidance}")
+    image, clicks = synthetic_image()
+    before = dict(ca.launches)
+    masks = pred.predict_batch(image, clicks)
+    served = _launches_since(ca, before)
+    if any(v != 1 for v in served.values()) or not all(
+            m.shape == image.shape[:2] and np.isfinite(m).all() for m in masks):
+        raise AssertionError(f"15b: the served batch launched {served}")
+    log(f"host_data (b): `{' '.join(HOST_DATA_ARGS)} data.sbd_root=...`: "
+        f"{wall:.1f} s wall; train_set {_param_report(run)['train_set']}; "
+        f"{summary['final_step']} steps, losses {[round(x, 6) for x in losses]}, val "
+        f"jaccard {round(vals[0]['val/jaccard'], 6)} over "
+        f"{int(vals[0]['val/n_samples'])} samples; fit launches {launches} = {want} "
+        f"each, exact; Predictor.from_run (extreme_points) served a batch of "
+        f"{len(clicks)} click sets, launches {served}")
+    del pred
+    return {k: launches[k] + served[k] for k in TPU_KERNELS}
+
+
+def _trainer_args(cli_args: list[str]) -> list[str]:
+    """The ``Config`` overrides of a CLI argument list (``--fake-data`` is
+    ``data.fake=true``)."""
+    return ["data.fake=true" if a == "--fake-data" else a for a in cli_args]
+
+
+def _in_process_fit(torch, overrides: list[str]) -> Path:
+    """A ``Trainer`` fit on the card in this process, writing its records
+    to ``metrics.jsonl`` only unless ``overrides`` name the writers;
+    returns its run."""
+    from distributedpytorch_tpu_torch.train.config import Config, apply_overrides
+    from distributedpytorch_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(apply_overrides(Config(), ['log_writers=["jsonl"]', *overrides]),
+                 device="cuda")
+    try:
+        tr.fit()
+    finally:
+        tr.close()
+    run = Path(tr.run_dir)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def host_data_confidence(torch, Predictor, work: Path, sbd: Path,
+                         n_train: int) -> dict:
+    """15c: 15b's fit with ``data.guidance=confidence_l1l2`` (a ``Trainer``
+    in this process), and ``Predictor.from_run`` refusing it with the JAX
+    package's message; the fit's launches."""
+    t0 = time.perf_counter()
+    run = _in_process_fit(torch, _trainer_args(HOST_DATA_ARGS)
+                          + ["data.guidance=confidence_l1l2", f"data.sbd_root={sbd}",
+                             f"work_dir={work}"])
+    wall = time.perf_counter() - t0
+    summary, losses, vals = _combined_fit_checks("15c", run, n_train)
+    launches = summary["kernel_launches"]
+    want = summary["final_step"] + int(vals[0]["val/n_samples"])
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"15c: launches {launches}, want {want} each")
+    try:
+        Predictor.from_run(str(run), device="cuda")
+    except ValueError as e:
+        if str(e) != CONFIDENCE_REFUSAL:
+            raise AssertionError(f"15c: from_run refused with {e!r}") from e
+    else:
+        raise AssertionError("15c: from_run served a confidence_l1l2 run")
+    log(f"host_data (c): data.guidance=confidence_l1l2 with SBD: {wall:.1f} s wall, "
+        f"{summary['final_step']} steps, losses {[round(x, 6) for x in losses]}, val "
+        f"jaccard {round(vals[0]['val/jaccard'], 6)}; launches {launches} = {want} "
+        f"each, exact; Predictor.from_run refused it with the JAX message")
+    return launches
+
+
+def host_data_semantic(torch, work: Path, sbd: Path, n_train: int) -> dict:
+    """15d: DeepLabV3-R101 with ``data.sbd_root`` (a ``Trainer`` in this
+    process): the combined semantic set, finite losses, no attention
+    kernel launched."""
+    t0 = time.perf_counter()
+    run = _in_process_fit(torch, SBD_SEMANTIC_ARGS + [f"data.sbd_root={sbd}",
+                                                      f"work_dir={work}"])
+    wall = time.perf_counter() - t0
+    summary, losses, vals = _combined_fit_checks("15d", run, n_train)
+    launches = summary["kernel_launches"]
+    if any(launches.values()):
+        raise AssertionError(f"15d: launches {launches}, want none")
+    log(f"host_data (d): `{' '.join(SBD_SEMANTIC_ARGS)} data.sbd_root=...`: "
+        f"{wall:.1f} s wall; train_set {_param_report(run)['train_set']}; "
+        f"{summary['final_step']} steps, losses {[round(x, 6) for x in losses]}, "
+        f"val mIoU {round(vals[0]['val/miou'], 6)}; launches {launches}")
+    return launches
+
+
+def phase_host_data(torch, ca, Predictor) -> dict:
+    """Phase 15 (a-d); returns the launch counts of 15b (fit and served
+    batch), 15c and 15d."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    host_data_families(torch)
+    log(f"host_data: (a) done at {time.perf_counter() - t0:.1f} s")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_host_data_"))
+    try:
+        val_ids, n_inst, n_sem = _fake_sbd(work / "sbd")
+        log(f"host_data: fake SBD tree ({SBD_SIZE[0]}x{SBD_SIZE[1]}) repeating the "
+            f"fake VOC val ids {val_ids}: combined train sets of {n_inst} instance "
+            f"and {n_sem} semantic samples expected")
+        paths = {"host_data_extreme_points": host_data_fit(
+            torch, ca, Predictor, work / "extreme_points", work / "sbd", n_inst)}
+        paths["host_data_confidence"] = host_data_confidence(
+            torch, Predictor, work / "confidence", work / "sbd", n_inst)
+        paths["host_data_semantic"] = host_data_semantic(
+            torch, work / "semantic", work / "sbd", n_sem)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"host_data: phase wall time {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 #: the phases of a whole run, in order
 PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer",
-          "telemetry", "devdata", "sessions", "head_knobs")
+          "telemetry", "devdata", "sessions", "head_knobs", "host_data")
 
 
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
+    if not (REPO / "distributedpytorch_tpu_torch").is_dir():
+        print(f"chip_smoke: no distributedpytorch_tpu_torch beside {REPO}",
+              file=sys.stderr)
+        return 2
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5370,6 +5721,8 @@ def main(argv: list[str] | None = None) -> int:
                                     make_server, ServeClient))
     if "head_knobs" in phases:
         paths.update(phase_head_knobs(torch, ca, Predictor))
+    if "host_data" in phases:
+        paths.update(phase_host_data(torch, ca, Predictor))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS
                    if k not in PATHS_WITHOUT.get(path, ())):

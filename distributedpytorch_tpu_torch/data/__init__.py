@@ -1,10 +1,12 @@
-"""Host data layer of the port (numpy, no torch): the VOC datasets and the
-in-memory fake, the train/val transform stacks and the prepared-sample
+"""Host data layer of the port (numpy, no torch): the VOC and SBD datasets,
+their combination, the in-memory fake VOC and the on-disk fake SBD, the
+train/val transform stacks and the prepared-sample
 builders, guidance synthesis, the prepared-sample cache, the threaded and
 worker-process loaders and the feed governor."""
 
 from . import guidance, transforms
-from .fake import make_fake_voc
+from .combine import CombinedDataset
+from .fake import make_fake_sbd, make_fake_voc
 from .governor import GOVERNOR_MODES, FeedActuators, FeedGovernor, feed_block
 from .grain_pipeline import GrainDataLoader
 from .pipeline import (
@@ -24,9 +26,11 @@ from .prepared import (
     PreparedSemanticDataset,
     cache_fingerprint,
 )
+from .sbd import SBDInstanceSegmentation, SBDSemanticSegmentation
 from .voc import VOCInstanceSegmentation, VOCSemanticSegmentation
 
 __all__ = [
+    "CombinedDataset",
     "DataLoader",
     "FeedActuators",
     "FeedGovernor",
@@ -34,6 +38,8 @@ __all__ = [
     "GrainDataLoader",
     "PreparedInstanceDataset",
     "PreparedSemanticDataset",
+    "SBDInstanceSegmentation",
+    "SBDSemanticSegmentation",
     "VOCInstanceSegmentation",
     "VOCSemanticSegmentation",
     "build_eval_transform",
@@ -48,6 +54,7 @@ __all__ = [
     "collate",
     "feed_block",
     "guidance",
+    "make_fake_sbd",
     "make_fake_voc",
     "transforms",
 ]

@@ -1,5 +1,6 @@
 """Synthetic tiny-VOC fixture in memory, the counterpart of
-``distributedpytorch_tpu/data/fake.py``'s ``make_fake_voc``.
+``distributedpytorch_tpu/data/fake.py``'s ``make_fake_voc``, and the
+on-disk fake SBD tree (:func:`make_fake_sbd`).
 
 The same scenes — random filled ellipses and rectangles drawn back to
 front over noise, each object painted with a class colour plus texture
@@ -13,6 +14,7 @@ the JAX fixture's (no JPEG round trip, numpy rasterisation).
 from __future__ import annotations
 
 import colorsys
+import os
 
 import numpy as np
 
@@ -114,3 +116,63 @@ def make_fake_voc(n_images: int = 6, size: tuple[int, int] = (120, 160),
         arrays[im_id] = (_blur7(img), inst, cls)
     n_train = n_images - n_val
     return FakeVOC({"train": ids[:n_train], "val": ids[n_train:]}, arrays)
+
+
+def make_fake_sbd(root: str, n_images: int = 4,
+                  size: tuple[int, int] = (120, 160), max_objects: int = 3,
+                  n_val: int = 1, seed: int = 0,
+                  overlap_ids: list[str] | None = None) -> str:
+    """Write a fake SBD tree (the ``benchmark_RELEASE/dataset`` layout:
+    ``img/*.jpg``, ``GTinst``/``GTcls`` structs in ``inst/*.mat`` and
+    ``cls/*.mat``, ``train.txt``/``val.txt``) under ``root``; returns
+    ``root``.  Ids are ``sbd_000000``...; the last ``n_val`` go to
+    ``val``.  ``overlap_ids`` are extra images written under exactly
+    these ids into ``train`` (say, a VOC val split's ids), which a
+    combined training set must exclude.  The scenes are the JAX writer's
+    (blurred noise, 1 to ``max_objects`` filled ellipses with a 255 void
+    ring, a category each), drawn with numpy; PIL writes the images and
+    scipy the structs."""
+    import scipy.io
+    from PIL import Image
+
+    from .sbd import BASE_DIR
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, BASE_DIR)
+    dirs = {k: os.path.join(base, k) for k in ("img", "inst", "cls")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    h, w = size
+    base_ids = [f"sbd_{i:06d}" for i in range(n_images)]
+    # overlap ids land in train, the split a combined set reads
+    train_ids = base_ids[:n_images - n_val] + list(overlap_ids or [])
+    val_ids = base_ids[n_images - n_val:] if n_val else []
+    for im_id in train_ids + val_ids:
+        img = _blur7(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        inst = np.zeros((h, w), dtype=np.uint8)
+        cls = np.zeros((h, w), dtype=np.uint8)
+        cats = []
+        for obj in range(1, int(rng.integers(1, max_objects + 1)) + 1):
+            cat = int(rng.integers(1, 21))
+            cats.append(cat)
+            cx = int(rng.integers(w // 4, 3 * w // 4))
+            cy = int(rng.integers(h // 4, 3 * h // 4))
+            ax = int(rng.integers(max(6, w // 10), w // 3))
+            ay = int(rng.integers(max(6, h // 10), h // 3))
+            shape = _ellipse(h, w, cx, cy, ax, ay, float(rng.uniform(0, 180)))
+            inst[shape == 1] = obj
+            cls[shape == 1] = cat
+            ring = _dilate3(shape) - shape
+            inst[ring == 1] = 255
+            cls[ring == 1] = 255
+        Image.fromarray(img).save(os.path.join(dirs["img"], im_id + ".jpg"))
+        # the struct layout scipy round-trips (a dict is written as a struct)
+        scipy.io.savemat(os.path.join(dirs["inst"], im_id + ".mat"),
+                         {"GTinst": {"Segmentation": inst,
+                                     "Categories": np.array(cats)}})
+        scipy.io.savemat(os.path.join(dirs["cls"], im_id + ".mat"),
+                         {"GTcls": {"Segmentation": cls}})
+    for split, ids in (("train", train_ids), ("val", val_ids)):
+        with open(os.path.join(base, split + ".txt"), "w") as f:
+            f.write("\n".join(ids) + "\n" if ids else "")
+    return root

@@ -1,9 +1,11 @@
 """Guidance channels: extreme points of a mask, n-ellipse, gaussian point
-heatmaps and their combination, in crop coordinates.
+heatmaps and their combination, in crop coordinates, and the
+confidence-map family (skewed-axes L1+L2 and multivariate gaussian).
 
 Copies of ``distributedpytorch_tpu/data/guidance.py``'s extreme points
-(consuming the same ``np.random.Generator`` draws in the same order) and
-click families, kept here so the port never imports the JAX package.  The
+(consuming the same ``np.random.Generator`` draws in the same order),
+click families and confidence maps, kept here so the port never imports
+the JAX package.  The
 tests pin them to the originals.  As in the JAX package, the n-ellipse on
 a full pixel grid runs on the port's host library (:mod:`..native_ops`)
 unless ``DPTPU_NATIVE=0``, which selects the numpy form.
@@ -179,3 +181,73 @@ def crop_point_guidance(points: np.ndarray, bbox: tuple[int, int, int, int],
     crop_pts = scale_points_to_crop(points, bbox, resolution)
     return guidance_from_points(resolution, crop_pts, alpha=alpha,
                                 family=family)
+
+
+def normalize_wt_map(wt_map: np.ndarray) -> np.ndarray:
+    """Min-max normalise a weight map to [0, 1]."""
+    lo, hi = float(wt_map.min()), float(wt_map.max())
+    return (wt_map - lo) / (hi - lo + 1e-10)
+
+
+def generate_mvgauss_image(mask: np.ndarray, FULL_IMAGE_WEIGHTS: int = 1,
+                           tau: float = 0.5) -> np.ndarray:
+    """Multivariate gaussian confidence map of the mask's pixel cloud: its
+    first and second moments, the unnormalised density over the whole
+    image raised to ``tau``; float32."""
+    ys, xs = np.where(mask > 0.5)
+    pts = np.stack([xs, ys], axis=1).astype(np.float64)
+    mean = pts.mean(axis=0)
+    if pts.shape[0] < 2:
+        # one pixel has no sample covariance (np.cov gives NaN): an
+        # isotropic unit covariance centred on it
+        cov = np.eye(2)
+    else:
+        cov = np.cov(pts.T) + np.eye(2) * 1e-3
+    icov = np.linalg.inv(cov)
+    h, w = mask.shape[:2]
+    X, Y = np.meshgrid(np.arange(w), np.arange(h))
+    dx = X - mean[0]
+    dy = Y - mean[1]
+    m = icov[0, 0] * dx * dx + (icov[0, 1] + icov[1, 0]) * dx * dy \
+        + icov[1, 1] * dy * dy
+    out = np.exp(-0.5 * tau * m)
+    if not FULL_IMAGE_WEIGHTS:
+        out = out * (mask > 0.5)
+    return out.astype(np.float32)
+
+
+def generate_mv_l1l2_image_skewed_axes(mask: np.ndarray,
+                                       extreme_points: np.ndarray,
+                                       FULL_IMAGE_WEIGHTS: int = 1,
+                                       d2_THRESH: float | None = None,
+                                       tau: float = 1.0):
+    """L1+L2 confidence map along the skewed axes of the extreme points
+    (left -> right and top -> bottom chords): each pixel's affine
+    coordinates (u, v) on those axes weigh ``exp(-tau ((|u| + |v|) +
+    sqrt(u² + v²)) / 2)``.  Returns ``(h_map, u, v)``, float32."""
+    pts = np.asarray(extreme_points, dtype=np.float64)
+    left, top, right, bottom = pts[0], pts[1], pts[2], pts[3]
+    center = pts.mean(axis=0)
+    a1 = (right - left) / 2.0
+    a2 = (bottom - top) / 2.0
+    A = np.stack([a1, a2], axis=1)  # columns are the axes
+    if abs(np.linalg.det(A)) < 1e-6:  # near-singular axis pair
+        A = A + np.eye(2) * 1e-3
+    Ainv = np.linalg.inv(A)
+
+    h, w = mask.shape[:2]
+    X, Y = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    dx = X - center[0]
+    dy = Y - center[1]
+    u = Ainv[0, 0] * dx + Ainv[0, 1] * dy
+    v = Ainv[1, 0] * dx + Ainv[1, 1] * dy
+
+    l1 = np.abs(u) + np.abs(v)
+    l2 = np.sqrt(u * u + v * v)
+    h_map = np.exp(-tau * (l1 + l2) / 2.0)
+    if d2_THRESH is not None:
+        h_map = np.where(l2 > d2_THRESH, 0.0, h_map)
+    if not FULL_IMAGE_WEIGHTS:
+        h_map = h_map * (mask > 0.5)
+    return h_map.astype(np.float32), u.astype(np.float32), v.astype(np.float32)

@@ -8,10 +8,11 @@ metadata stay lists), exactly as in the JAX package; the train step turns
 them into NCHW torch tensors on the device.  Every sample's RNG is
 ``default_rng((seed, epoch, index))`` and the epoch's order is
 ``default_rng((seed, epoch))``'s permutation, so data order and content do
-not depend on the worker count.  Of the host guidance families only
-``nellipse_gaussians`` is ported, and ``none`` (the bare image channels,
-for a device stage that synthesises the channel,
-``ops/guidance_device.py``).  ``flip``/``geom`` drop the host flip and
+not depend on the worker count.  Every host guidance family of the JAX
+package runs here (``nellipse_gaussians``, ``nellipse``,
+``extreme_points``, ``confidence_l1l2``, ``confidence_gaussian``), and
+``none`` ships the bare image channels for a device stage that
+synthesises the channel (``ops/guidance_device.py``).  ``flip``/``geom`` drop the host flip and
 scale-rotate where the device stage owns them (``ops/augment.py``).  The
 prepared builders are the per-access stages downstream of the
 prepared-sample cache (``data/prepared.py``).
@@ -44,14 +45,28 @@ GUIDANCE_KEY = "nellipseWithGaussians"
 
 def _guidance_stage(guidance: str, alpha: float,
                     is_val: bool) -> list[T.Transform]:
+    """The guidance family's transforms, ending in ``concat``: the map
+    concatenated to ``crop_image``, or for the confidence families the
+    image with the map appended, renamed; ``none`` ships the bare image
+    channels (a device stage appends the map)."""
+    if guidance == "nellipse_gaussians":
+        return [T.NEllipseWithGaussians(alpha=alpha, is_val=is_val),
+                T.ConcatInputs(elems=("crop_image", GUIDANCE_KEY))]
+    if guidance == "nellipse":
+        return [T.NEllipse(is_val=is_val),
+                T.ConcatInputs(elems=("crop_image", "nellipse"))]
+    if guidance == "extreme_points":
+        return [T.ExtremePoints(sigma=10, pert=0 if is_val else 5,
+                                elem="crop_gt", is_val=is_val),
+                T.ConcatInputs(elems=("crop_image", "extreme_points"))]
+    if guidance in ("confidence_l1l2", "confidence_gaussian"):
+        return [T.AddConfidenceMap(elem="crop_image",
+                                   hm_type=guidance.removeprefix("confidence_"),
+                                   pert=0 if is_val else 5, is_val=is_val),
+                T.Rename({"with_hm": "concat"})]
     if guidance == "none":
         return [T.ConcatInputs(elems=("crop_image",))]
-    if guidance != "nellipse_gaussians":
-        raise NotImplementedError(
-            f"data.guidance={guidance!r} is not ported yet on the host "
-            "(nellipse_gaussians or none)")
-    return [T.NEllipseWithGaussians(alpha=alpha, is_val=is_val),
-            T.ConcatInputs(elems=("crop_image", GUIDANCE_KEY))]
+    raise ValueError(f"unknown guidance family: {guidance}")
 
 
 def build_crop_stage(crop_size: tuple[int, int], relax: int, zero_pad: bool,

@@ -1,11 +1,13 @@
 """Host-side transforms over dict samples, the counterpart of
-``distributedpytorch_tpu/data/transforms.py`` for the default train and
-val stacks.
+``distributedpytorch_tpu/data/transforms.py``: the train and val stacks of
+every guidance family, and the library's other crops and rescales
+(``CropFromMask``, ``CreateBBMask``, ``ToImage``).
 
 A sample is a ``dict`` of numpy arrays (HWC, as in the JAX package, so the
 two can be compared bit for bit) flowing through a :class:`Compose` chain
 with the reference's key names (``image``, ``gt``, ``void_pixels``,
-``crop_image``, ``crop_gt``, ``nellipseWithGaussians``, ``concat``).
+``crop_image``, ``crop_gt``, the guidance keys ``nellipseWithGaussians``,
+``nellipse``, ``extreme_points`` and ``with_hm``, ``concat``).
 Randomness comes from the ``np.random.Generator`` passed to ``__call__``,
 drawn in the JAX package's order.  Keys ``id``/``meta`` are metadata;
 ``bbox`` and ``crop_relax`` are coordinate payloads.
@@ -167,6 +169,14 @@ class FixedResize(Transform):
         return f"FixedResize({self.resolutions})"
 
 
+def _crop_one(img, mask, relax, zero_pad):
+    """``img`` cropped to ``mask``'s bbox grown by ``relax`` (zeros of
+    ``img``'s shape for an empty mask)."""
+    if mask.max() == 0:
+        return np.zeros(img.shape, dtype=img.dtype)
+    return helpers.crop_from_mask(img, mask, relax=relax, zero_pad=zero_pad)
+
+
 class CropFromMaskStatic(Transform):
     """Crop each of ``crop_elems`` to the ``mask_elem`` bbox grown by
     ``relax``, zero-padding past the image with ``zero_pad``, into
@@ -185,10 +195,8 @@ class CropFromMaskStatic(Transform):
         if mask.ndim != 2:
             raise ValueError("CropFromMaskStatic takes a single-object 2-D mask")
         for elem in self.crop_elems:
-            img = sample[elem]
-            sample["crop_" + elem] = np.zeros(img.shape, img.dtype) \
-                if mask.max() == 0 else helpers.crop_from_mask(
-                    img, mask, relax=self.relax, zero_pad=self.zero_pad)
+            sample["crop_" + elem] = _crop_one(sample[elem], mask, self.relax,
+                                               self.zero_pad)
         bbox = helpers.get_bbox(mask, pad=self.relax, zero_pad=self.zero_pad)
         if bbox is None:
             bbox = (0, 0, mask.shape[1] - 1, mask.shape[0] - 1)
@@ -251,6 +259,100 @@ class FusedCropResize(Transform):
                 f" zero_pad={self.zero_pad}, size={self.size})")
 
 
+class CropFromMask(Transform):
+    """Zoom-normalising crop: the relax border is chosen so the object's
+    long side covers a target share of the final ``d`` x ``d`` crop
+    (``sqrt(0.5) d`` at val, drawn uniformly from ``[sqrt(0.45) d,
+    sqrt(0.6) d)`` at train), floored so a tiny object is not zoomed past
+    4% of the crop's area; the border is recorded as ``crop_relax``.  A
+    constant mask passes every element through uncropped with relax 0.
+    The mask is a single-object 2-D mask."""
+
+    def __init__(self, crop_elems=("image", "gt"), mask_elem="gt",
+                 zero_pad=False, d: int = 512, is_val: bool = True):
+        self.crop_elems = crop_elems
+        self.mask_elem = mask_elem
+        self.zero_pad = zero_pad
+        self.d = d
+        self.is_val = is_val
+        dz_val = int(np.sqrt(d * d * 0.5))
+        min_object_dim = d / 5
+        self.floor = ((d - dz_val) * min_object_dim) / (2 * dz_val)
+        self.dz_val = dz_val
+        self.dz_train_range = (int(np.sqrt(d * d * 0.45)),
+                               int(np.sqrt(d * d * 0.6)))
+
+    def __call__(self, sample, rng=None):
+        target = sample[self.mask_elem]
+        if target.ndim != 2:
+            raise ValueError("CropFromMask takes a single-object 2-D mask")
+        if len(np.unique(target)) == 1:
+            for elem in self.crop_elems:
+                sample["crop_" + elem] = sample[elem]
+            sample["crop_relax"] = 0
+            return sample
+        if self.is_val:
+            dz = float(self.dz_val)
+        else:
+            dz = float(_require_rng(rng).integers(self.dz_train_range[0],
+                                                  self.dz_train_range[1]))
+        bbox = helpers.get_bbox(target)
+        long_side = max(bbox[2] - bbox[0], bbox[3] - bbox[1], 1)
+        zoom = dz / long_side
+        relax = int(np.ceil(max((self.d - long_side * zoom) / (2 * zoom),
+                                self.floor)))
+        sample["crop_relax"] = relax
+        for elem in self.crop_elems:
+            sample["crop_" + elem] = _crop_one(sample[elem], target, relax,
+                                               self.zero_pad)
+        return sample
+
+    def __repr__(self):
+        return f"CropFromMask(d={self.d}, is_val={self.is_val})"
+
+
+class CreateBBMask(Transform):
+    """``bb_mask``: 255 outside the bounding box of ``gt``, 0 inside (all
+    255 for an empty mask)."""
+
+    def __call__(self, sample, rng=None):
+        mask = sample["gt"]
+        bbox = helpers.get_bbox(mask)
+        out = np.full(mask.shape, 255.0, dtype=np.float32)
+        if bbox is not None:  # inclusive max coordinates
+            out[bbox[1]:bbox[3] + 1, bbox[0]:bbox[2] + 1] = 0.0
+        sample["bb_mask"] = out
+        return sample
+
+
+def _pick_points(target, pert, is_val, rng):
+    """The median candidates at val, a random candidate per side at
+    train (drawn from ``rng``)."""
+    if is_val:
+        return guidance.extreme_points_fixed(target, pert)
+    return guidance.extreme_points(target, pert, rng=_require_rng(rng))
+
+
+class NEllipse(Transform):
+    """The n-ellipse through the extreme points of ``crop_gt``, [0, 255],
+    into ``sample['nellipse']`` (zeros for an empty mask)."""
+
+    def __init__(self, is_val: bool = True):
+        self.is_val = is_val
+
+    def __call__(self, sample, rng=None):
+        target = sample["crop_gt"]
+        if target.max() == 0:
+            sample["nellipse"] = np.zeros(target.shape, dtype=target.dtype)
+            return sample
+        pts = _pick_points(target, 0, self.is_val, rng)
+        sample["nellipse"] = guidance.nellipse_map(target.shape[:2], pts)
+        return sample
+
+    def __repr__(self):
+        return f"NEllipse(is_val={self.is_val})"
+
+
 class NEllipseWithGaussians(Transform):
     """The guidance channel: n-ellipse plus gaussian bumps at the extreme
     points of ``crop_gt`` (random at train, the median candidates at val),
@@ -267,14 +369,85 @@ class NEllipseWithGaussians(Transform):
             sample["nellipseWithGaussians"] = np.zeros(target.shape,
                                                        dtype=target.dtype)
             return sample
-        pts = guidance.extreme_points_fixed(target, 0) if self.is_val \
-            else guidance.extreme_points(target, 0, rng=_require_rng(rng))
+        pts = _pick_points(target, 0, self.is_val, rng)
         sample["nellipseWithGaussians"] = guidance.nellipse_gaussians_map(
             target.shape[:2], pts, alpha=self.alpha)
         return sample
 
     def __repr__(self):
         return f"NEllipseWithGaussians(alpha={self.alpha}, is_val={self.is_val})"
+
+
+class ExtremePoints(Transform):
+    """Gaussian heatmap (``sigma``, max-combined, [0, 1]) at the 4 extreme
+    points of ``elem``, within ``pert`` px of each side's extreme at
+    train, into ``sample['extreme_points']`` (zeros for an empty mask)."""
+
+    def __init__(self, sigma: float = 10, pert: int = 0, elem: str = "gt",
+                 is_val: bool = True):
+        self.sigma = sigma
+        self.pert = pert
+        self.elem = elem
+        self.is_val = is_val
+
+    def __call__(self, sample, rng=None):
+        target = sample[self.elem]
+        if target.ndim == 3:
+            raise ValueError("ExtremePoints expects a single-object 2-D mask")
+        if target.max() == 0:
+            sample["extreme_points"] = np.zeros(target.shape,
+                                                dtype=target.dtype)
+            return sample
+        pts = _pick_points(target, self.pert, self.is_val, rng)
+        sample["extreme_points"] = guidance.extreme_points_map(
+            target.shape[:2], pts, sigma=self.sigma)
+        return sample
+
+    def __repr__(self):
+        return (f"ExtremePoints(sigma={self.sigma}, pert={self.pert}, "
+                f"elem={self.elem!r}, is_val={self.is_val})")
+
+
+class AddConfidenceMap(Transform):
+    """A confidence map of ``crop_gt``, min-max normalised to [0, 255],
+    appended to ``elem`` as one more channel, into ``sample['with_hm']``:
+    the skewed-axes L1+L2 map of its extreme points (``l1l2``) or the
+    multivariate gaussian of its pixels (``gaussian``, at tau 0.5, which
+    draws no points).  A constant mask gives a zero map."""
+
+    def __init__(self, elem="crop_image", hm_type="l1l2", tau: float = 1.0,
+                 pert: int = 0, is_val: bool = True):
+        if hm_type not in ("l1l2", "gaussian"):
+            raise ValueError(f"hm_type must be l1l2 or gaussian, not {hm_type!r}")
+        self.elem = elem
+        self.hm_type = hm_type
+        self.tau = tau
+        self.pert = pert
+        self.is_val = is_val
+
+    def __call__(self, sample, rng=None):
+        img = sample[self.elem]
+        mask = sample["crop_gt"].astype(bool)
+        if len(np.unique(mask)) == 1:
+            hm = np.zeros(img.shape[:2], dtype=np.float32)
+        elif self.hm_type == "l1l2":
+            pts = _pick_points(mask, self.pert, self.is_val, rng)
+            h_map, _, _ = guidance.generate_mv_l1l2_image_skewed_axes(
+                mask, extreme_points=pts, FULL_IMAGE_WEIGHTS=1,
+                d2_THRESH=None, tau=self.tau)
+            hm = guidance.normalize_wt_map(h_map) * 255.0
+        else:
+            h_map = guidance.generate_mvgauss_image(mask, FULL_IMAGE_WEIGHTS=1,
+                                                    tau=0.5)
+            hm = guidance.normalize_wt_map(h_map) * 255.0
+        sample["with_hm"] = np.concatenate(
+            [np.atleast_3d(img), hm[..., np.newaxis]], axis=2
+        ).astype(np.float32)
+        return sample
+
+    def __repr__(self):
+        return (f"AddConfidenceMap(elem={self.elem!r}, hm_type={self.hm_type!r},"
+                f" pert={self.pert}, is_val={self.is_val})")
 
 
 class ConcatInputs(Transform):
@@ -299,6 +472,25 @@ class ConcatInputs(Transform):
 
     def __repr__(self):
         return f"ConcatInputs({self.elems})"
+
+
+class ToImage(Transform):
+    """Min-max rescale element(s) to [0, ``custom_max``]."""
+
+    def __init__(self, norm_elem="image", custom_max: float = 255.0):
+        self.norm_elem = norm_elem if isinstance(norm_elem, tuple) \
+            else (norm_elem,)
+        self.custom_max = custom_max
+
+    def __call__(self, sample, rng=None):
+        for elem in self.norm_elem:
+            v = sample[elem]
+            sample[elem] = self.custom_max * (v - v.min()) \
+                / (v.max() - v.min() + 1e-10)
+        return sample
+
+    def __repr__(self):
+        return f"ToImage({self.norm_elem}, {self.custom_max})"
 
 
 class Duplicate(Transform):

@@ -291,6 +291,13 @@ class Predictor:
             raise ValueError(
                 f"Predictor is the click-guided instance path; this run was "
                 f"trained with task={cfg.task!r} (use SemanticPredictor)")
+        if cfg.data.guidance not in guidance_lib.POINT_GUIDANCE:
+            # before the weights are read, with the JAX package's message
+            raise ValueError(
+                f"this run's guidance family ({cfg.data.guidance!r}) is not "
+                "derivable from clicks alone (confidence maps need the gt "
+                "mask; 'none' has no channel) — click-based prediction does "
+                "not apply to it")
         model, dtype = load_run_model(run_dir, cfg, step)
         kwargs.setdefault("dtype", dtype)
         kwargs.setdefault("resolution", tuple(cfg.data.crop_size))

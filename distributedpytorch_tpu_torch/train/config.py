@@ -331,7 +331,7 @@ def flatten(cfg: Config) -> dict[str, Any]:
 UNPORTED = (
     "data.source", "data.pack_path", "data.pack_quarantine",
     "data.session_log", "data.session_only", "data.session_quarantine",
-    "data.sbd_root", "data.download",
+    "data.download",
     "data.uint8_transfer", "data.packbits_masks", "data.coalesce_wire",
     "data.steps_per_dispatch", "data.echo",
     "model.quantization",

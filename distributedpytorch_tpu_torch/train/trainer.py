@@ -3,7 +3,8 @@ for one device.
 
 ``Trainer(cfg)`` creates ``work_dir/run_<N>``, builds the data (VOC from
 ``data.root``, or the in-memory fake of 8 images at 96 x 128, 3 of them
-val, with ``data.fake``), the model, the optimizer (SGD or AdamW) and
+val, with ``data.fake``; SBD merged into the train set with
+``data.sbd_root``), the model, the optimizer (SGD or AdamW) and
 schedule, the train and eval steps and the checkpoint manager, applies the
 precision policy, and writes ``config.json``, ``hparams.json`` and the parameter
 report.  ``fit`` trains every epoch, validates every ``eval_every``
@@ -137,6 +138,7 @@ import numpy as np
 import torch
 
 from ..chaos import sites as chaos_sites
+from ..data.combine import CombinedDataset
 from ..data.fake import make_fake_voc
 from ..data.governor import FeedActuators, FeedGovernor
 from ..data.grain_pipeline import GrainDataLoader
@@ -152,6 +154,7 @@ from ..data.pipeline import (
     build_train_transform,
 )
 from ..data.prepared import PreparedInstanceDataset, PreparedSemanticDataset
+from ..data.sbd import SBDInstanceSegmentation, SBDSemanticSegmentation
 from ..data.voc import VOCInstanceSegmentation, VOCSemanticSegmentation
 from ..models import build_model
 from ..ops import cuda_attention
@@ -513,9 +516,11 @@ class Trainer:
 
     def _build_datasets(self, root) -> None:
         """The train and val sets of the task, as the JAX trainer wires
-        them: the host stacks without the stages the device owns, behind
-        the prepared-sample cache when ``data.prepared_cache`` is set (val
-        too, with ``data.val_prepared``)."""
+        them: the host stacks without the stages the device owns, SBD's
+        train and val merged into the train set with ``data.sbd_root``
+        (VOC val's images excluded), behind the prepared-sample cache when
+        ``data.prepared_cache`` is set (val too, with
+        ``data.val_prepared``)."""
         cfg, d = self.cfg, self.cfg.data
         crop = tuple(d.crop_size)
         prepared = bool(d.prepared_cache)
@@ -525,11 +530,11 @@ class Trainer:
         #: whether the eval step synthesises the val guidance channel
         self._val_device_guidance = val_prep and d.device_guidance
         if cfg.task == "semantic":
+            sem_train_tf = None if prepared else build_semantic_train_transform(
+                crop_size=crop, rots=tuple(d.rots), scales=tuple(d.scales),
+                flip=flip, geom=geom)
             self.train_set = VOCSemanticSegmentation(
-                root, split=d.train_split,
-                transform=None if prepared else build_semantic_train_transform(
-                    crop_size=crop, rots=tuple(d.rots), scales=tuple(d.scales),
-                    flip=flip, geom=geom),
+                root, split=d.train_split, transform=sem_train_tf,
                 decode_cache=d.decode_cache)
             # one sample per image, read once per validation: no cache
             self.val_set = VOCSemanticSegmentation(
@@ -542,6 +547,12 @@ class Trainer:
                     keep_fullres=cfg.eval_full_res,
                     max_im_size=d.val_max_im_size,
                     post_transform=build_prepared_semantic_eval_post_transform())
+            if d.sbd_root:
+                sbd = SBDSemanticSegmentation(
+                    d.sbd_root, split=["train", "val"], transform=sem_train_tf,
+                    decode_cache=d.decode_cache)
+                self.train_set = CombinedDataset([self.train_set, sbd],
+                                                 excluded=[self.val_set])
             if prepared:
                 self.train_set = PreparedSemanticDataset(
                     self.train_set, d.prepared_cache, crop_size=crop,
@@ -574,6 +585,15 @@ class Trainer:
                 post_transform=build_prepared_eval_post_transform(
                     alpha=d.guidance_alpha, guidance=guidance),
                 **crop_knobs)
+        if d.sbd_root:
+            # SBD train and val under the train stack, VOC val's images
+            # excluded; after the val set (prepared or not), before the
+            # train set's cache, which then stamps every part
+            sbd = SBDInstanceSegmentation(
+                d.sbd_root, split=["train", "val"], transform=train_tf,
+                area_thres=d.area_thres, decode_cache=d.decode_cache)
+            self.train_set = CombinedDataset([self.train_set, sbd],
+                                             excluded=[self.val_set])
         if prepared:
             self.train_set = PreparedInstanceDataset(
                 self.train_set, d.prepared_cache,

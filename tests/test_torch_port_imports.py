@@ -1,6 +1,7 @@
 """The port stands alone: importing any of its modules loads neither JAX,
 flax nor the JAX package (nor ``grain`` or ``cv2``, which the card's
-machine does not have), no source imports any of them, and
+machine does not have, nor scipy, which only an SBD read or write
+needs), no source imports any of them, and
 ``chip_smoke.py`` refuses to run (printing no result) without a CUDA device
 or away from the repository."""
 
@@ -37,6 +38,7 @@ def test_importing_every_module_leaves_jax_out():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'distributedpytorch_tpu', 'grain', 'cv2'))\n"
         "assert not bad, bad\n"
+        "assert 'scipy' not in sys.modules, 'scipy waits for an SBD read'\n"
         "print('standalone-ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=240, cwd=REPO, env=_env())

@@ -6,7 +6,9 @@ guidance may run its native rasterizer, so those compare within 1e-3 on
 the [0, 255] scale).  The port's resize follows cv2's conventions and is
 held to cv2 within 1e-3 on [0, 255] data.  ``prepare_input`` agrees within
 1e-3 on the crop and ``Predictor.predict`` within 1e-4 on probabilities,
-with the same weights in both packages.
+with the same weights in both packages.  ``Predictor.from_run`` refuses a
+run of a family clicks cannot give (the confidence maps, ``none``) with
+the JAX package's message, before reading its weights.
 """
 
 import cv2
@@ -28,6 +30,16 @@ from distributedpytorch_tpu_torch.utils.weights import load_jax_params
 from test_torch_port_model import randomize
 
 POINTS = np.array([[20.0, 40.0], [60.0, 12.0], [110.0, 50.0], [58.0, 90.0]])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs in several
+    processes at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def smooth_image(h=96, w=128, seed=0):
@@ -215,7 +227,8 @@ class TestNoSilentCpu:
     def test_constructor_without_device_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            predict.Predictor(build_model("danet", backbone="resnet18"))
+            # refused before the model is touched: any module will do
+            predict.Predictor(torch.nn.Identity())
         with pytest.raises(RuntimeError):
             predict.resolve_device("cuda:0")
         assert predict.resolve_device("cpu") == torch.device("cpu")
@@ -250,5 +263,27 @@ class TestNoSilentCpu:
 
     def test_unknown_guidance_raises(self):
         with pytest.raises(ValueError, match="clicks alone"):
-            predict.Predictor(build_model("danet", backbone="resnet18"),
-                              device="cpu", guidance="confidence")
+            # refused before the model is touched: any module will do
+            predict.Predictor(torch.nn.Identity(), device="cpu",
+                              guidance="confidence")
+
+    @pytest.mark.parametrize("family", ["confidence_l1l2",
+                                        "confidence_gaussian", "none"])
+    def test_from_run_refuses_runs_without_click_guidance(self, family,
+                                                          tmp_path):
+        """A run trained on a family clicks cannot give is refused before
+        its weights are read, with the JAX package's message."""
+        from distributedpytorch_tpu.train import config as jax_config
+        from distributedpytorch_tpu_torch.train import config
+
+        cfg = config.apply_overrides(config.Config(),
+                                     [f"data.guidance={family}"])
+        config.to_json(cfg, str(tmp_path / "config.json"))
+        with pytest.raises(ValueError) as want:
+            jax_predict.Predictor.from_run(
+                str(tmp_path),
+                cfg=jax_config.from_json(str(tmp_path / "config.json")))
+        with pytest.raises(ValueError) as got:
+            predict.Predictor.from_run(str(tmp_path), device="cpu")
+        assert str(got.value) == str(want.value)
+        assert "clicks alone" in str(got.value)

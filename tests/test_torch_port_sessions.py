@@ -9,7 +9,9 @@ with ``load_jax_params``.
 
 * The model split: the port's encode features (NCHW against NHWC) within
   1e-5 of JAX's; the guidance resize within 1e-5 of ``jax.image.resize``
-  (antialiased); ``prepare_guidance`` bitwise; ``decode(encode(x))`` the
+  (antialiased); ``prepare_guidance`` bitwise the cold click's channel,
+  and against each of JAX's n-ellipse paths, its native rasterizer
+  (``torch_port_jax_native``) and its numpy form; ``decode(encode(x))`` the
   full forward bit for bit; JAX's ``ValueError`` messages word for word.
 * Decode and full-forward probabilities within 1e-5 of JAX's with gates
   drawn in [2e-3, 5e-3].  At gates of 0.5-1 the logits agree within 1e-5
@@ -57,9 +59,15 @@ from distributedpytorch_tpu_torch.utils.weights import (
     load_jax_params,
     state_dict_to_jax,
 )
+from torch_port_jax_native import jax_native_lib, jax_native_path  # noqa: F401
 
 RES = 64
 ATOL = 1e-5
+#: the port's guidance against the JAX package's numpy n-ellipse: JAX's
+#: own native and numpy paths differ by 1.37e-4 on [0, 255] at this
+#: file's points and crop (float32 rounding of the two forms; at most
+#: 1.68e-4 over 12 point sets and crops of 64²), so this bound
+NUMPY_PATH_ATOL = 2e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -99,8 +107,10 @@ def jax_net():
     in [2e-3, 5e-3]), the same projection in both."""
     model = jax_build_model("danet", nclass=1, backbone="resnet18",
                             output_stride=8, guidance_inject="head")
-    state = create_train_state(jax.random.PRNGKey(0), model,
-                               optax.sgd(1e-3), (1, RES, RES, 4))
+    # flax's init traced once by XLA: bitwise its eager init, in half the
+    # time
+    state = jax.jit(lambda key: create_train_state(
+        key, model, optax.sgd(1e-3), (1, RES, RES, 4)))(jax.random.PRNGKey(0))
     params = jax.tree.map(np.asarray, jax.device_get(state.params))
     stats = jax.tree.map(np.asarray, jax.device_get(state.batch_stats))
     rng = np.random.default_rng(7)
@@ -228,15 +238,25 @@ class TestModelSplit:
         assert s.nbytes == b * 8 * 8 * 512 * 4
         assert s.shape == tuple(pred.encode(_crops(b)[..., :-1]).shape)
 
+    @pytest.mark.parametrize("jax_path", ["native", "numpy"])
     def test_prepare_guidance_matches_jax_and_the_cold_channel(
-            self, quiet, pred):
+            self, quiet, pred, jax_path, request, monkeypatch):
+        """The port (its own library) against each of JAX's n-ellipse
+        paths: its native rasterizer at ``ATOL``, its numpy form at
+        ``NUMPY_PATH_ATOL``."""
         img, pts = _image(), _points(dx=3.0)
         concat, bbox = pred.prepare(img, pts)
         warm = pred.prepare_guidance(pts, bbox)
         assert warm.shape == (RES, RES, 1) and warm.dtype == np.float32
         np.testing.assert_array_equal(warm[..., 0], concat[..., 3])
+        if jax_path == "native":
+            request.getfixturevalue("jax_native_path")
+            atol = ATOL
+        else:
+            monkeypatch.setenv("DPTPU_NATIVE", "0")
+            atol = NUMPY_PATH_ATOL
         np.testing.assert_allclose(
-            warm, quiet["jax"].prepare_guidance(pts, bbox), atol=ATOL)
+            warm, quiet["jax"].prepare_guidance(pts, bbox), atol=atol)
 
     def test_prepare_guidance_refuses_bad_points(self, pred):
         with pytest.raises(ValueError, match="4 xy extreme points"):
@@ -286,8 +306,7 @@ class TestModelErrors:
     def test_stem_model_refuses_stages(self, stage):
         jm = jax_build_model("danet", nclass=1, backbone="resnet18",
                              output_stride=8)
-        vs = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 4)),
-                     train=False)
+        vs = {"params": {}}  # the refusal comes before any weight is read
         port = build_model("danet", nclass=1, backbone="resnet18").eval()
         got, want = self._messages(
             lambda: jm.apply(vs, jnp.zeros((1, 32, 32, 3)), train=False,

@@ -76,6 +76,16 @@ TINY = ["data.fake=true", "model.backbone=resnet18", "data.crop_size=[64,64]",
         "checkpoint.keep_latest=1"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs in several
+    processes at once."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 class TestConfig:
     @pytest.mark.parametrize("overrides", [
         [], OVERRIDES, OVERRIDES + ["model.guidance_inject=head"]])
@@ -90,7 +100,7 @@ class TestConfig:
 
     @pytest.mark.parametrize("knob", ["model.pam_impl=ring",
                                       "data.source=packed", "mesh.model=2",
-                                      "data.sbd_root=sbd",
+                                      "model.quantization=int8",
                                       "sentinel.enabled=true"])
     def test_unported_knob_raises(self, knob, tmp_path):
         cfg = config.apply_overrides(config.Config(), TINY + [
@@ -254,48 +264,43 @@ def test_fit_then_predictor_from_run(tmp_path):
 
 
 def test_head_fit_resumes_and_serves_sessions(tmp_path):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        over = TINY + ["model.guidance_inject=head", "data.train_batch=4",
-                       f"work_dir={tmp_path}"]
-        first = Trainer(config.apply_overrides(config.Config(), over),
-                        device="cpu")
-        first.fit()
-        first.close()
-        assert first.state.step == 2
-        assert first.model.backbone.Conv_0.in_channels == 3
-        assert first.model.guidance_proj.weight.shape == (512, 1, 1, 1)
-        resumed = Trainer(config.apply_overrides(
-            config.Config(), over + ["epochs=2", "resume=auto"]),
-            device="cpu")
-        assert resumed.state.step == 2
-        resumed.fit()
-        resumed.close()
-        assert resumed.state.step == 4
-        # the projection trained away from its zero init
-        assert resumed.model.guidance_proj.weight.abs().max() > 0
+    over = TINY + ["model.guidance_inject=head", "data.train_batch=4",
+                   f"work_dir={tmp_path}"]
+    first = Trainer(config.apply_overrides(config.Config(), over),
+                    device="cpu")
+    first.fit()
+    first.close()
+    assert first.state.step == 2
+    assert first.model.backbone.Conv_0.in_channels == 3
+    assert first.model.guidance_proj.weight.shape == (512, 1, 1, 1)
+    resumed = Trainer(config.apply_overrides(
+        config.Config(), over + ["epochs=2", "resume=auto"]),
+        device="cpu")
+    assert resumed.state.step == 2
+    resumed.fit()
+    resumed.close()
+    assert resumed.state.step == 4
+    # the projection trained away from its zero init
+    assert resumed.model.guidance_proj.weight.abs().max() > 0
 
-        pred = Predictor.from_run(resumed.run_dir, device="cpu")
-        assert pred.supports_sessions and pred.resolution == (64, 64)
-        x = torch.rand(2, 4, 64, 64) * 255
-        with torch.no_grad():
-            assert torch.equal(pred.model(x)[0],
-                               resumed.model.eval()(x)[0])
-        image = np.random.default_rng(0).integers(
-            0, 256, (80, 96, 3)).astype(np.uint8)
-        points = np.array([[20, 40], [70, 40], [45, 15], [45, 65]], float)
-        with InferenceService(pred, max_batch=2, max_wait_s=0.0) as svc:
-            stateless = svc.predict(image, points, timeout=60)
-            cold = svc.predict(image, points, timeout=60, session_id="u")
-            warm = svc.predict(image, points, timeout=60, session_id="u")
-            sessions = svc.health()["sessions"]
-        np.testing.assert_array_equal(cold, stateless)
-        np.testing.assert_array_equal(warm, stateless)
-        assert (sessions["hits"], sessions["misses"], sessions["live"]) \
-            == (1, 1, 1)
-    finally:
-        torch.set_num_threads(threads)
+    pred = Predictor.from_run(resumed.run_dir, device="cpu")
+    assert pred.supports_sessions and pred.resolution == (64, 64)
+    x = torch.rand(2, 4, 64, 64) * 255
+    with torch.no_grad():
+        assert torch.equal(pred.model(x)[0],
+                           resumed.model.eval()(x)[0])
+    image = np.random.default_rng(0).integers(
+        0, 256, (80, 96, 3)).astype(np.uint8)
+    points = np.array([[20, 40], [70, 40], [45, 15], [45, 65]], float)
+    with InferenceService(pred, max_batch=2, max_wait_s=0.0) as svc:
+        stateless = svc.predict(image, points, timeout=60)
+        cold = svc.predict(image, points, timeout=60, session_id="u")
+        warm = svc.predict(image, points, timeout=60, session_id="u")
+        sessions = svc.health()["sessions"]
+    np.testing.assert_array_equal(cold, stateless)
+    np.testing.assert_array_equal(warm, stateless)
+    assert (sessions["hits"], sessions["misses"], sessions["live"]) \
+        == (1, 1, 1)
 
 
 def test_param_digest_covers_every_tensor():
