@@ -89,7 +89,7 @@ it), printing no result.  The phases, each raising on failure:
              forms and with the fused crop + resize; (i) ms per
              batch of 16 at 512² from a 375x500 fake VOC set for the
              threaded loader on the numpy forms and on the library, the
-             worker-process loader (``data.loader=grain``) at 2, 4 and 8
+             worker-process loader (``data.loader=grain``) at 2 and 8
              processes (capped by the CPU affinity), with
              ``data.fused_crop_resize``, and on an on-disk JPEG/PNG tree with
              ``data.decode_cache`` 0 and 64 (only where PIL imports), the
@@ -160,8 +160,8 @@ it), printing no result.  The phases, each raising on failure:
              fixture's val samples against a per-sample reference built
              here from ``eval_step`` and the host protocol (same bounds),
              its ms per sample and the device's idle share in a profiler
-             window; (c) the CLI fit with ``val_overlap=true`` and
-             ``profile_epoch=1``: ``run_dir/profile`` holds a Chrome trace
+             window; (c) the fit (a ``Trainer`` in this process) with
+             ``val_overlap=true`` and ``profile_epoch=1``: ``run_dir/profile`` holds a Chrome trace
              naming each of the four attention kernels at least once per
              step of epoch 1, and ``kernel_launches`` is exactly the steps
              plus the validated samples; (d) its TensorBoard writer: where
@@ -310,8 +310,9 @@ it), printing no result.  The phases, each raising on failure:
              points, within the JAX package's bounds for its own pair
              (``HOST_DEVICE_TOL``: 0.5 on [0, 255], 2e-3 for
              ``extreme_points``), and the host's ms per sample of the
-             family's val stage and of the whole train stack; (b) the CLI
-             fit ``HOST_DATA_ARGS`` (DANet-R101 512² float32, DEXTR's
+             family's val stage and of the whole train stack; (b) the
+             fit ``HOST_DATA_ARGS`` (a ``Trainer`` in this process;
+             DANet-R101 512² float32, DEXTR's
              ``extreme_points`` guidance) with ``data.sbd_root`` on a fake
              SBD tree written by the port (``make_fake_sbd``, SBD's 375x500,
              repeating the fake VOC's val ids): its parameter report's
@@ -325,6 +326,30 @@ it), printing no result.  The phases, each raising on failure:
              with the JAX package's message; (d) DeepLabV3-R101 at 513² in
              bf16 with ``data.sbd_root``: the combined semantic set, finite
              losses, no attention kernel launched.
+16. swap   — hot swap with canary generations, DANet-R101 at 512²
+             ``guidance_inject=head``, float32, through
+             ``InferenceService(max_batch=4)``: generation 0 is
+             ``Predictor.fresh(seed=0)``, generation 1 comes from
+             ``load_swap_predictor`` on a seed-7 ``state_dict``.  (a) It is
+             admitted at ``canary_fraction=1.0`` (``swap()`` timed, its
+             warm-up on the calling thread); a pre-swap session's warm
+             clicks bitwise before, during and after ``promote()``; a new
+             session's mask within 1e-4 of generation 1's own
+             ``Predictor.predict`` (``SWAP_NEW_TOL``); one promote in
+             ``health()["swap"]``.  (b) Allocated memory less the session
+             store's bytes rises by one weight set (the float32 parameters
+             and float buffers, printed) in the window and, once generation
+             0 is retired and the script's own reference dropped, returns to
+             its level before the swap, each within 16 MiB
+             (``SWAP_FREE_TOL``).  (c) A ``serve/swap_params`` ``nan`` plan
+             armed around ``load_swap_predictor``: the poisoned canary's
+             first request fails over (its mask bitwise the active
+             generation's), it is rolled back and none of its sessions stay.
+             (d) The warm-click p50 over 20 clicks before the swap and in the
+             window (the old session in turns with the new one), each under
+             the 100 ms budget.  (e) A ResNet-101 ``deep_stem`` backbone's
+             forward at 512², float32 against float64 on the card, each map
+             within 1e-3 of its largest value (``DEEP_STEM_TOL``, 9b's bound).
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2, grain, tensorboard and matplotlib are
@@ -347,14 +372,18 @@ dtype, summed (the session serving path), and read from 13f's
 ``fit_summary.json`` plus the served batch's launches: every kernel must
 have run on each, but PAM on 14c's blocked-form fit, where it must not,
 and read from 15b's ``fit_summary.json`` plus its served batch's
-launches, 15c's and 15d's (where none may run).  Launches made
+launches, 15c's and 15d's (where none may run), and zeroed just before
+16a and taken as the difference across each of the service's requests
+in 16a-16d (both generations', each of which must launch every kernel,
+and the poisoned canary's click; the warm-ups and the reference
+``predict`` left out) (the swap path).  Launches made
 only to compare the model with its plain forms (phase 2's logits) are
 taken out of the counts.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs,host_data``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs,host_data,swap``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -2122,7 +2151,7 @@ def loader_ms(loader, n: int) -> tuple[float, float, list]:
 def phase_loaders(tree=None, n_images: int = 64,
                   size: tuple[int, int] = (375, 500),
                   crop: tuple[int, int] = (512, 512), batch: int = 16,
-                  n_samples: int = 128, workers: tuple[int, ...] = (2, 4, 8),
+                  n_samples: int = 128, workers: tuple[int, ...] = (2, 8),
                   decode_cache: int = 64, numpy_batches: int = 2) -> dict:
     """6i: ms per batch of ``batch`` for the threaded loader on the numpy
     forms and on the host library, the worker loader at each of
@@ -2462,7 +2491,7 @@ def phase_host(torch, ca) -> dict:
 #: weights past their float32 ulps, small enough that the second step's
 #: gradients stay near the first's, as 6d's gradients are compared), its
 #: global batch and the steps compared and then timed
-DIST_LR, DIST_BATCH, DIST_STEPS, DIST_TIMED = 1e-4, 16, 2, 3
+DIST_LR, DIST_BATCH, DIST_STEPS, DIST_TIMED = 1e-4, 16, 2, 2
 #: the 2-rank CLI fit of (c): ResNet-18 at 64^2 on the fake fixture, global
 #: batch 4 (2 per rank: 3 steps per epoch over a rank's 6 of the 11
 #: objects), float32 on gloo
@@ -3317,7 +3346,7 @@ def phase_semantic(torch, ca) -> None:
 TRAINER_ARGS = ["data.fake=true", "train.precision=bfloat16", "data.train_batch=2",
                 "data.area_thres=0", "log_every_steps=1", 'log_writers=["jsonl"]',
                 "checkpoint.keep_latest=1"]
-#: 10c's CLI fit: train batch 4 (2 steps per epoch), two epochs, each
+#: 10c's fit: train batch 4 (2 steps per epoch), two epochs, each
 #: validated on the thread beside the next, epoch 1 traced
 TRAINER_FIT_ARGS = ["--fake-data", "train.precision=bfloat16", "data.train_batch=4",
                     "data.area_thres=0", "epochs=2", "val_overlap=true",
@@ -3494,22 +3523,18 @@ def trainer_look_ahead(torch, ca, work: Path, device: str = "cuda") -> None:
 
 
 def trainer_fit(torch, ca, work: Path) -> dict:
-    """10c and 10d: the CLI fit with ``val_overlap``, ``profile_epoch=1``
+    """10c and 10d: the fit (a ``Trainer`` in this process) with
+    ``val_overlap``, ``profile_epoch=1``
     and the TensorBoard writer: the trace names the four kernels at least
     once per step of epoch 1, the launches are exact, and the writers'
     files are there where their packages are.  Returns its launches."""
     import importlib.util
 
-    cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *TRAINER_FIT_ARGS,
-           f"work_dir={work}"]
-    log(f"trainer (c): {' '.join(cmd[1:])}")
+    log(f"trainer (c): {' '.join(TRAINER_FIT_ARGS)} (a Trainer in this process)")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"the fit exited {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    run = _in_process_fit(torch, _trainer_args(TRAINER_FIT_ARGS)
+                          + [f"work_dir={work}"])
     fit_s = time.perf_counter() - t0
-    (run,) = work.glob("run_*")
     rec = _run_record(run)
     steps = [len(r["train/step_losses"]) for r in rec["epochs"]]
     vals = rec["vals"]
@@ -3695,7 +3720,7 @@ def trainer_knobs(torch, ca, dataset, batch_size: int = 16, rounds: int = 3,
 
 def phase_trainer(torch, ca) -> dict:
     """Phase 10 (a-e); returns the launch counts of the overlapped
-    validation's epoch and of the CLI fit."""
+    validation's epoch and of the fit."""
     import shutil
     import tempfile
 
@@ -5495,20 +5520,15 @@ def _combined_fit_checks(tag: str, run: Path, n_train: int,
 
 def host_data_fit(torch, ca, Predictor, work: Path, sbd: Path,
                   n_train: int) -> dict:
-    """15b: the CLI fit with ``data.guidance=extreme_points`` and
-    ``data.sbd_root``, served by ``Predictor.from_run``; its launches plus
-    the served batch's."""
+    """15b: the fit (a ``Trainer`` in this process) with
+    ``data.guidance=extreme_points`` and ``data.sbd_root``, served by
+    ``Predictor.from_run``; its launches plus the served batch's."""
     import numpy as np
 
-    cmd = [sys.executable, "-m", "distributedpytorch_tpu_torch", *HOST_DATA_ARGS,
-           f"data.sbd_root={sbd}", f"work_dir={work}"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    run = _in_process_fit(torch, _trainer_args(HOST_DATA_ARGS)
+                          + [f"data.sbd_root={sbd}", f"work_dir={work}"])
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"15b: the fit exited {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    (run,) = work.glob("run_*")
     summary, losses, vals = _combined_fit_checks("15b", run, n_train)
     launches = summary["kernel_launches"]
     want = summary["final_step"] + int(vals[0]["val/n_samples"])
@@ -5638,9 +5658,283 @@ def phase_host_data(torch, ca, Predictor) -> dict:
     return paths
 
 
+#: 16b: after the retire, allocated memory within this of its level
+#: before the swap, less one weight set
+SWAP_FREE_TOL = 16 << 20
+#: 16d: warm clicks on each side (before the swap; in the window, in
+#: turns with the canary's session), held to the 100 ms request budget
+SWAP_CLICKS = 20
+LATENCY_BUDGET_MS = 100.0
+#: 16a and 16b: the pre-swap session's idle time allowed before it
+#: expires; above the swap's warm-up, so the session lives through it
+SWAP_SESSION_TTL_S = 2.5
+#: 16a: a new session's mask against generation 1's own Predictor.predict
+SWAP_NEW_TOL = 1e-4
+#: 16e: each feature map of the deep-stem backbone in float32 against
+#: float64 on the card, relative to its largest value (9b's bound)
+DEEP_STEM_TOL = 1e-3
+
+
+def _weight_bytes(model) -> int:
+    """Bytes of the float32 parameters and float buffers: one generation's
+    weight set."""
+    return sum(t.numel() * 4 for t in (*model.parameters(), *model.buffers())
+               if t.is_floating_point())
+
+
+def _held(torch, svc) -> tuple[int, int]:
+    """(allocated bytes, the session store's bytes) on the card."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(), svc.health()["sessions"]["live_bytes"]
+
+
+def _wait_retired(svc, gen: int, timeout: float = 30.0) -> float:
+    """Seconds until ``gen`` reads retired in ``health()["swap"]`` and the
+    service's predictor is off it (the worker's 1 Hz sweep)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        states = {g["gen"]: g["state"] for g in svc.health()["swap"]["generations"]}
+        if states.get(gen) == "retired" and svc._pool.is_resident(svc.predictor):
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"16: generation {gen} not retired in {timeout} s: "
+                         f"{svc.health()['swap']}")
+
+
+def swap_window(torch, ca, svc, state7, image, clicks) -> dict:
+    """16a, 16b and 16d: a session before the swap, generation 1 loaded
+    from ``state7`` and swapped in at ``canary_fraction=1.0``, the window
+    (the old session's warm clicks in turns with a new session's), the
+    promote and the retire.  Returns the launches of generation 0's and
+    generation 1's requests and the figures."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.serve.swap import load_swap_predictor
+
+    def click(sid, pts):
+        counted = dict(ca.launches)
+        t0 = time.perf_counter()
+        mask = svc.predict(image, pts, timeout=300, session_id=sid)
+        return mask, (time.perf_counter() - t0) * 1e3, _launches_since(ca, counted)
+
+    by_gen = {0: dict.fromkeys(TPU_KERNELS, 0), 1: dict.fromkeys(TPU_KERNELS, 0)}
+
+    def book(gen, launches):
+        for k, n in launches.items():
+            by_gen[gen][k] += n
+
+    old_pts, new_pts = clicks[0], clicks[1]
+    before, _, launches = click("old", old_pts)
+    book(0, launches)
+    before_ms = []
+    for _ in range(SWAP_CLICKS):
+        mask, ms, launches = click("old", old_pts)
+        book(0, launches)
+        before_ms.append(ms)
+        if not np.array_equal(mask, before):
+            raise AssertionError("16a: a warm click before the swap changed its mask")
+    mem_before = _held(torch, svc)
+    t0 = time.perf_counter()
+    gen1 = load_swap_predictor(svc.predictor, state7)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    weights = _weight_bytes(gen1.model)
+    t0 = time.perf_counter()
+    gen = svc.swap(gen1, label="seed 7", canary_fraction=1.0)
+    swap_s = time.perf_counter() - t0
+    mem_window = _held(torch, svc)
+    during, _, launches = click("old", old_pts)
+    book(0, launches)
+    fresh, _, launches = click("new", new_pts)
+    book(gen, launches)
+    window_ms = {0: [], gen: []}
+    for _ in range(SWAP_CLICKS):
+        for sid, pts, g in (("old", old_pts, 0), ("new", new_pts, gen)):
+            mask, ms, launches = click(sid, pts)
+            book(g, launches)
+            window_ms[g].append(ms)
+            if not np.array_equal(mask, during if g == 0 else fresh):
+                raise AssertionError(f"16d: a warm click of generation {g} changed "
+                                     "its mask in the window")
+    svc.promote()
+    after, _, launches = click("old", old_pts)
+    book(0, launches)
+    with _uncounted(ca):
+        own = gen1.predict(image, new_pts)
+    new_err = float(np.abs(fresh - own).max())
+    health = svc.health()
+    if not (np.array_equal(before, during) and np.array_equal(before, after)):
+        raise AssertionError("16a: the pre-swap session's mask changed across the "
+                             "swap or the promote")
+    if np.array_equal(before, fresh) or health["swap"]["swaps"]["promoted"] != 1:
+        raise AssertionError(f"16a: the new session did not reach generation {gen}: "
+                             f"{health['swap']}")
+    check("16a new session vs generation 1's Predictor.predict, max |diff|",
+          new_err, SWAP_NEW_TOL)
+    if health["sessions"]["by_generation"] != {"0": 1, str(gen): 1}:
+        raise AssertionError(f"16a: sessions {health['sessions']}")
+    log(f"swap (a): load_swap_predictor {load_s:.3f} s; swap() {swap_s:.3f} s on "
+        f"the calling thread (warm-up of buckets {svc.buckets}, encode and "
+        f"decode); the pre-swap session's warm "
+        f"clicks bitwise before, during and after promote(); the new session's "
+        f"mask vs generation {gen}'s own predict, max |diff| {new_err:.3e}; "
+        f"health swap {json.dumps(health['swap'])}")
+
+    wait_s = _wait_retired(svc, 0)
+    p50 = {"before": statistics.median(before_ms),
+           "window gen 0": statistics.median(window_ms[0]),
+           "window gen 1": statistics.median(window_ms[gen])}
+    return {"launches": by_gen, "swap_s": swap_s, "weights": weights,
+            "mem": (mem_before, mem_window), "retire_s": wait_s,
+            "p50": p50, "fresh": fresh, "new_pts": new_pts}
+
+
+def swap_poisoned(torch, ca, svc, fresh, new_pts, image) -> dict:
+    """16c: a NaN-poisoned checkpoint (the ``serve/swap_params`` site armed
+    around ``load_swap_predictor``) admitted as the canary: its first
+    request fails over to the active generation and it is rolled back.
+    Returns the launches of the poisoned click (both generations')."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.chaos import sites
+    from distributedpytorch_tpu_torch.chaos.faults import FaultPlan
+    from distributedpytorch_tpu_torch.serve.swap import load_swap_predictor
+
+    plan = FaultPlan.from_dict({"seed": 0, "faults": [
+        {"site": "serve/swap_params", "kind": "nan", "at": [1]}]})
+    active = svc.predictor
+    with sites.armed_plan(plan):
+        bad = load_swap_predictor(active, active.model.state_dict())
+    poisoned = sum(1 for t in bad.model.state_dict().values()
+                   if t.is_floating_point() and torch.isnan(t).all())
+    gen = svc.swap(bad, label="poisoned", canary_fraction=1.0)
+    del bad
+    counted = dict(ca.launches)
+    mask = svc.predict(image, new_pts, timeout=300, session_id="poisoned")
+    launches = _launches_since(ca, counted)
+    health = svc.health()
+    sw, sessions = health["swap"], health["sessions"]
+    if not np.array_equal(mask, fresh):
+        raise AssertionError("16c: the failed-over mask is not the active "
+                             "generation's, bitwise")
+    if sw["swaps"]["rolled_back"] != 1 or sw["canary"] is not None:
+        raise AssertionError(f"16c: the poisoned canary was not rolled back: {sw}")
+    if str(gen) in sessions["by_generation"]:
+        raise AssertionError(f"16c: the canary's sessions stayed: {sessions}")
+    retire_s = _wait_retired(svc, gen)
+    log(f"swap (c): serve/swap_params nan poisoned {poisoned} float tensors; "
+        f"generation {gen}'s first request failed over (mask bitwise the active "
+        f"generation's), rolled back (health swap {json.dumps(sw)}), sessions "
+        f"{json.dumps(sessions['by_generation'])}, retired {retire_s:.2f} s "
+        f"later; launches of the click {launches}")
+    return launches
+
+
+def swap_deep_stem(torch) -> None:
+    """16e: an R101 ``deep_stem`` backbone's forward at 512² on the card,
+    float32 against float64."""
+    import copy
+
+    from distributedpytorch_tpu_torch.models.resnet import ResNet
+
+    net = randomize_segmenter(torch, ResNet(depth=101, output_stride=8,
+                                            in_channels=4, deep_stem=True)).eval()
+    net64 = copy.deepcopy(net).to("cuda", torch.float64)
+    net = net.to("cuda")
+    x = torch.from_numpy(_semantic_image(5, 512)).permute(0, 3, 1, 2)
+    x = torch.cat([x, x[:, :1]], 1).contiguous().to("cuda")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got = net(x)
+        want = net64(x.double())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    errs = {}
+    for key, w in want.items():
+        g = got[key]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"16e: non-finite {key}")
+        errs[key] = (g.double() - w).abs().max().item() / w.abs().max().item()
+        check(f"16e deep stem {key}, float32 vs float64, max |diff| / max |f64|",
+              errs[key], DEEP_STEM_TOL)
+    log(f"swap (e): ResNet-101 deep_stem OS 8 at 512², stem "
+        f"{tuple(net.Conv_0.weight.shape)}, {tuple(net.Conv_1.weight.shape)}, "
+        f"{tuple(net.Conv_2.weight.shape)}; features "
+        f"{ {k: tuple(v.shape) for k, v in got.items()} }; float32 vs float64 "
+        f"relative max |diff| {errs}; both forwards {ms:.1f} ms")
+    del net, net64, got, want
+
+
+def phase_swap(torch, ca, Predictor, InferenceService) -> dict:
+    """Phase 16 (a-e); returns the launch counts of the swap path (every
+    request of the service's window, both generations, and the poisoned
+    canary's click; the warm-ups and references left out)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    image, clicks = synthetic_image()
+    gen0 = Predictor.fresh(512, "resnet101", seed=0, device="cuda",
+                           guidance_inject="head")
+    state7 = Predictor.fresh(512, "resnet101", seed=7, device="cpu",
+                             guidance_inject="head").model.state_dict()
+    svc = InferenceService(gen0, max_batch=4, max_wait_s=0.0,
+                           session_ttl_s=SWAP_SESSION_TTL_S)
+    svc.warmup()
+    with svc:
+        ca.reset_launches()
+        window = swap_window(torch, ca, svc, state7, image, clicks)
+        del state7
+        (mem_before, live_before), (mem_window, live_window) = window["mem"]
+        held, _ = _held(torch, svc)
+        gen0 = None  # the script's own reference; the service re-pointed its own
+        gc.collect()
+        mem_after, live_after = _held(torch, svc)
+        weights = window["weights"]
+        # net of the session store's features (32 MiB an entry, expiring
+        # by TTL while the retire is awaited): the window holds two weight
+        # sets, and after the retire one again
+        base = mem_before - live_before
+        rise = mem_window - live_window - base
+        after = mem_after - live_after - base
+        check("16b allocated less the sessions' bytes, in the window vs before "
+              "the swap plus one weight set, |diff| bytes", abs(rise - weights),
+              SWAP_FREE_TOL)
+        check("16b allocated less the sessions' bytes, after the retire vs before "
+              "the swap, |diff| bytes", abs(after), SWAP_FREE_TOL)
+        log(f"swap (b): one weight set {weights} bytes ({weights / 2**20:.2f} MiB); "
+            f"allocated (the sessions' bytes) before the swap {mem_before} "
+            f"({live_before}), in the window {mem_window} ({live_window}): "
+            f"{rise / 2**20:+.3f} MiB net; after generation 0 retired "
+            f"({window['retire_s']:.2f} s after the promote, the sessions' TTL "
+            f"{SWAP_SESSION_TTL_S} s) {held} with the script's reference held, "
+            f"{mem_after} ({live_after}) with it dropped: {after / 2**20:+.3f} MiB "
+            f"net of before")
+        poisoned = swap_poisoned(torch, ca, svc, window["fresh"], window["new_pts"],
+                                 image)
+    p50 = window["p50"]
+    for name, ms in p50.items():
+        check(f"16d warm-click p50 {name}, ms", ms, LATENCY_BUDGET_MS)
+    log(f"swap (d): warm-click p50 over {SWAP_CLICKS} clicks, ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in p50.items()))
+    by_gen = window["launches"]
+    if not all(n > 0 for g in by_gen.values() for n in g.values()):
+        raise AssertionError(f"16: a kernel did not launch on each generation: {by_gen}")
+    launches = {k: by_gen[0][k] + by_gen[1][k] + poisoned[k] for k in TPU_KERNELS}
+    log(f"swap: launches by generation {by_gen}, poisoned click {poisoned}, "
+        f"total {launches}")
+    del svc, window
+    gc.collect()
+    torch.cuda.empty_cache()
+    swap_deep_stem(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"swap: phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"swap": launches}
+
+
 #: the phases of a whole run, in order
 PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer",
-          "telemetry", "devdata", "sessions", "head_knobs", "host_data")
+          "telemetry", "devdata", "sessions", "head_knobs", "host_data", "swap")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -5723,6 +6017,8 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(phase_head_knobs(torch, ca, Predictor))
     if "host_data" in phases:
         paths.update(phase_host_data(torch, ca, Predictor))
+    if "swap" in phases:
+        paths.update(phase_swap(torch, ca, Predictor, InferenceService))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS
                    if k not in PATHS_WITHOUT.get(path, ())):

@@ -12,12 +12,16 @@ The seams woven into the port's real code paths (not shadow copies):
 * ``checkpoint/restore``  — before a checkpoint restore;
 * ``serve/enqueue``       — the serve front door (submit), on the
   caller's thread;
-* ``serve/drain``         — the batcher worker, before the forward.
+* ``serve/drain``         — the batcher worker, before the forward;
+* ``serve/swap_params``   — a hot swap's new weights
+  (``serve.swap.load_swap_predictor``; payload = the state dict, a
+  ``nan`` fault is a poisoned checkpoint);
+* ``device/put``          — the device prefetcher, before it places a
+  host batch (``parallel.mesh``; payload = the batch).
 
 :data:`SITES` keeps the JAX package's whole list, so a plan written for
 it parses here; the sites whose code the port does not have yet
-(``device/put``, ``data/packed_read``,
-``serve/swap_params``, ``serve/aot_load``, ``serve/session_append``,
+(``data/packed_read``, ``serve/aot_load``, ``serve/session_append``,
 ``serve/route``, ``serve/health_poll``) never fire.
 
 Disabled is the default and it is ~free: ``fire`` loads one module

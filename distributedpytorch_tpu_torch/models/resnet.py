@@ -437,7 +437,12 @@ def _stage_plan(output_stride: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
 
 
 class ResNet(nn.Module):
-    """Dilated ResNet feature extractor with a single 7x7 stem.
+    """Dilated ResNet feature extractor.
+
+    The stem is one 7x7 conv at stride 2, or with ``deep_stem`` three 3x3
+    convs (``width`` filters at stride 2, ``width`` and ``2 * width`` at
+    stride 1), each followed by BatchNorm and ReLU, named ``Conv_0..2`` /
+    ``BatchNorm_0..2`` as flax numbers them; the max pool follows.
 
     ``forward(x)`` (B, in_channels, H, W) -> dict of stage outputs
     ``{'c1', 'c2', 'c3', 'c4'}``; ``c4`` is at H / output_stride.  With
@@ -451,8 +456,9 @@ class ResNet(nn.Module):
     def __init__(self, depth: int = 50, output_stride: int = 16,
                  in_channels: int = 4, width: int = 64, remat: bool = False,
                  multi_grid: tuple[int, ...] | None = None,
-                 remat_policy: str | None = None):
+                 remat_policy: str | None = None, deep_stem: bool = False):
         super().__init__()
+        self.deep_stem = deep_stem
         self.remat = remat
         self.remat_policy = remat_policy or None
         if remat and self.remat_policy:
@@ -462,10 +468,18 @@ class ResNet(nn.Module):
                              f"({sorted(RESNET_DEPTHS)})")
         block_cls = BottleneckBlock if depth in BOTTLENECK_DEPTHS else BasicBlock
         strides, dilations = _stage_plan(output_stride)
-        self.Conv_0 = conv(in_channels, width, 7, 2)
-        self.BatchNorm_0 = norm(width)
+        if deep_stem:
+            stem = ((in_channels, width, 2), (width, width, 1),
+                    (width, 2 * width, 1))
+            for i, (c_in, c_out, stride) in enumerate(stem):
+                self.add_module(f"Conv_{i}", conv(c_in, c_out, 3, stride))
+                self.add_module(f"BatchNorm_{i}", norm(c_out))
+        else:
+            self.Conv_0 = conv(in_channels, width, 7, 2)
+            self.BatchNorm_0 = norm(width)
         self.stage_ends: list[int] = []
-        cin, filters, idx = width, width, 0
+        cin = 2 * width if deep_stem else width
+        filters, idx = width, 0
         for stage, n_blocks in enumerate(RESNET_DEPTHS[depth]):
             for i in range(n_blocks):
                 dilation = dilations[stage]
@@ -482,7 +496,9 @@ class ResNet(nn.Module):
         self.out_channels = cin
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        x = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        for i in range(3 if self.deep_stem else 1):
+            x = F.relu(getattr(self, f"BatchNorm_{i}")(
+                getattr(self, f"Conv_{i}")(x)))
         x = max_pool_same(x)
         blocks = [m for name, m in self.named_children() if "Block_" in name]
         remat = self.remat and self.training and torch.is_grad_enabled()
@@ -494,3 +510,11 @@ class ResNet(nn.Module):
             feats[f"c{stage + 1}"] = x
             start = end
         return feats
+
+
+def resnet50(**kw) -> ResNet:
+    return ResNet(depth=50, **kw)
+
+
+def resnet101(**kw) -> ResNet:
+    return ResNet(depth=101, **kw)

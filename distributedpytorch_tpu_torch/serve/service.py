@@ -1,7 +1,7 @@
 """The inference service: bounded queue -> micro-batcher -> bucketed forward.
 
 Counterpart of ``distributedpytorch_tpu/serve/service.py`` with its
-sessions, without hot swap, AOT or the compile watchdog::
+sessions and its hot swap, without AOT or the compile watchdog::
 
     client threads --submit()--> bounded queue --drain--> micro-batcher
                                                               |
@@ -28,6 +28,16 @@ sessions, without hot swap, AOT or the compile watchdog::
   hold at most ``session_lane_depth`` queued requests
   (:class:`SessionLaneFullError`), so a busy session cannot take every
   queue slot.
+* :meth:`InferenceService.swap` admits a new weight set beside the one in
+  service as a canary generation (:mod:`.swap`): a session keeps the
+  generation that encoded it, new sessions and stateless requests are
+  routed to the canary by ``canary_fraction``, and a drain dispatches one
+  group per (kind, generation), so no batch mixes two generations'
+  weights.  The pool promotes or rolls the canary back from the outcomes
+  the worker reports (or :meth:`InferenceService.promote` /
+  :meth:`InferenceService.rollback` do); a canary's non-finite full batch
+  is served again by the active generation, and the worker's 1 Hz sweep
+  retires drained generations, whose weights are then freed.
 
 Host preprocessing (clicks -> guidance -> crop) runs on the caller's thread
 in :meth:`InferenceService.submit`; the worker owns the forward and the
@@ -76,6 +86,18 @@ class ServiceUnhealthyError(RuntimeError):
     """The service refused the request (not running)."""
 
 
+class _NonFiniteOutputError(RuntimeError):
+    """A dispatch gave NaN or inf probabilities: the signal the swap pool's
+    canary health keys on (a poisoned checkpoint's failure)."""
+
+
+class _NonFiniteInputError(RuntimeError):
+    """Both generations gave non-finite output for the same batch: the
+    poison came with the request (NaN pixels in a float image), not with
+    any weights.  A plain failure, never a canary signal, so one hostile
+    request cannot veto a healthy deploy."""
+
+
 @dataclasses.dataclass
 class _Request:
     """One queued request, already host-preprocessed.
@@ -84,7 +106,9 @@ class _Request:
     ``concat`` is the prepared (H, W, C) input, and with ``store_session``
     the encoded features are cached under ``session_id``.
     ``kind="decode"``: a warm click; ``guidance`` is the new (H, W, 1)
-    guidance and ``session`` the cached entry it decodes against."""
+    guidance and ``session`` the cached entry it decodes against.
+    ``gen_id`` pins the weight generation for the request's whole life
+    (:mod:`.swap`)."""
     bbox: tuple[int, int, int, int]       # paste-back crop box
     shape_hw: tuple[int, int]             # full-image size for paste-back
     future: Future                        # resolves to the (H, W) mask
@@ -96,6 +120,7 @@ class _Request:
     session: object | None = None        # decode: the sessions.Session
     session_id: str | None = None
     store_session: bool = False           # full: cache the features
+    gen_id: int = 0                       # weight generation (swap routing)
     digest: int = 0                       # session: image fingerprint
 
 
@@ -114,7 +139,8 @@ class InferenceService:
     (``POST /debug/trace``, SIGUSR2 on the HTTP front).  With a split
     predictor, ``session_budget_bytes`` and ``session_ttl_s`` bound the
     session store and ``session_lane_depth`` one session's queued
-    requests.
+    requests.  :meth:`swap`, :meth:`promote` and :meth:`rollback` change
+    the weights in service without stopping it.
     """
 
     def __init__(self, predictor, max_batch: int = 8, queue_depth: int = 64,
@@ -146,6 +172,11 @@ class InferenceService:
 
             self._store = SessionStore(budget_bytes=session_budget_bytes,
                                        ttl_s=session_ttl_s)
+        #: weight generations (serve/swap.py): generation 0 is this
+        #: predictor; swap() adds canary generations
+        from .swap import PredictorPool
+
+        self._pool = PredictorPool(predictor)
         #: queued requests per session (the fairness lane)
         self._lane_lock = threading.Lock()
         self._lanes: dict[str, int] = {}
@@ -166,12 +197,16 @@ class InferenceService:
         card, the kernels' build); a split predictor's forward is its
         encode and its decode, so both stages warm at each bucket.
         Returns per-bucket milliseconds."""
-        h, w = self.predictor.resolution
-        ch = self.predictor.in_channels
+        return self._warm(self.predictor)
+
+    def _warm(self, pred) -> dict:
+        """Each bucket's forward once on ``pred``, on the calling thread."""
+        h, w = pred.resolution
         out = {}
         for b in self.buckets:
             t0 = time.perf_counter()
-            self.predictor.forward_prepared(np.zeros((b, h, w, ch), np.float32))
+            pred.forward_prepared(np.zeros((b, h, w, pred.in_channels),
+                                           np.float32))
             out[b] = (time.perf_counter() - t0) * 1e3
         return out
 
@@ -259,15 +294,14 @@ class InferenceService:
         if session_id is not None:
             self._reserve_lane(session_id, check_only=True)
         req = self._build_request(image, points, deadline_s, session_id)
-        if session_id is not None:
-            self._reserve_lane(session_id)
-            req.future.add_done_callback(
-                lambda _f: self._release_lane(session_id))
+        # the lane slot and the generation's in-flight count are booked
+        # before the enqueue: booked after, the sweep could retire a
+        # generation whose request is already queued
+        self._track_request(req)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
-            if session_id is not None:
-                self._release_lane(session_id)
+            self._untrack_request(req.session_id, req.gen_id)
             self.metrics.count("shed_queue_full")
             raise QueueFullError(
                 f"request queue full ({self._queue.maxsize} deep) — "
@@ -287,9 +321,10 @@ class InferenceService:
         deadline = None if deadline_s is None else now + deadline_s
         shape_hw = tuple(np.asarray(image).shape[:2])
         if session_id is None:
-            concat, bbox = self.predictor.prepare(image, points)
+            gen_id, pred = self._pool.route(None)
+            concat, bbox = pred.prepare(image, points)
             return _Request(concat=concat, bbox=bbox, shape_hw=shape_hw,
-                            future=Future(), submitted=now,
+                            gen_id=gen_id, future=Future(), submitted=now,
                             deadline=deadline)
         from .sessions import image_digest
 
@@ -305,24 +340,30 @@ class InferenceService:
                              f"{w_img}x{h_img}")
         digest = image_digest(image)
         sess = self._store.get(session_id)
-        if sess is not None and sess.covers(pts, shape_hw, digest=digest):
-            # warm click: only the guidance is drawn, in the session's crop
+        pred = (None if sess is None
+                else self._pool.predictor_for(sess.generation))
+        if pred is not None and sess.covers(pts, shape_hw, digest=digest):
+            # warm click: only the guidance is drawn, in the session's
+            # crop, and the decode runs on the generation that encoded the
+            # features (a session whose generation was retired under it
+            # takes the cold path below)
             self._store.hit()
             return _Request(kind="decode",
-                            guidance=self.predictor.prepare_guidance(
-                                pts, sess.bbox),
+                            guidance=pred.prepare_guidance(pts, sess.bbox),
                             session=sess, session_id=session_id,
                             bbox=sess.bbox, shape_hw=sess.shape_hw,
-                            digest=digest, future=Future(), submitted=now,
+                            gen_id=sess.generation, digest=digest,
+                            future=Future(), submitted=now,
                             deadline=deadline)
         # cold click: a new or expired session, clicks outside its crop,
         # or another image under the same id
         self._store.miss()
-        concat, bbox = self.predictor.prepare(image, pts)
+        gen_id, pred = self._pool.route(session_id)
+        concat, bbox = pred.prepare(image, pts)
         return _Request(concat=concat, bbox=bbox, shape_hw=shape_hw,
                         session_id=session_id, store_session=True,
-                        digest=digest, future=Future(), submitted=now,
-                        deadline=deadline)
+                        gen_id=gen_id, digest=digest, future=Future(),
+                        submitted=now, deadline=deadline)
 
     def _reserve_lane(self, session_id: str, check_only: bool = False
                       ) -> None:
@@ -340,15 +381,29 @@ class InferenceService:
             if not check_only:
                 self._lanes[session_id] = n + 1
 
-    def _release_lane(self, session_id: str) -> None:
-        """Give a lane slot back; the request's future calls it when it
-        resolves, however it resolves."""
-        with self._lane_lock:
-            n = self._lanes.get(session_id, 1) - 1
-            if n <= 0:
-                self._lanes.pop(session_id, None)
-            else:
-                self._lanes[session_id] = n
+    def _track_request(self, req: _Request) -> None:
+        """Take the request's lane slot (authoritatively) and book it in
+        flight on its generation; the future gives both back when it
+        resolves, however it resolves.  The callback holds the session id
+        and the generation, not the request: a request it held would form
+        a cycle with its future, and keep an evicted session's features on
+        the card until the cyclic garbage collector ran."""
+        sid, gen = req.session_id, req.gen_id
+        if sid is not None:
+            self._reserve_lane(sid)
+        self._pool.track_inflight(gen, +1)
+        req.future.add_done_callback(
+            lambda _f: self._untrack_request(sid, gen))
+
+    def _untrack_request(self, sid: str | None, gen: int) -> None:
+        if sid is not None:
+            with self._lane_lock:
+                n = self._lanes.get(sid, 1) - 1
+                if n <= 0:
+                    self._lanes.pop(sid, None)
+                else:
+                    self._lanes[sid] = n
+        self._pool.track_inflight(gen, -1)
 
     def predict(self, image: np.ndarray, points: Any,
                 deadline_s: float | None = None,
@@ -357,6 +412,76 @@ class InferenceService:
         """Blocking convenience: :meth:`submit` + ``Future.result``."""
         return self.submit(image, points, deadline_s,
                            session_id=session_id).result(timeout)
+
+    # ------------------------------------------------------------- hot swap
+
+    #: "leave the pool's promote_after alone", apart from the meaningful
+    #: None (manual promotion only)
+    _UNSET = object()
+
+    def swap(self, predictor, label: str = "",
+             canary_fraction: float | None = None, warmup: bool = True,
+             min_observations: int | None = None,
+             max_error_rate: float | None = None,
+             promote_after=_UNSET) -> int:
+        """Admit ``predictor`` (a new weight set, e.g. from
+        :func:`.swap.load_swap_predictor`) as the canary generation and
+        return its id.  Live sessions keep decoding on their generation;
+        a ``canary_fraction`` of new sessions and stateless requests goes
+        to the new weights until :meth:`promote` or :meth:`rollback`, or
+        the pool's own decision from the outcomes it observes (a NaN
+        checkpoint rolls back on its first poisoned output).  The warm-up
+        of the new predictor's buckets runs here, on the calling thread,
+        before any request is routed to it."""
+        from .swap import SwapInProgressError
+
+        if self.sessions_enabled and not getattr(
+                predictor, "supports_sessions", False):
+            raise ValueError(
+                "swap: this service serves sessions; the new predictor "
+                "must keep the encode/decode split "
+                "(guidance_inject='head')")
+        if tuple(predictor.resolution) != tuple(self.predictor.resolution):
+            raise ValueError(
+                f"swap: resolution {predictor.resolution} != the "
+                f"service's {self.predictor.resolution} — the bucket "
+                "ladder and the paste-back are resolution-keyed")
+        if self._pool.canary_generation is not None:
+            # before the warm-up and before any threshold changes: a
+            # refused swap leaves the undecided canary as it was
+            # (begin_swap checks again under its lock)
+            raise SwapInProgressError(
+                f"generation {self._pool.canary_generation} is still "
+                "canarying — promote() or rollback() before swapping "
+                "again")
+        if warmup:
+            self._warm(predictor)
+        gen = self._pool.begin_swap(predictor, label=label,
+                                    canary_fraction=canary_fraction)
+        # thresholds only after a successful admission: they configure
+        # this canary's decision, not one already running
+        if min_observations is not None:
+            self._pool.min_observations = int(min_observations)
+        if max_error_rate is not None:
+            self._pool.max_error_rate = float(max_error_rate)
+        if promote_after is not InferenceService._UNSET:
+            self._pool.promote_after = promote_after
+        return gen
+
+    def promote(self) -> dict:
+        """Promote the canary to active; the old active generation drains
+        (serves its remaining sessions) and retires when empty."""
+        return self._pool.promote()
+
+    def rollback(self) -> dict:
+        """Roll the canary back; its sessions are evicted (their features
+        came from the rolled-back weights) and re-encode cold on the
+        active generation at their next click."""
+        gen = self._pool.canary_generation
+        out = self._pool.rollback()
+        if gen is not None and self._store is not None:
+            self._store.evict_generation(gen)
+        return out
 
     def health(self) -> dict:
         """Liveness and the counters a probe reads."""
@@ -371,6 +496,7 @@ class InferenceService:
             "stats": self.metrics.snapshot(),
             "sessions": (self._store.snapshot()
                          if self._store is not None else None),
+            "swap": self._pool.snapshot(),
         }
 
     # ------------------------------------------------------------ worker
@@ -386,10 +512,22 @@ class InferenceService:
             if batch:
                 self._process(batch)
             now = time.perf_counter()
-            if self._store is not None and now - last_sweep > 1.0:
-                # reap abandoned sessions between drains
+            if now - last_sweep > 1.0:
+                # housekeeping between drains: reap abandoned sessions,
+                # retire drained generations (a stateless service that
+                # swaps frees its old weights too)
                 last_sweep = now
-                self._store.sweep()
+                if self._store is not None:
+                    self._store.sweep()
+                freed = self._pool.gc(self._store.counts_by_generation()
+                                      if self._store is not None else {})
+                if freed and not self._pool.is_resident(self.predictor):
+                    # the first predictor's generation retired: point at
+                    # the active one, or this reference would keep the old
+                    # weights on the card for the service's lifetime (the
+                    # settings are the same: load_swap_predictor inherits
+                    # them)
+                    self.predictor = self._pool.active_predictor
         if self.trace is not None:
             self.trace.close()
 
@@ -440,21 +578,24 @@ class InferenceService:
                     "saturated; shed instead of serving a stale answer"))
                 continue
             live.append(req)
-        # one dispatch group per kind, in drain order: warm clicks of any
-        # sessions decode together, cold and stateless ones run whole
-        groups: dict[str, list[_Request]] = {}
+        # one dispatch group per (kind, generation), in drain order: warm
+        # clicks of any sessions decode together, cold and stateless ones
+        # run whole, and two generations never share a batch (their
+        # weights differ)
+        groups: dict[tuple[str, int], list[_Request]] = {}
         for req in live:
-            groups.setdefault(req.kind, []).append(req)
-        for kind, reqs in groups.items():
-            self._dispatch_group(kind, reqs)
+            groups.setdefault((req.kind, req.gen_id), []).append(req)
+        for (kind, gen_id), reqs in groups.items():
+            self._dispatch_group(kind, gen_id, reqs)
 
-    def _dispatch_group(self, kind: str, live: list[_Request]) -> None:
+    def _dispatch_group(self, kind: str, gen_id: int,
+                        live: list[_Request]) -> None:
         try:
             bucket = batching.bucket_for(len(live), self.buckets)
             if kind == "decode":
-                probs = self._decode_batch(live, bucket)
+                probs, gen_used = self._decode_batch(gen_id, live, bucket)
             else:
-                probs = self._full_batch(live, bucket)
+                probs, gen_used = self._full_batch(gen_id, live, bucket)
             for i, req in enumerate(live):
                 req.future.set_result(self.predictor.paste_back(
                     probs[i], req.bbox, req.shape_hw))
@@ -464,6 +605,9 @@ class InferenceService:
                 if not req.future.done():
                     req.future.set_exception(e)
                     failed += 1
+                self._observe_generation(
+                    gen_id, ok=False,
+                    nonfinite=isinstance(e, _NonFiniteOutputError))
             self.metrics.count("failed", failed)
             return
         self.metrics.observe_batch(bucket, len(live))
@@ -471,32 +615,61 @@ class InferenceService:
         done = time.perf_counter()
         for req in live:
             self.metrics.observe_latency(done - req.submitted)
+            self._observe_generation(gen_used, ok=True)
 
-    def _full_batch(self, live: list[_Request], bucket: int) -> np.ndarray:
-        """Cold and stateless requests at one bucket.  A split predictor
-        runs its two stages here, the same two its ``forward_prepared``
-        runs, so a cold click's mask is the stateless one, bit for bit;
-        a cold click's features stay on the device in the store (a copy
-        of its lane, so the bucket's batch is not kept alive)."""
-        pred = self.predictor
+    def _full_batch(self, gen_id: int, live: list[_Request],
+                    bucket: int) -> tuple[np.ndarray, int]:
+        """Cold and stateless requests at one bucket; returns the
+        probabilities and the generation that served them.  A canary's
+        non-finite output is served again by the active generation, so
+        the clients get masks and the canary is observed non-finite."""
         padded = batching.pad_to_bucket(
             np.stack([r.concat for r in live]), bucket)
-        if not self.sessions_enabled:
-            return batching.unpad(pred.forward_prepared(padded), len(live))
-        feats = pred.encode(padded[..., :-1])
-        probs = pred.decode(feats, padded[..., -1:])
+        probs, feats = self._run_full(self._pool.predictor_for(gen_id),
+                                      padded)
+        if not np.isfinite(probs[:len(live)]).all():
+            active = self._pool.active_generation
+            if gen_id == active:
+                raise _NonFiniteOutputError(
+                    f"non-finite probabilities from active generation "
+                    f"{gen_id}")
+            # blame the canary's weights only if the active generation
+            # serves the same batch finitely: a request with NaN pixels
+            # poisons every generation alike
+            probs2, feats2 = self._run_full(
+                self._pool.predictor_for(active), padded)
+            if not np.isfinite(probs2[:len(live)]).all():
+                raise _NonFiniteInputError(
+                    "non-finite probabilities from BOTH generations — "
+                    "the request input is poisoned, not the weights")
+            self._observe_generation(gen_id, ok=False, nonfinite=True)
+            gen_id, probs, feats = active, probs2, feats2
         for i, req in enumerate(live):
             if req.store_session:
                 with torch.inference_mode():
                     lane = feats[i:i + 1].clone()
                 self._store.put(req.session_id, lane, req.bbox,
-                                req.shape_hw, digest=req.digest)
-        return batching.unpad(probs, len(live))
+                                req.shape_hw, gen_id, digest=req.digest)
+        return batching.unpad(probs, len(live)), gen_id
 
-    def _decode_batch(self, live: list[_Request], bucket: int) -> np.ndarray:
+    def _run_full(self, pred, padded: np.ndarray):
+        """(probabilities, features or None) of one padded bucket.  A
+        split predictor runs its two stages here, the same two its
+        ``forward_prepared`` runs, so a cold click's mask is the stateless
+        one, bit for bit; a cold click's features stay on the device in
+        the store (a copy of its lane, so the bucket's batch is not kept
+        alive)."""
+        if not pred.supports_sessions:
+            return pred.forward_prepared(padded), None
+        feats = pred.encode(padded[..., :-1])
+        return pred.decode(feats, padded[..., -1:]), feats
+
+    def _decode_batch(self, gen_id: int, live: list[_Request],
+                      bucket: int) -> tuple[np.ndarray, int]:
         """Warm clicks of many sessions in one bucketed decode: their
         cached features are concatenated on the device, padded with
         cached zero lanes, and never leave it."""
+        pred = self._pool.predictor_for(gen_id)
         guidance = batching.pad_to_bucket(
             np.stack([r.guidance for r in live]), bucket)
         feats = [r.session.features for r in live]
@@ -511,7 +684,23 @@ class InferenceService:
                         dtype=feats[0].dtype, device=feats[0].device)
                 feats = feats + [pad[:n_pad]]
             batch = torch.cat(feats) if len(feats) > 1 else feats[0]
-        probs = self.predictor.decode(batch, guidance)
+        probs = pred.decode(batch, guidance)
+        if not np.isfinite(probs[:len(live)]).all():
+            # a decode has no image to encode again, so no failover; a
+            # poisoned canary is caught at its cold click, so this is a
+            # generation that went bad after admission: fail the group,
+            # and the observation rolls a canary back
+            raise _NonFiniteOutputError(
+                f"non-finite probabilities decoding generation {gen_id}")
         for req in live:
             self._store.touch_click(req.session)
-        return batching.unpad(probs, len(live))
+        return batching.unpad(probs, len(live)), gen_id
+
+    def _observe_generation(self, gen_id: int, ok: bool,
+                            nonfinite: bool = False) -> None:
+        """Report one outcome to the pool and apply its decision: a
+        rollback evicts that generation's sessions (features must never
+        outlive their weights)."""
+        action = self._pool.observe(gen_id, ok=ok, nonfinite=nonfinite)
+        if action == "rolled_back" and self._store is not None:
+            self._store.evict_generation(gen_id)

@@ -23,10 +23,11 @@ This module is the store; queueing and dispatch live in
   bf16); a 64² ResNet-18 one is 8·8·512·4 B = 128 KiB.
 * **TTL expiry.**  A session expires ``ttl_s`` after its last use, reaped
   lazily on access and by the service worker's :meth:`SessionStore.sweep`.
-* **Generations.**  Each entry records the parameter generation that
-  encoded it.  Until hot swap is ported every entry has generation 0;
-  ``evict_generation`` and ``counts_by_generation`` keep the JAX store's
-  surface.
+* **Generations.**  Each entry records the weight generation that
+  encoded it (:mod:`.swap`): its warm clicks decode on that generation
+  for the session's life.  The service evicts a rolled-back generation's
+  entries (``evict_generation``) and retires a drained generation once
+  ``counts_by_generation`` holds none of its sessions.
 
 The gauges ``serve_session_live_bytes`` and ``serve_sessions_live`` and the
 counters ``serve_session_evictions_total{reason=ttl|lru|explicit|

@@ -147,11 +147,28 @@ def load_torch_file(path: str) -> dict[str, np.ndarray]:
 
 def is_torchvision_resnet(state_dict: Mapping[str, Any]) -> bool:
     """Whether the keys follow torchvision's ResNet naming (``conv1``,
-    ``layer1.0.conv1``, ...) rather than this package's."""
+    ``layer1.0.conv1``, ...) rather than this package's; a deep stem in
+    that naming (``conv1.0``, ...) counts, so its import refuses it by
+    name."""
     keys = state_dict.keys()
-    return ("conv1.weight" in keys
+    return (("conv1.weight" in keys or "conv1.0.weight" in keys)
             and any(k.startswith("layer1.0.conv") for k in keys)
             and not any("Block_" in k for k in keys))
+
+
+def _refuse_deep_stem(keys) -> None:
+    """Raise for a deep stem in torchvision-style naming: ``conv1`` as a
+    sequence of three 3x3 convs and their BatchNorms (``conv1.0``,
+    ``conv1.1``, ... ``conv1.6``).  The import maps the single 7x7 stem
+    only; the port's ``ResNet(deep_stem=True)`` has no torchvision
+    counterpart."""
+    deep = sorted(k for k in keys
+                  if k.startswith("conv1.") and k.split(".")[1].isdigit())
+    if deep:
+        raise ValueError(
+            f"deep stem ({deep[0]}, ...: three 3x3 convs) in a torchvision-"
+            "style checkpoint; the torchvision import maps only the single "
+            "7x7 stem (conv1 / bn1)")
 
 
 def torchvision_resnet_depth(state_dict: Mapping[str, Any]) -> int:
@@ -183,7 +200,8 @@ def torchvision_resnet_rename(depth: int, prefix: str = "backbone"
         layer{s}.{i}.downsample.0 / 1   <Block>_{flat}.Conv_K / BatchNorm_K
 
     with ``flat`` the block's index over all stages and ``K`` the
-    shortcut's slot (3 in a bottleneck block, 2 in a basic one)."""
+    shortcut's slot (3 in a bottleneck block, 2 in a basic one).  A deep
+    stem's key raises (:func:`_refuse_deep_stem`)."""
     from ..models.resnet import BOTTLENECK_DEPTHS, RESNET_DEPTHS
 
     counts = RESNET_DEPTHS[depth]
@@ -193,6 +211,7 @@ def torchvision_resnet_rename(depth: int, prefix: str = "backbone"
     stage_base = [sum(counts[:s]) for s in range(len(counts))]
 
     def rename(key: str) -> str | None:
+        _refuse_deep_stem([key])
         parts = key.split(".")
         if parts[0] == "fc" or parts[-1] == "num_batches_tracked":
             return None
@@ -220,7 +239,9 @@ def inflate_stem_channels(state_dict: Mapping[str, np.ndarray],
                           key: str = "conv1.weight") -> dict:
     """Zero-pad the stem conv's input channels (OIHW dim 1) up to
     ``in_channels``: an RGB backbone takes the guidance channel, which
-    starts out contributing nothing."""
+    starts out contributing nothing.  A deep stem raises
+    (:func:`_refuse_deep_stem`)."""
+    _refuse_deep_stem(state_dict.keys())
     out = dict(state_dict)
     w = np.asarray(out[key])
     have = w.shape[1]

@@ -16,11 +16,22 @@ import torch
 from flax import linen as fnn
 
 from distributedpytorch_tpu.models import build_model as jax_build_model
+from distributedpytorch_tpu.models.resnet import ResNet as JaxResNet
 from distributedpytorch_tpu_torch.models import DANet, build_model
-from distributedpytorch_tpu_torch.models.resnet import conv, max_pool_same, same_pad
+from distributedpytorch_tpu_torch.models.resnet import (
+    ResNet,
+    conv,
+    max_pool_same,
+    resnet50,
+    same_pad,
+)
 from distributedpytorch_tpu_torch.utils.weights import (
+    inflate_stem_channels,
+    is_torchvision_resnet,
     jax_to_state_dict,
     load_jax_params,
+    state_dict_to_jax,
+    torchvision_resnet_rename,
 )
 
 RTOL = 1e-4
@@ -103,6 +114,74 @@ def test_gates_and_last_bn_scales_reach_the_port():
     assert model.head.cam.gamma.item() != 0.0
     last_bn = model.backbone.BasicBlock_0.BatchNorm_1.weight
     assert torch.all(last_bn != 0)
+
+
+class TestDeepStem:
+    """``ResNet(deep_stem=True)``: three 3x3 convs in place of the 7x7."""
+
+    @pytest.fixture(scope="class")
+    def nets(self):
+        jm = JaxResNet(depth=18, deep_stem=True)
+        shapes = jax.eval_shape(lambda: jm.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 4)), train=False))
+        variables = randomize(shapes, seed=3)
+        port = ResNet(depth=18, deep_stem=True, in_channels=4)
+        load_jax_params(port, variables["params"], variables["batch_stats"])
+        return jm, variables, port.eval()
+
+    def test_features_match_jax(self, nets):
+        """All four stage outputs in float32, within RTOL x max(1, max
+        |feature|) (summation order only)."""
+        jm, variables, port = nets
+        x = crops(32, b=2, seed=5)
+        ref = jm.apply(variables, jnp.asarray(x), train=False)
+        with torch.no_grad():
+            got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
+        assert sorted(got) == sorted(ref) == ["c1", "c2", "c3", "c4"]
+        for key, r in ref.items():
+            r = np.asarray(r)
+            g = got[key].permute(0, 2, 3, 1).numpy()
+            assert g.shape == r.shape, key
+            bound = RTOL * max(1.0, float(np.abs(r).max()))
+            assert float(np.abs(g - r).max()) <= bound, key
+
+    def test_names_and_round_trip(self, nets):
+        _, variables, port = nets
+        stem = {k for k in variables["params"] if not k.startswith("Basic")}
+        assert stem == {"Conv_0", "Conv_1", "Conv_2", "BatchNorm_0",
+                        "BatchNorm_1", "BatchNorm_2"}
+        assert port.Conv_2.weight.shape == (128, 64, 3, 3)
+        assert port.BasicBlock_0.Conv_0.weight.shape[1] == 128
+        params, stats = state_dict_to_jax(port.state_dict())
+        for tree, want in ((params, variables["params"]),
+                           (stats, variables["batch_stats"])):
+            flat = jax.tree_util.tree_leaves_with_path(tree)
+            ref = dict(jax.tree_util.tree_leaves_with_path(want))
+            assert len(flat) == len(ref)
+            for path, leaf in flat:
+                np.testing.assert_array_equal(leaf, np.asarray(ref[path]))
+        assert resnet50(deep_stem=True).BottleneckBlock_0.Conv_0 \
+            .weight.shape[1] == 128
+
+    def test_torchvision_import_refuses_it(self):
+        """A deep stem in torchvision-style naming (``conv1.0`` ...) is
+        detected and refused by name; the 7x7 stem still imports."""
+        deep = {"conv1.0.weight": np.zeros((32, 3, 3, 3), np.float32),
+                "conv1.1.weight": np.ones(32, np.float32),
+                "conv1.3.weight": np.zeros((32, 32, 3, 3), np.float32),
+                "conv1.6.weight": np.zeros((64, 32, 3, 3), np.float32),
+                "bn1.weight": np.ones(64, np.float32),
+                "layer1.0.conv1.weight": np.zeros((64, 64, 3, 3), np.float32)}
+        assert is_torchvision_resnet(deep)
+        with pytest.raises(ValueError, match="deep stem"):
+            inflate_stem_channels(deep, 4)
+        rename = torchvision_resnet_rename(18)
+        with pytest.raises(ValueError, match="deep stem"):
+            rename("conv1.0.weight")
+        plain = {"conv1.weight": np.zeros((64, 3, 7, 7), np.float32)}
+        assert inflate_stem_channels(plain, 4)["conv1.weight"].shape == \
+            (64, 4, 7, 7)
+        assert rename("conv1.weight") == "backbone.Conv_0.weight"
 
 
 class TestSamePadding:

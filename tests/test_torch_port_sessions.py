@@ -44,6 +44,7 @@ from distributedpytorch_tpu import predict as jax_predict
 from distributedpytorch_tpu.models import build_model as jax_build_model
 from distributedpytorch_tpu.parallel import create_train_state
 from distributedpytorch_tpu.serve.sessions import SessionStore as JaxStore
+from distributedpytorch_tpu.serve.swap import load_swap_predictor as jax_load_swap
 from distributedpytorch_tpu_torch.models import build_model
 from distributedpytorch_tpu_torch.models.danet import resize_guidance
 from distributedpytorch_tpu_torch.predict import Predictor, _split_channel_stats
@@ -55,6 +56,7 @@ from distributedpytorch_tpu_torch.serve.service import (
     SessionLaneFullError,
 )
 from distributedpytorch_tpu_torch.serve.sessions import SessionStore, image_digest
+from distributedpytorch_tpu_torch.serve.swap import load_swap_predictor
 from distributedpytorch_tpu_torch.utils.weights import (
     load_jax_params,
     state_dict_to_jax,
@@ -281,6 +283,27 @@ class TestModelSplit:
         with pytest.raises(ValueError) as got:
             _split_channel_stats((1.0, 2.0, 3.0), 4)
         assert str(got.value) == str(want.value)
+
+    def test_swap_generation_matches_jax(self, jax_net, quiet):
+        """A new generation from JAX weights (quiet gates, another
+        projection) carried by ``load_jax_params``: the port's
+        ``load_swap_predictor`` masks within ATOL of JAX's."""
+        model, sets, stats = jax_net
+        params = jax.tree.map(lambda a: a, sets["quiet"])
+        params["head"]["pam"]["gamma"] = np.float32(4e-3)
+        params["head"]["cam"]["gamma"] = np.float32(2.5e-3)
+        params["guidance_proj"] = {
+            "kernel": -1.5 * params["guidance_proj"]["kernel"]}
+        carried = build_model("danet", nclass=1, backbone="resnet18",
+                              output_stride=8, guidance_inject="head")
+        load_jax_params(carried, params, stats)
+        got = load_swap_predictor(quiet["port"], carried.state_dict())
+        want = jax_load_swap(quiet["jax"], params, stats)
+        assert got.relax == want.relax == 10
+        img, pts = _image(), _points()
+        mask = got.predict(img, pts)
+        np.testing.assert_allclose(mask, want.predict(img, pts), atol=ATOL)
+        assert np.abs(mask - quiet["port"].predict(img, pts)).max() > 1e-3
 
     def test_weights_round_trip(self, jax_net, pred):
         _, sets, stats = jax_net
