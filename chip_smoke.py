@@ -337,8 +337,8 @@ it), printing no result.  The phases, each raising on failure:
              session's mask within 1e-4 of generation 1's own
              ``Predictor.predict`` (``SWAP_NEW_TOL``); one promote in
              ``health()["swap"]``.  (b) Allocated memory less the session
-             store's bytes rises by one weight set (the float32 parameters
-             and float buffers, printed) in the window and, once generation
+             store's bytes rises by one weight set (every parameter and
+             buffer at its dtype's size, printed) in the window and, once generation
              0 is retired and the script's own reference dropped, returns to
              its level before the swap, each within 16 MiB
              (``SWAP_FREE_TOL``).  (c) A ``serve/swap_params`` ``nan`` plan
@@ -350,6 +350,38 @@ it), printing no result.  The phases, each raising on failure:
              the 100 ms budget.  (e) A ResNet-101 ``deep_stem`` backbone's
              forward at 512², float32 against float64 on the card, each map
              within 1e-3 of its largest value (``DEEP_STEM_TOL``, 9b's bound).
+17. quantize — int8 weight-only serving (``serve/quantize.py``), DANet-R101
+             at 512², every weight drawn from seed 0, TF32 off: (a)
+             ``quantize_predictor`` of the float32 predictor: every conv's
+             ``weight_q``/``weight_scale`` on the card bitwise the host
+             quantizer's for the same weights, no float conv weight on the
+             int8 model, the float32 predictor's B = 1 forward bitwise as
+             before; (b) ``forward_prepared`` at buckets 1, 2 and 4 on the
+             int8 predictor in float32, then on the int8 copy of a bf16
+             predictor on the same weights: one launch of each kernel a
+             forward, each head's logits and the probabilities against the
+             plain forms on the same int8 model (``QUANT_PLAIN_TOL``: phase
+             3's 1e-3 in float32, phase 2's 2e-2 in bf16), the probabilities
+             against the float predictor of the same dtype within the band
+             the JAX package documents (max |diff| <= 0.25, mean <= 0.02),
+             the mask IoU at 0.5 printed, not gated (random weights); (c)
+             the allocated rise of building the int8 predictor within 16 MiB
+             of ``quantize_report``'s bytes (``QUANT_MEM_TOL``), its ratio to
+             the float32 weight set printed; (d) ``forward_prepared`` p50 at
+             B = 1 and 4, float32 and int8 in turns, 20 calls each (printed,
+             not gated); (e) an int8 canary in a float32
+             ``InferenceService(max_batch=4)`` at ``canary_fraction=1.0``: 3
+             requests bitwise its own ``predict``, rolled back, the float32
+             answer bitwise; then a float32 ``state_dict`` (the same seed-0
+             weights) swapped onto an int8 active generation by
+             ``load_swap_predictor``: a float32 ``Predictor``, served within
+             1e-4 of the float32 predictor (``QUANT_SWAP_TOL``), promoted, the
+             int8 generation's answer bitwise before and after; each
+             generation launching every kernel; (f) ``python -m
+             distributedpytorch_tpu_torch.serve --fresh-init 512:resnet101:0
+             --quantize int8`` started at the phase's start: its boot line's
+             ``quantization`` block, one ``POST /v1/predict`` answered, exit 0
+             on SIGTERM and no process of its group left.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2, grain, tensorboard and matplotlib are
@@ -376,14 +408,17 @@ launches, 15c's and 15d's (where none may run), and zeroed just before
 16a and taken as the difference across each of the service's requests
 in 16a-16d (both generations', each of which must launch every kernel,
 and the poisoned canary's click; the warm-ups and the reference
-``predict`` left out) (the swap path).  Launches made
+``predict`` left out) (the swap path), and taken as the difference
+across 17b's int8 forwards in both dtypes and each of 17e's requests
+(every generation's; the plain forms, references, warm-ups and 17d's
+timing left out) (the int8 path).  Launches made
 only to compare the model with its plain forms (phase 2's logits) are
 taken out of the counts.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs,host_data,swap``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs,host_data,swap,quantize``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -5676,10 +5711,11 @@ DEEP_STEM_TOL = 1e-3
 
 
 def _weight_bytes(model) -> int:
-    """Bytes of the float32 parameters and float buffers: one generation's
-    weight set."""
-    return sum(t.numel() * 4 for t in (*model.parameters(), *model.buffers())
-               if t.is_floating_point())
+    """Bytes of the parameters and buffers, each at its own dtype's size:
+    one generation's weight set (an int8 one's quantized weights are
+    buffers)."""
+    return sum(t.numel() * t.element_size()
+               for t in (*model.parameters(), *model.buffers()))
 
 
 def _held(torch, svc) -> tuple[int, int]:
@@ -5932,9 +5968,364 @@ def phase_swap(torch, ca, Predictor, InferenceService) -> dict:
     return {"swap": launches}
 
 
+#: 17b: the int8 forward against the float predictor of its dtype, the
+#: band the JAX package documents for its int8 serve forward
+QUANT_BAND_MAX = 0.25
+QUANT_BAND_MEAN = 0.02
+#: 17b: the int8 predictor's kernels against its plain forms, by compute
+#: dtype: (each head's logits, relative to max(1, max |logit|); the
+#: probabilities, absolute); float32 phase 3's, bfloat16 phase 2's bound
+QUANT_PLAIN_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
+#: 17c: the allocated rise of building the int8 predictor against
+#: ``quantize_report``'s bytes (16b's tolerance)
+QUANT_MEM_TOL = 16 << 20
+QUANT_BUCKETS = (1, 2, 4)
+#: 17d: forward_prepared calls timed per batch size and form
+QUANT_RUNS = 20
+#: 17e: a float32 generation's mask against the float32 predictor's on
+#: the same weights (another module: 16a's bound)
+QUANT_SWAP_TOL = 1e-4
+#: 17f: the server's boot command
+QUANT_CLI = ["-m", "distributedpytorch_tpu_torch.serve", "--fresh-init",
+             "512:resnet101:0", "--quantize", "int8", "--port", "0"]
+QUANT_BLOCK = {"weight_dtype": "int8", "granularity": "per_channel",
+               "symmetric": True}
+
+
+def _crops(pred, image, clicks, b: int):
+    import numpy as np
+
+    return np.stack([pred.prepare(image, clicks[i % len(clicks)])[0]
+                     for i in range(b)])
+
+
+def quantize_build(torch, ca, base, x1):
+    """17a and 17c: the int8 predictor built beside a float32 one."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.serve.quantize import (
+        quantize_leaf,
+        quantize_predictor,
+        quantize_report,
+        quantized_weights,
+    )
+
+    with _uncounted(ca):
+        before = base.forward_prepared(x1)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    req0 = torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+    t0 = time.perf_counter()
+    qpred = quantize_predictor(base)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    rise = torch.cuda.memory_allocated() - mem0
+    # the bytes the tensors asked for, before the allocator's rounding
+    requested = torch.cuda.memory_stats().get("requested_bytes.all.current", 0) - req0
+    state = base.model.state_dict()
+    leaves = quantized_weights(qpred.model)
+    differ = []
+    for name, leaf in leaves.items():
+        want = quantize_leaf(state[name].cpu().numpy())
+        if not (np.array_equal(leaf.q.cpu().numpy(), want.q)
+                and np.array_equal(leaf.scale.cpu().numpy(), want.scale)):
+            differ.append(name)
+    if differ or len(leaves) != sum(1 for v in state.values() if v.ndim == 4):
+        raise AssertionError(f"17a: {len(differ)} int8 weights on the card differ from "
+                             f"the host quantizer's ({differ[:4]}), or {len(leaves)} "
+                             "quantized is not every conv")
+    kept = [k for k, v in qpred.model.state_dict().items()
+            if v.is_floating_point() and v.ndim == 4 and v.shape[1:] != (1, 1, 1)]
+    if kept:
+        raise AssertionError(f"17a: float conv weights kept on the int8 model: {kept[:4]}")
+    with _uncounted(ca):
+        after = base.forward_prepared(x1)
+    if not np.array_equal(before, after):
+        raise AssertionError("17a: the base predictor's B = 1 forward changed")
+    report = quantize_report(qpred.model)
+    total = report["quantized_bytes"] + report["float_bytes"]
+    f32 = _weight_bytes(base.model)
+    log(f"quantize (a): {len(leaves)} conv weights on the card bitwise the host "
+        f"quantizer's; no float conv weight on the int8 model; the float32 "
+        f"predictor's B = 1 forward bitwise before and after; quantize_predictor "
+        f"{quant_s:.3f} s")
+    check("17c allocated rise of building the int8 predictor vs quantize_report's "
+          "bytes, |diff| bytes", abs(rise - total), QUANT_MEM_TOL)
+    log(f"quantize (c): quantize_report {json.dumps(report)}, total {total} bytes "
+        f"({total / 2**20:.2f} MiB) against the float32 weight set {f32} bytes "
+        f"({f32 / 2**20:.2f} MiB): {total / f32:.4f}; allocated rise {rise} bytes "
+        f"({rise / 2**20:.2f} MiB), {(rise - total) / 2**20:+.3f} MiB of the report; "
+        f"requested rise {requested} bytes, {(requested - total) / 2**20:+.3f} MiB of "
+        f"the report; the int8 model's parameters and buffers "
+        f"{_weight_bytes(qpred.model)} bytes")
+    return qpred
+
+
+def quantize_forward(torch, ca, qpred, ref, image, clicks) -> dict:
+    """17b at the int8 predictor's dtype: ``forward_prepared`` at each
+    bucket (its launches counted), the kernels against the plain forms on
+    the same int8 model, and the band against ``ref``, the float predictor
+    of that dtype.  Returns the counted launches."""
+    import numpy as np
+
+    name = str(qpred.dtype).removeprefix("torch.")
+    rel, prob_tol = QUANT_PLAIN_TOL[name]
+    launches = dict.fromkeys(TPU_KERNELS, 0)
+    for b in QUANT_BUCKETS:
+        x = _crops(qpred, image, clicks, b)
+        counted = dict(ca.launches)
+        got = qpred.forward_prepared(x)
+        step = _launches_since(ca, counted)
+        if any(n != 1 for n in step.values()):
+            raise AssertionError(f"17b: {name} B={b} launched {step}, not one of each")
+        for k, n in step.items():
+            launches[k] += n
+        t = torch.from_numpy(x).to("cuda").permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode(), _uncounted(ca):
+            fast = qpred.model(t.to(qpred.dtype))
+            fused_float = ref.model(t.to(ref.dtype))[0].float()
+            qpred.model.set_attention_impl("xla")
+            slow = qpred.model(t.to(qpred.dtype))
+            plain = qpred.forward_prepared(x)
+            qpred.model.set_attention_impl("auto")
+            want = ref.forward_prepared(x)
+        for head, a, s in zip(("fused", "pam", "cam"), fast, slow):
+            s = s.float()
+            check(f"17b {name} B={b} {head} logits kernels vs plain, max |diff| / "
+                  "max(1, max |logit|)",
+                  (a.float() - s).abs().max().item() / max(1.0, s.abs().max().item()), rel)
+        check(f"17b {name} B={b} probabilities kernels vs plain, max |diff|",
+              float(np.abs(got - plain).max()), prob_tol)
+        diff = np.abs(got - want)
+        check(f"17b {name} B={b} int8 vs {name} weights, max |diff|", float(diff.max()),
+              QUANT_BAND_MAX)
+        check(f"17b {name} B={b} int8 vs {name} weights, mean |diff|",
+              float(diff.mean()), QUANT_BAND_MEAN)
+        m_int8, m_float = got > 0.5, want > 0.5
+        union = int((m_int8 | m_float).sum())
+        logit_err = (fast[0].float() - fused_float).abs().max().item() \
+            / fused_float.abs().max().item()
+        log(f"quantize (b): {name} B={b} mask IoU at 0.5 int8 vs {name} weights "
+            f"{(m_int8 & m_float).sum() / max(union, 1):.4f} (union {union} px; not "
+            f"gated); probability range {float(got.min()):.4f}-{float(got.max()):.4f}; "
+            f"fused logits int8 vs {name} weights max |diff| / max |logit| "
+            f"{logit_err:.3e} (range {fused_float.min().item():.2f} to "
+            f"{fused_float.max().item():.2f}; not gated)")
+    return launches
+
+
+def quantize_latency(base, qpred, image, clicks) -> None:
+    """17d: ``forward_prepared`` p50 at B = 1 and 4, float32 weights and
+    int8 in turns, ``QUANT_RUNS`` calls each (host clock; the call reads
+    the probabilities back)."""
+    xs = {b: _crops(base, image, clicks, b) for b in (1, 4)}
+    times = {(form, b): [] for form in ("f32", "int8") for b in xs}
+    for _ in range(QUANT_RUNS):
+        for b, x in xs.items():
+            for form, pred in (("f32", base), ("int8", qpred)):
+                t0 = time.perf_counter()
+                pred.forward_prepared(x)
+                times[form, b].append((time.perf_counter() - t0) * 1e3)
+    p50 = {key: statistics.median(v) for key, v in times.items()}
+    log("quantize (d): forward_prepared p50 over "
+        f"{QUANT_RUNS} calls in turns, ms: " + ", ".join(
+            f"B={b} f32 {p50['f32', b]:.3f} int8 {p50['int8', b]:.3f} "
+            f"(int8 / f32 {p50['int8', b] / p50['f32', b]:.4f})" for b in xs))
+
+
+def quantize_swaps(torch, ca, base, qpred, InferenceService, image, clicks) -> dict:
+    """17e: an int8 canary in a float32 service, rolled back; a float32
+    state dict swapped onto an int8 active generation.  Returns the
+    launches of every request, by generation."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.models.resnet import Conv2d
+    from distributedpytorch_tpu_torch.predict import Predictor
+    from distributedpytorch_tpu_torch.serve.swap import load_swap_predictor
+
+    by_gen = {g: dict.fromkeys(TPU_KERNELS, 0)
+              for g in ("f32 active", "int8 canary", "int8 active", "f32 swapped in")}
+
+    def request(svc, gen, pts, sid=None):
+        counted = dict(ca.launches)
+        mask = svc.predict(image, pts, timeout=300, session_id=sid)
+        for k, n in _launches_since(ca, counted).items():
+            by_gen[gen][k] += n
+        return mask
+
+    svc = InferenceService(base, max_batch=4, max_wait_s=0.0)
+    svc.warmup()
+    with svc:
+        t0 = time.perf_counter()
+        gen = svc.swap(qpred, label="int8", canary_fraction=1.0)
+        swap_s = time.perf_counter() - t0
+        for pts in clicks[:3]:
+            mask = request(svc, "int8 canary", pts)
+            with _uncounted(ca):
+                own = qpred.predict(image, pts)
+            if not np.array_equal(mask, own):
+                raise AssertionError("17e: the int8 canary's mask is not its own predict's")
+        svc.rollback()
+        mask = request(svc, "f32 active", clicks[0])
+        with _uncounted(ca):
+            own = base.predict(image, clicks[0])
+        sw = svc.health()["swap"]
+        if not np.array_equal(mask, own) or sw["canary"] is not None \
+                or sw["swaps"]["rolled_back"] != 1:
+            raise AssertionError(f"17e: after the rollback: {sw}")
+    log(f"quantize (e): int8 canary admitted as generation {gen} in {swap_s:.3f} s "
+        f"(warm-up of buckets {svc.buckets}), 3 requests bitwise its own predict, "
+        f"rolled back, the float32 generation's answer bitwise; health swap "
+        f"{json.dumps(sw)}")
+    svc = InferenceService(qpred, max_batch=4, max_wait_s=0.0)
+    svc.warmup()
+    with svc:
+        before = request(svc, "int8 active", clicks[0])
+        t0 = time.perf_counter()
+        gen1 = load_swap_predictor(qpred, base.model.state_dict())
+        load_s = time.perf_counter() - t0
+        quantized = sum(1 for m in gen1.model.modules()
+                        if isinstance(m, Conv2d) and m.quantized)
+        if type(gen1) is not Predictor or gen1.quant_policy is not None or quantized:
+            raise AssertionError(f"17e: a float32 swap onto int8 gave {type(gen1)} with "
+                                 f"{quantized} quantized layers")
+        svc.swap(gen1, label="f32", canary_fraction=1.0)
+        errs = []
+        for pts in clicks[:2]:
+            mask = request(svc, "f32 swapped in", pts)
+            with _uncounted(ca):
+                errs.append(float(np.abs(mask - base.predict(image, pts)).max()))
+        svc.promote()
+        again = request(svc, "f32 swapped in", clicks[0])
+        health = svc.health()["swap"]
+    with _uncounted(ca):
+        if not np.array_equal(before, qpred.predict(image, clicks[0])):
+            raise AssertionError("17e: the int8 base's answer changed across the swap")
+    check("17e float32 generation swapped onto int8 vs the float32 predictor, max "
+          "|diff|", max(errs + [float(np.abs(again - base.predict(image, clicks[0])).max())]),
+          QUANT_SWAP_TOL)
+    log(f"quantize (e): float32 state dict onto the int8 active generation: "
+        f"load_swap_predictor {load_s:.3f} s, a float32 Predictor (no quantized "
+        f"layer), served and promoted; health swap {json.dumps(health)}")
+    if not all(n > 0 for g in by_gen.values() for n in g.values()):
+        raise AssertionError(f"17e: a kernel did not launch on each generation: {by_gen}")
+    log(f"quantize (e): launches by generation {json.dumps(by_gen)}")
+    return by_gen
+
+
+def quantize_cli_start():
+    """17f's server, started in a process group of its own; its output
+    lines go to a queue."""
+    import queue
+
+    proc = subprocess.Popen([sys.executable, *QUANT_CLI], cwd=REPO, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    lines: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return proc, lines, time.perf_counter()
+
+
+def quantize_cli_finish(server, image, clicks) -> None:
+    """17f: the boot line's ``quantization`` block, one request answered
+    over HTTP, SIGTERM: exit 0 and no process of its group left."""
+    import signal
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.serve.client import ServeClient
+
+    proc, lines, t0 = server
+    out, boot = [], None
+    try:
+        while boot is None:
+            line = lines.get(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+            if line is None:
+                raise AssertionError("17f: the server exited before its boot line: "
+                                     + "".join(out[-20:]))
+            out.append(line)
+            if line.startswith('{"serving"'):
+                boot = json.loads(line)
+        boot_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        mask = ServeClient(boot["serving"], timeout_s=300).predict(image, clicks[0])
+        req_ms = (time.perf_counter() - t1) * 1e3
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    while (line := lines.get(timeout=30)) is not None:
+        out.append(line)
+    deadline = time.perf_counter() + 10
+    while (left := group_members(proc.pid)) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    if rc != 0 or left or not any(ln.startswith('{"stopped"') for ln in out):
+        raise AssertionError(f"17f: server exit {rc}, left {left}: " + "".join(out[-20:]))
+    if boot["quantization"] != QUANT_BLOCK or boot["device"] != "cuda":
+        raise AssertionError(f"17f: boot line {boot}")
+    if mask.shape != image.shape[:2] or not np.isfinite(mask).all():
+        raise AssertionError(f"17f: bad mask {mask.shape}")
+    log(f"quantize (f): python {' '.join(QUANT_CLI)}: boot line after {boot_s:.1f} s "
+        f"{json.dumps(boot)}; POST /v1/predict answered in {req_ms:.1f} ms, mask "
+        f"{mask.shape} finite; SIGTERM, exit 0, no process left")
+
+
+def phase_quantize(torch, ca, Predictor, InferenceService) -> dict:
+    """Phase 17 (a-f); returns the launch counts of the int8 path (17b's
+    counted forwards in both dtypes and every request of 17e; references,
+    plain forms, warm-ups and 17d's timing left out)."""
+    from distributedpytorch_tpu_torch.serve.quantize import quantize_predictor
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    server = quantize_cli_start()
+    try:
+        image, clicks = synthetic_image()
+        base = Predictor.fresh(512, "resnet101", seed=0, device="cuda")
+        x1 = _crops(base, image, clicks, 1)
+        qpred = quantize_build(torch, ca, base, x1)
+        launches = quantize_forward(torch, ca, qpred, base, image, clicks)
+        quantize_cli_finish(server, image, clicks)
+    finally:
+        proc = server[0]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    quantize_latency(base, qpred, image, clicks)
+    by_gen = quantize_swaps(torch, ca, base, qpred, InferenceService, image, clicks)
+    del qpred
+    gc.collect()
+    # bf16 on the same weights: the float predictor computes in bf16 from
+    # here on, and its int8 copy with it
+    ref16 = Predictor(base.model, resolution=base.resolution, device="cuda",
+                      dtype=torch.bfloat16)
+    q16 = quantize_predictor(ref16)
+    launches16 = quantize_forward(torch, ca, q16, ref16, image, clicks)
+    total = {k: launches[k] + launches16[k] + sum(g[k] for g in by_gen.values())
+             for k in TPU_KERNELS}
+    log(f"quantize: launches f32 forwards {launches}, bf16 forwards {launches16}, "
+        f"requests by generation {json.dumps(by_gen)}, total {total}")
+    del base, ref16, q16
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"quantize: phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"quantize": total}
+
+
 #: the phases of a whole run, in order
 PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer",
-          "telemetry", "devdata", "sessions", "head_knobs", "host_data", "swap")
+          "telemetry", "devdata", "sessions", "head_knobs", "host_data", "swap",
+          "quantize")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -6019,6 +6410,8 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(phase_host_data(torch, ca, Predictor))
     if "swap" in phases:
         paths.update(phase_swap(torch, ca, Predictor, InferenceService))
+    if "quantize" in phases:
+        paths.update(phase_quantize(torch, ca, Predictor, InferenceService))
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS
                    if k not in PATHS_WITHOUT.get(path, ())):

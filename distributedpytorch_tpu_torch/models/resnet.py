@@ -84,15 +84,47 @@ def same_pad(size: int, kernel: int, stride: int, dilation: int = 1
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` (flax ``nn.Conv``'s
     ``dtype``): the input, weight and bias are cast to it at use and the
-    output is in it.  ``None`` computes in the parameters' own dtype."""
+    output is in it.  ``None`` computes in the parameters' own dtype.
+
+    A quantized layer (:meth:`quantize_`, ``serve/quantize.py``) holds no
+    float weight: an int8 ``weight_q`` buffer and a float32 per-output-
+    channel ``weight_scale`` buffer ``(cout, 1, 1, 1)`` take its place,
+    and the weight is dequantized at use, ``weight_q * weight_scale`` in
+    the scale's dtype, then cast to ``compute_dtype`` (the JAX package's
+    ``QTensor.__jax_array__`` and flax's promotion after it)."""
 
     compute_dtype: torch.dtype | None = None
 
+    @property
+    def quantized(self) -> bool:
+        return "weight_q" in self._buffers
+
+    def quantize_(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Replace the float weight by int8 ``q`` (this layer's weight
+        layout) and its float32 ``scale`` (``(cout, 1, 1, 1)``)."""
+        del self.weight
+        self.register_buffer("weight_q", q)
+        self.register_buffer("weight_scale", scale)
+
+    def unquantize_(self) -> None:
+        """An uninitialised float weight in place of the int8 one: the
+        skeleton a float ``state_dict`` loads into."""
+        q = self._buffers.pop("weight_q")
+        scale = self._buffers.pop("weight_scale")
+        self.weight = nn.Parameter(torch.empty(q.shape, dtype=scale.dtype,
+                                               device=q.device))
+
+    def _weight(self) -> torch.Tensor:
+        if not self.quantized:
+            return self.weight
+        return self.weight_q.to(self.weight_scale.dtype) * self.weight_scale
+
     def _operands(self, x: torch.Tensor):
         dtype = self.compute_dtype
+        weight = self._weight()
         if dtype is None:
-            return x, self.weight, self.bias
-        return (x.to(dtype), self.weight.to(dtype),
+            return x, weight, self.bias
+        return (x.to(dtype), weight.to(dtype),
                 None if self.bias is None else self.bias.to(dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

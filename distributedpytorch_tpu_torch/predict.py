@@ -222,6 +222,10 @@ class Predictor:
     >>> prob = p.predict(image, points)                 # (H, W) in [0, 1]
     """
 
+    #: the weight-quantization regime (``serve/quantize.QuantPolicy``);
+    #: None on a float predictor
+    quant_policy = None
+
     def __init__(self, model: torch.nn.Module,
                  resolution: tuple[int, int] = (512, 512),
                  relax: int = 50, zero_pad: bool = True, alpha: float = 0.6,
@@ -439,18 +443,22 @@ class SemanticPredictor:
     >>> classes = p.predict(image)       # (H, W) uint8 class ids
 
     Runs on CUDA unless ``device="cpu"``; ``dtype`` is the compute dtype
-    of the forward on float32 parameters."""
+    of the forward on float32 parameters; ``mean``/``std`` normalise the
+    input channel-wise before the forward, as :class:`Predictor`'s do."""
 
     def __init__(self, model: torch.nn.Module,
                  resolution: tuple[int, int] = (513, 513),
                  device: str | torch.device | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 mean: Sequence[float] | None = None,
+                 std: Sequence[float] | None = None):
         self.device = resolve_device(device)
         apply_policy("float32")
         self.dtype = torch_dtype(dtype)
         self.model = model.to(device=self.device).eval()
         self.model.set_compute_dtype(self.dtype)
         self.resolution = tuple(resolution)
+        self.mean, self.std = mean, std
 
     @classmethod
     def from_run(cls, run_dir: str, step: int | None = None,
@@ -474,6 +482,7 @@ class SemanticPredictor:
         """The primary logits of (B, H, W, 3) images, NCHW float32."""
         t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         t = t.to(self.device).permute(0, 3, 1, 2).contiguous()
+        t = _normalize(t, self.mean, self.std)
         with torch.inference_mode():
             return self.model(t.to(self.dtype))[0].float()
 

@@ -31,6 +31,10 @@ card (``--session-budget-mb``, ``--session-ttl-s``), and one session holds
 at most ``--session-lane-depth`` queued requests.  It runs on CUDA unless
 ``--device cpu``, in float32 with TF32 off, or in the run's precision with
 ``--run-dir`` (a bf16 run serves in bf16 on its float32 weights).
+``--quantize int8`` serves int8 conv weights (``serve/quantize.py``); without
+the flag a ``--run-dir`` run's ``model.quantization`` decides, and
+``--quantize none`` serves float weights whatever the run says.  The boot
+line's ``quantization`` is the policy's block, or null.
 SIGTERM/SIGINT stop the server, fail the queued requests and exit 0.
 An ``InjectedFaultError`` from an armed ``serve/enqueue`` fault
 (``DPTPU_CHAOS_PLAN``) is not caught, as on the JAX front: that request's
@@ -191,31 +195,58 @@ def parse_fresh_spec(spec: str) -> tuple[int, str, int, str]:
 
 def build_predictor(args):
     """The served Predictor from ``--fresh-init``, ``--state-dict`` or
-    ``--run-dir``."""
+    ``--run-dir``, quantized by ``--quantize`` or, without the flag, by a
+    run's ``model.quantization`` (the policy is resolved before any
+    weight is read, so an unknown value raises first)."""
     import torch
 
     from ..models import build_model
-    from ..predict import Predictor
+    from ..predict import Predictor, load_run_config
+    from .quantize import quant_policy, quantize_predictor
 
+    quantize = getattr(args, "quantize", None)
+    if args.run_dir and quantize is None:
+        quantize = load_run_config(args.run_dir).model.quantization or None
+    policy = quant_policy(quantize)
     if args.run_dir:
-        return Predictor.from_run(args.run_dir, step=args.step,
-                                  device=args.device)
-    if args.fresh_init:
+        predictor = Predictor.from_run(args.run_dir, step=args.step,
+                                       device=args.device)
+    elif args.fresh_init:
         size, backbone, seed, inject = parse_fresh_spec(args.fresh_init)
-        return Predictor.fresh(size, backbone, seed=seed, device=args.device,
-                               guidance_inject=inject)
-    state = torch.load(args.state_dict, map_location="cpu", weights_only=True)
-    # a head model's state_dict carries the guidance projection
-    model = build_model("danet", nclass=1, backbone=args.backbone,
-                        output_stride=8,
-                        guidance_inject="head" if "guidance_proj.weight"
-                        in state else "stem")
-    model.load_state_dict(state, strict=True)
-    return Predictor(model, resolution=(args.resolution, args.resolution),
-                     device=args.device)
+        predictor = Predictor.fresh(size, backbone, seed=seed,
+                                    device=args.device, guidance_inject=inject)
+    else:
+        state = torch.load(args.state_dict, map_location="cpu",
+                           weights_only=True)
+        # a head model's state_dict carries the guidance projection
+        model = build_model("danet", nclass=1, backbone=args.backbone,
+                            output_stride=8,
+                            guidance_inject="head" if "guidance_proj.weight"
+                            in state else "stem")
+        model.load_state_dict(state, strict=True)
+        predictor = Predictor(model,
+                              resolution=(args.resolution, args.resolution),
+                              device=args.device)
+    if policy is not None:
+        predictor = quantize_predictor(predictor, policy)
+    return predictor
 
 
-def main(argv: list[str] | None = None) -> int:
+def boot_record(args, predictor, service: InferenceService, port: int) -> dict:
+    """The first line the server prints once it listens."""
+    from .quantize import quantization_block
+
+    return {"serving": f"http://{args.host}:{port}",
+            "device": str(predictor.device),
+            "dtype": str(predictor.dtype).removeprefix("torch."),
+            "buckets": list(service.buckets),
+            "resolution": list(predictor.resolution),
+            "sessions": service.sessions_enabled,
+            "quantization": quantization_block(predictor.quant_policy)}
+
+
+def make_parser() -> argparse.ArgumentParser:
+    """The server's command line."""
     parser = argparse.ArgumentParser(
         prog="distributedpytorch_tpu_torch.serve",
         description="Batched click-to-mask inference over HTTP (PyTorch/CUDA)")
@@ -264,7 +295,15 @@ def main(argv: list[str] | None = None) -> int:
                         help="where POST /debug/trace and SIGUSR2 write "
                              "bounded profiler captures (default: "
                              "<run-dir>/serve_trace, or ./serve_trace)")
-    args = parser.parse_args(argv)
+    parser.add_argument("--quantize", choices=("int8", "none"), default=None,
+                        help="int8 weight-only quantization of the served "
+                             "model (serve/quantize); default: the run "
+                             "config's model.quantization, else none")
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = make_parser().parse_args(argv)
 
     predictor = build_predictor(args)
     trace = TraceCapture(args.trace_dir or os.path.join(
@@ -290,12 +329,8 @@ def main(argv: list[str] | None = None) -> int:
     signal.signal(signal.SIGINT, on_signal)
     # SIGUSR2 arms the same bounded capture POST /debug/trace does
     uninstall_trace_signal = trace.install_signal()
-    print(json.dumps({"serving": f"http://{args.host}:{httpd.server_port}",
-                      "device": str(predictor.device),
-                      "dtype": str(predictor.dtype).removeprefix("torch."),
-                      "buckets": list(service.buckets),
-                      "resolution": list(predictor.resolution),
-                      "sessions": service.sessions_enabled}), flush=True)
+    print(json.dumps(boot_record(args, predictor, service,
+                                 httpd.server_port)), flush=True)
     try:
         httpd.serve_forever()
     finally:

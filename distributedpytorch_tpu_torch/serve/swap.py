@@ -53,17 +53,24 @@ def load_swap_predictor(base_predictor, state_dict, model=None, **kwargs):
     chaos site fires on the state dict (a ``nan`` fault poisons every
     float tensor: a poisoned checkpoint, which the canary must roll back).
     The weights load strictly into ``model``, or into a new model of the
-    base predictor's architecture (a copy of its module).  Resolution,
+    base predictor's architecture (a copy of its module; an int8 base's
+    quantized layers get float weights back, so the new generation is a
+    float32 one, as in the JAX package: quantize it with
+    ``quantize.quantize_predictor`` for an int8 canary).  Resolution,
     relax, zero padding, alpha, guidance family, input channels, input
     mean and std, device and compute dtype come from the base predictor
     unless given, so the service's bucket ladder and paste-back stay
     valid."""
     from ..chaos import sites as chaos_sites
+    from ..models.resnet import Conv2d
     from ..predict import Predictor
 
     state_dict = chaos_sites.fire("serve/swap_params", payload=state_dict)
     if model is None:
         model = copy.deepcopy(base_predictor.model)
+        for module in model.modules():
+            if isinstance(module, Conv2d) and module.quantized:
+                module.unquantize_()
     model.load_state_dict(state_dict, strict=True)
     for attr in ("resolution", "relax", "zero_pad", "alpha", "guidance",
                  "in_channels", "mean", "std", "device", "dtype"):

@@ -334,7 +334,6 @@ UNPORTED = (
     "data.download",
     "data.uint8_transfer", "data.packbits_masks", "data.coalesce_wire",
     "data.steps_per_dispatch", "data.echo",
-    "model.quantization",
     "parallel.model", "parallel.hbm_budget_gb",
     "mesh.model", "mesh.slices", "mesh.process_is_granule",
     "mesh.shard_params",

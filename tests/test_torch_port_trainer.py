@@ -100,7 +100,7 @@ class TestConfig:
 
     @pytest.mark.parametrize("knob", ["model.pam_impl=ring",
                                       "data.source=packed", "mesh.model=2",
-                                      "model.quantization=int8",
+                                      "data.uint8_transfer=true",
                                       "sentinel.enabled=true"])
     def test_unported_knob_raises(self, knob, tmp_path):
         cfg = config.apply_overrides(config.Config(), TINY + [
