@@ -382,6 +382,42 @@ it), printing no result.  The phases, each raising on failure:
              --quantize int8`` started at the phase's start: its boot line's
              ``quantization`` block, one ``POST /v1/predict`` answered, exit 0
              on SIGTERM and no process of its group left.
+18. aot    — the AOT program cache (``serve/aot.py``), DANet-R101 at 512²,
+             every weight drawn from seed 0, float32, TF32 off: (a) ``python
+             -m distributedpytorch_tpu_torch.serve.aot`` of the stem ladder
+             at ``max_batch=2`` (``forward_b1``, ``forward_b2``;
+             AOTInductor packages), started before phase 12 at the lowest
+             CPU priority so that it compiles on the cores phases 12-17
+             leave idle: each program's build seconds, the packages' bytes,
+             and at least one Inductor compile a program on the build's
+             ``CompileWatchdog``; (b) a
+             fresh predictor with both packages loaded (``AotCache.load``)
+             and installed: ``forward_prepared`` at buckets 1 and 2 within
+             1e-3 of the eager forward (phase 3's ``AOT_TOL``), one launch of
+             each kernel per forward, the same bits twice, the profiler's
+             device kernels of one package forward naming
+             ``pam_forward_kernel``, ``cam_gram_kernel`` and
+             ``cam_apply_kernel``, and the p50 of the package and the eager
+             forward (printed); (c) ``python -m
+             distributedpytorch_tpu_torch.serve --fresh-init 512:resnet101:0
+             --max-batch 2 --warmup --aot-cache DIR`` as a fresh process: the
+             boot line's ``cold_start`` with ``aot_cache`` ``hit`` and 2
+             programs loaded, the server's ``0 compiles on the
+             CompileWatchdog`` line before it, 4 HTTP masks within 1e-3 of
+             the in-process eager masks, ``/healthz`` ok with no retrace;
+             the same server's eager ``--warmup`` boot beside it (seconds to
+             the boot line and the card's MiB in use by each server,
+             printed); (d) the warm boot with ``DPTPU_CHAOS_PLAN`` arming a
+             ``bitflip`` at ``serve/aot_load``: a ``REFUSING`` line,
+             ``aot_cache`` ``partial`` or ``miss``, masks as in (c); then
+             ``python -m distributedpytorch_tpu_torch.serve.aot --verify``
+             on a copy with one bit flipped exits 1 naming the entry; (e)
+             while the script has run under ``AOT_EXTRA_DEADLINE_S``, each
+             at bucket 1 on DANet-R50 (ResNet-101's widths): the bf16 stem
+             program (2e-2), the split encode/decode pair (1e-3) and the
+             int8 stem program (``QUANT_PLAIN_TOL``), each against its eager
+             forward with one launch of each kernel; what is left out is
+             printed.
 
 The first line describes the host (CPU affinity, ``/dev/shm``, RAM,
 whether PIL imports and cv2, grain, tensorboard and matplotlib are
@@ -411,14 +447,17 @@ and the poisoned canary's click; the warm-ups and the reference
 ``predict`` left out) (the swap path), and taken as the difference
 across 17b's int8 forwards in both dtypes and each of 17e's requests
 (every generation's; the plain forms, references, warm-ups and 17d's
-timing left out) (the int8 path).  Launches made
+timing left out) (the int8 path), and taken as the difference across
+18b's package forwards and 18e's (the AOT path; the builds' round trips,
+the eager references and the timing left out; the servers of 18c and
+18d launch in their own processes).  Launches made
 only to compare the model with its plain forms (phase 2's logits) are
 taken out of the counts.  Every
 bounded check of phases 6f-6j and 8 records its
 smallest limit / value, printed as the ``margins`` line before the
 records.  The second-to-last line is the ``kernels`` JSON record; the last
 line is the device record.  ``--phases train`` (or any comma list of
-``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs,host_data,swap,quantize``) runs part of the script for development
+``kernels,serve,train,host,dist,semantic,trainer,telemetry,devdata,sessions,head_knobs,host_data,swap,quantize,aot``) runs part of the script for development
 and then prints neither record.
 """
 
@@ -6322,10 +6361,507 @@ def phase_quantize(torch, ca, Predictor, InferenceService) -> dict:
     return {"quantize": total}
 
 
+#: phase 18's ladder (max_batch 2) and its bound against the eager forward
+#: (phase 3's)
+AOT_BUCKETS = (1, 2)
+AOT_TOL = 1e-3
+#: the server of 18c and 18d; the cache directory is added
+AOT_CLI = ["-m", "distributedpytorch_tpu_torch.serve", "--fresh-init",
+           "512:resnet101:0", "--max-batch", "2", "--warmup", "--port", "0"]
+#: 18d's fault: the first package read gets one byte flipped
+AOT_CHAOS = {"name": "aot_rot", "faults": [
+    {"site": "serve/aot_load", "kind": "bitflip", "offset": 1 << 20,
+     "times": 1}]}
+#: the device kernels a forward through the package must show
+AOT_KERNEL_NAMES = ("pam_forward_kernel", "cam_gram_kernel", "cam_apply_kernel")
+#: 18e runs while the script has been running less than this, each item
+#: estimated at AOT_EXTRA_S (the bf16 build took 102.7 s on the H100 in a
+#: whole run, which reaches phase 18 at ~750-800 s), so that a whole run
+#: keeps its slack under the 1200 s limit; what is left out is printed
+AOT_EXTRA_DEADLINE_S = 750.0
+AOT_EXTRA_S = 110.0
+#: when the script started
+T_START = time.perf_counter()
+
+
+def _device_used_mib(torch) -> float:
+    """MiB in use on the card by every process (``cudaMemGetInfo``)."""
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2**20
+
+
+def aot_server_start(cache_dir: str | None, env_extra: dict | None = None) -> dict:
+    """A server of ``AOT_CLI`` (from ``cache_dir`` where given) started in a
+    process group of its own, its output lines pumped to a queue."""
+    import os
+    import queue
+
+    env = dict(os.environ, **(env_extra or {}))
+    cmd = [sys.executable, *AOT_CLI] + (["--aot-cache", cache_dir] if cache_dir
+                                        else [])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, text=True, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    lines: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return {"proc": proc, "lines": lines, "out": [], "t0": t0}
+
+
+def aot_server_boot(server: dict) -> dict:
+    """Wait for the server's boot line; returns its record (and keeps it
+    and the seconds from the start to it in ``server``)."""
+    out, t0 = server["out"], server["t0"]
+    while True:
+        line = server["lines"].get(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+        if line is None:
+            raise AssertionError("18: the server exited before its boot line: "
+                                 + "".join(out[-30:]))
+        out.append(line)
+        if line.startswith('{"serving"'):
+            server["boot"] = json.loads(line)
+            server["boot_s"] = time.perf_counter() - t0
+            return server["boot"]
+
+
+def aot_server_stop(server: dict, what: str) -> list[str]:
+    """SIGTERM: exit 0, its stopped line, no process of its group left;
+    returns its output lines, the warm-up's logged."""
+    import signal
+
+    proc, lines, out = server["proc"], server["lines"], server["out"]
+    try:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    while (line := lines.get(timeout=30)) is not None:
+        out.append(line)
+    deadline = time.perf_counter() + 10
+    while (left := group_members(proc.pid)) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    if rc != 0 or left or not any(ln.startswith('{"stopped"') for ln in out):
+        raise AssertionError(f"18{what}: server exit {rc}, left {left}: "
+                             + "".join(out[-20:]))
+    return out
+
+
+def aot_masks(url: str, image, clicks, want, what: str) -> float:
+    """Each click set over HTTP against the in-process eager masks; returns
+    the largest |diff|."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.serve.client import ServeClient
+
+    client = ServeClient(url, timeout_s=300)
+    worst = 0.0
+    for pts, ref in zip(clicks, want):
+        mask = client.predict(image, pts)
+        if mask.shape != image.shape[:2] or not np.isfinite(mask).all():
+            raise AssertionError(f"18{what}: bad mask {mask.shape}")
+        worst = max(worst, float(np.abs(mask - ref).max()))
+    check(f"aot {what} HTTP masks vs the eager masks", worst, AOT_TOL)
+    health = json.loads(urllib.request.urlopen(url + "/healthz", timeout=60).read())
+    counts = health["stats"]["counts"]
+    if not health["ok"] or health["unhealthy_reason"] is not None \
+            or counts.get("retrace_failures", 0) != 0:
+        raise AssertionError(f"18{what}: health {health}")
+    return worst
+
+
+def aot_build_start() -> dict:
+    """18a's build, started before phase 12: ``python -m
+    distributedpytorch_tpu_torch.serve.aot`` of the float32 stem ladder of
+    DANet-R101 at 512², seed 0, ``max_batch=2``, at the lowest CPU priority
+    (``nice -n 19``), so that it compiles on the cores phases 12-17 leave
+    idle (their timed checks are the host's and the card's, and 16d's
+    100 ms budget has a 3x margin)."""
+    import tempfile
+
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    errors = open(cache_dir + ".log", "w")
+    cmd = ["nice", "-n", "19", sys.executable, "-m",
+           "distributedpytorch_tpu_torch.serve.aot", "--cache-dir", cache_dir,
+           "--fresh-init", "512:resnet101:0", "--max-batch", str(max(AOT_BUCKETS))]
+    proc = subprocess.Popen(cmd, cwd=REPO, text=True, stdout=subprocess.PIPE,
+                            stderr=errors, start_new_session=True)
+    return {"proc": proc, "dir": cache_dir, "errors": errors,
+            "t0": time.perf_counter()}
+
+
+def aot_build_stop(job: dict) -> None:
+    """Kill the build if it still runs; remove its cache and log."""
+    import shutil
+
+    proc = job["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    job["errors"].close()
+    shutil.rmtree(job["dir"], ignore_errors=True)
+    Path(job["dir"] + ".log").unlink(missing_ok=True)
+
+
+def aot_build_finish(job: dict) -> dict:
+    """18a: wait for the build; its summary: each program's build seconds,
+    the packages' bytes, and at least one Inductor compile a program on the
+    build's CompileWatchdog."""
+    t0 = time.perf_counter()
+    out, _ = job["proc"].communicate(timeout=1200)
+    waited = time.perf_counter() - t0
+    if job["proc"].returncode != 0:
+        job["errors"].flush()
+        raise AssertionError(f"18a: the build exited {job['proc'].returncode}: "
+                             + Path(job["dir"] + ".log").read_text()[-3000:])
+    summary = json.loads(out)
+    programs = summary["programs"]
+    if programs != [f"forward_b{b}" for b in AOT_BUCKETS] \
+            or summary["compiles"].get("inductor", 0) < len(programs):
+        raise AssertionError(f"18a: programs {programs}, compiles {summary['compiles']}")
+    log(f"aot (a): built {programs} in {time.perf_counter() - job['t0']:.1f} s from "
+        f"its start before phase 12, {waited:.1f} s of it waited for here (per program, "
+        f"export + compile + round trip: {json.dumps(summary['seconds'])}); packages "
+        f"{summary['bytes']} bytes ({summary['bytes'] / len(programs) / 2**20:.1f} "
+        f"MiB each); CompileWatchdog over the build {summary['compiles']}; "
+        f"fingerprint device {summary['fingerprint']['device']!r}, dtype "
+        f"{summary['fingerprint']['dtype']}")
+    return summary
+
+
+def _zero_weights(pred) -> None:
+    """Zero every tensor of ``pred``'s eager model (parameters, BatchNorm
+    statistics, int8 weights), so that only its installed packages can
+    give its right output."""
+    for t in pred.model.state_dict().values():
+        t.zero_()
+
+
+def aot_in_process(torch, ca, Predictor, cache_dir: str, base, image, clicks) -> dict:
+    """18b: a fresh predictor with the packages installed against the eager
+    forward; returns the launches of its counted forwards."""
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.serve.aot import AotCache, cache_fingerprint
+
+    cache = AotCache(cache_dir)
+    fresh = Predictor.fresh(512, "resnet101", seed=0, device="cuda")
+    fp = cache_fingerprint(fresh)
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for b in AOT_BUCKETS:
+        fresh.install_aot(("forward", (b, 512, 512, 4)),
+                          cache.load(f"forward_b{b}", fp))
+    load_s = time.perf_counter() - t0
+    # the packages' baked weights, as PyTorch's allocator sees them
+    allocated = (torch.cuda.memory_allocated() - allocated) / 2**20
+    # only the packages, which bake their own weights, can still give the
+    # eager masks: the installed programs are what runs
+    _zero_weights(fresh)
+    total = dict.fromkeys(TPU_KERNELS, 0)
+
+    def counted(x, what):
+        before = dict(ca.launches)
+        out = fresh.forward_prepared(x)
+        torch.cuda.synchronize()
+        launches = _launches_since(ca, before)
+        if launches != dict.fromkeys(TPU_KERNELS, 1):
+            raise AssertionError(f"18b: {what} launches {launches}")
+        for k in total:
+            total[k] += launches[k]
+        return out
+
+    for b in AOT_BUCKETS:
+        x = _crops(base, image, clicks, b)
+        with _uncounted(ca):
+            want = base.forward_prepared(x)
+        got = counted(x, f"B={b}")
+        check(f"aot (b) B={b} package (eager weights zeroed) vs eager forward",
+              float(np.abs(got - want).max()), AOT_TOL)
+        again = counted(x, f"B={b} again")
+        if not np.array_equal(got, again):
+            raise AssertionError(f"18b: B={b}: two runs of the package differ")
+    x1 = _crops(base, image, clicks, 1)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        counted(x1, "profiled B=1")
+    names = {e.name for e in _device_events(prof)}
+    missing = [k for k in AOT_KERNEL_NAMES if not any(k in n for n in names)]
+    if missing:
+        raise AssertionError(f"18b: the package's forward launched no {missing}")
+    # p50 on the host's clock (prepared crops in, probabilities read back)
+    x2 = _crops(base, image, clicks, 2)
+    with _uncounted(ca):
+        times = {}
+        for name, pred, x in (("aot B=1", fresh, x1), ("eager B=1", base, x1),
+                              ("aot B=2", fresh, x2), ("eager B=2", base, x2)):
+            times[name] = _best_ms(lambda: pred.forward_prepared(x), 10)
+    log(f"aot (b): {len(AOT_BUCKETS)} packages loaded and installed in {load_s:.2f} s "
+        f"(torch.cuda.memory_allocated moved {allocated:.1f} MiB); "
+        f"the eager model's weights zeroed; one launch of each kernel per forward "
+        f"(counted over each of the {3 * len(AOT_BUCKETS) - 1}), the same bits twice; the "
+        f"profiler's "
+        f"device kernels name {list(AOT_KERNEL_NAMES)}; forward_prepared p50 ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    del fresh
+    return total
+
+
+def aot_warm_boots(torch, cache_dir: str, image, clicks, want) -> None:
+    """18c: the warm boot from the cache and the eager boot, each a fresh
+    process alone on the card, its seconds to the boot line and its MiB of
+    the card."""
+    base_mib = _device_used_mib(torch)
+    results = {}
+    for what, cache in (("c", cache_dir), ("c eager", None)):
+        server = aot_server_start(cache)
+        try:
+            boot = aot_server_boot(server)
+            mib = _device_used_mib(torch) - base_mib
+            cold = boot["cold_start"]
+            compiles = [ln for ln in server["out"]
+                        if "compiles on the CompileWatchdog" in ln]
+            if cache is not None and (cold["aot_cache"] != "hit"
+                                      or cold["programs_loaded"] != len(AOT_BUCKETS)
+                                      or not compiles
+                                      or not compiles[-1].startswith(
+                                          "serve/warmup: 0 compiles")):
+                raise AssertionError(f"18c: warm boot {boot}: "
+                                     + "".join(server["out"][-20:]))
+            if cache is None and cold["aot_cache"] != "off":
+                raise AssertionError(f"18c: eager boot {boot}")
+            worst = aot_masks(boot["serving"], image, clicks, want, what)
+        finally:
+            out = aot_server_stop(server, what)
+        for line in out:
+            if line.startswith(("serve/warmup:", "serve/aot:")):
+                log(f"aot ({what}) server: {line.rstrip()[:200]}")
+        results[what] = (server["boot_s"], cold, mib, worst)
+        log(f"aot ({what}): boot line after {server['boot_s']:.2f} s, cold_start "
+            f"{json.dumps(cold)}, {compiles[-1].strip() if compiles else ''}; the "
+            f"server's device memory {mib:.0f} MiB; {len(clicks)} HTTP masks within "
+            f"{worst:.2e} of the eager masks; /healthz ok, retrace_failures 0; exit 0")
+    warm, eager = results["c"], results["c eager"]
+    log(f"aot (c): warm boot {warm[0]:.2f} s (warm-up {warm[1]['warmup_seconds']} s) "
+        f"against the eager boot {eager[0]:.2f} s (warm-up "
+        f"{eager[1]['warmup_seconds']} s); device MiB {warm[2]:.0f} against "
+        f"{eager[2]:.0f} (each package bakes its own weights)")
+
+
+def aot_chaos(server: dict, image, clicks, want) -> None:
+    """18d: the server booted with a bitflip armed at serve/aot_load
+    refuses the entry, warms it eagerly and serves."""
+    try:
+        boot = aot_server_boot(server)
+        refused = [ln for ln in server["out"] if "REFUSING cache entry" in ln]
+        if not refused or boot["cold_start"]["aot_cache"] not in ("partial", "miss"):
+            raise AssertionError(f"18d: chaos boot {boot}: "
+                                 + "".join(server["out"][-20:]))
+        worst = aot_masks(boot["serving"], image, clicks, want, "d")
+    finally:
+        aot_server_stop(server, "d")
+    log(f"aot (d): bitflip at serve/aot_load: {refused[0].strip()[:160]}...; "
+        f"cold_start {json.dumps(boot['cold_start'])}; masks within {worst:.2e}")
+
+
+def aot_verify_start(cache_dir: str) -> dict:
+    """18d: ``--verify`` on a copy of the cache with one bit flipped in
+    ``forward_b2``, started in the background."""
+    import os
+    import shutil
+    import tempfile
+
+    copy = tempfile.mkdtemp(prefix="chip_smoke_aot_flip_")
+    shutil.copytree(cache_dir, copy, dirs_exist_ok=True)
+    path = os.path.join(copy, "forward_b2.pt2")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0x01]))
+    proc = subprocess.Popen([sys.executable, "-m", "distributedpytorch_tpu_torch.serve.aot",
+                             "--cache-dir", copy, "--verify"], cwd=REPO, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    return {"proc": proc, "dir": copy}
+
+
+def aot_verify_finish(job: dict) -> None:
+    """It exits 1 naming the entry."""
+    import shutil
+
+    try:
+        out, err = job["proc"].communicate(timeout=300)
+    finally:
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
+        shutil.rmtree(job["dir"], ignore_errors=True)
+    rc = job["proc"].returncode
+    if rc != 1 or "forward_b2" not in err or json.loads(out)["bad"] != ["forward_b2"]:
+        raise AssertionError(f"18d: --verify rc {rc}: {err[-500:]}")
+    log(f"aot (d): --verify on a copy with one bit flipped exits 1: "
+        f"{err.strip().splitlines()[-1]}")
+
+
+def aot_extra(torch, ca, Predictor, what: str) -> dict:
+    """One 18e program at bucket 1 on DANet-R50 at 512² (ResNet-101's
+    widths): built, loaded into a fresh predictor whose eager weights are
+    then zeroed, held to its eager forward; returns the launches of the
+    counted forward."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from distributedpytorch_tpu_torch.serve.aot import AotCache, cache_fingerprint
+    from distributedpytorch_tpu_torch.serve.quantize import quantize_predictor
+
+    def make():
+        inject = "head" if what == "split" else "stem"
+        dtype = torch.bfloat16 if what == "bf16" else torch.float32
+        pred = Predictor.fresh(512, "resnet50", seed=0, device="cuda", dtype=dtype,
+                               guidance_inject=inject)
+        return quantize_predictor(pred) if what == "int8" else pred
+
+    tol = {"bf16": 2e-2, "int8": QUANT_PLAIN_TOL["float32"][1]}.get(what, AOT_TOL)
+    image, clicks = synthetic_image()
+    d = tempfile.mkdtemp(prefix=f"chip_smoke_aot_{what}_")
+    try:
+        base = make()
+        t0 = time.perf_counter()
+        with _uncounted(ca):
+            summary = AotCache(d).build(base, (1,))
+        build_s = time.perf_counter() - t0
+        fresh = make()
+        fp = cache_fingerprint(fresh)
+        keys = {"encode_b1": ("encode", 1), "decode_b1": ("decode", 1),
+                "forward_b1": ("forward", (1, 512, 512, 4))}
+        for name in summary["programs"]:
+            fresh.install_aot(keys[name], AotCache(d).load(name, fp))
+        _zero_weights(fresh)
+        x = _crops(base, image, clicks, 1)
+        with _uncounted(ca):
+            want = base.forward_prepared(x)
+        before = dict(ca.launches)
+        got = fresh.forward_prepared(x)
+        torch.cuda.synchronize()
+        launches = _launches_since(ca, before)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if launches != dict.fromkeys(TPU_KERNELS, 1):
+        raise AssertionError(f"18e {what}: launches {launches}")
+    check(f"aot (e) {what} package vs eager forward", float(np.abs(got - want).max()),
+          tol)
+    log(f"aot (e): {what} (DANet-R50 512², bucket 1): {summary['programs']} built in "
+        f"{build_s:.1f} s ({summary['bytes']} bytes), one launch of each kernel")
+    return launches
+
+
+def phase_aot(torch, ca, Predictor, job: dict) -> dict:
+    """Phase 18 (a-e) on the build ``job`` started before phase 12; returns
+    the launch counts of the AOT path (18b's package forwards and 18e's;
+    references, the build's round trips and the timing left out; the
+    servers' launches are in their own processes)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    image, clicks = synthetic_image()
+    aot_build_finish(job)
+    # 18d's chaos server and --verify run beside 18b (whose p50s they
+    # perturb; nothing of 18b's is gated on time); 18c's boots run alone
+    chaos = aot_server_start(job["dir"], {"DPTPU_CHAOS_PLAN": json.dumps(AOT_CHAOS)})
+    verify = None
+    try:
+        verify = aot_verify_start(job["dir"])
+        base = Predictor.fresh(512, "resnet101", seed=0, device="cuda")
+        total = aot_in_process(torch, ca, Predictor, job["dir"], base, image, clicks)
+        with _uncounted(ca):
+            want = base.predict_batch(image, clicks)
+        aot_chaos(chaos, image, clicks, want)
+        aot_verify_finish(verify)
+    finally:
+        for proc in (chaos["proc"], verify and verify["proc"]):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if verify is not None:
+            shutil.rmtree(verify["dir"], ignore_errors=True)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    aot_warm_boots(torch, job["dir"], image, clicks, want)
+    left_out = []
+    for what in ("bf16", "split", "int8"):
+        elapsed = time.perf_counter() - T_START
+        if elapsed + AOT_EXTRA_S > AOT_EXTRA_DEADLINE_S:
+            left_out.append(what)
+            continue
+        for k, n in aot_extra(torch, ca, Predictor, what).items():
+            total[k] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+    if left_out:
+        log(f"aot (e): left out {left_out}: the script had run "
+            f"{time.perf_counter() - T_START:.0f} s, and each takes ~{AOT_EXTRA_S:.0f} s "
+            f"against the {AOT_EXTRA_DEADLINE_S:.0f} s set for them")
+    log(f"aot: launches {total}; phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"aot": total}
+
+
 #: the phases of a whole run, in order
 PHASES = ("kernels", "serve", "train", "host", "dist", "semantic", "trainer",
           "telemetry", "devdata", "sessions", "head_knobs", "host_data", "swap",
-          "quantize")
+          "quantize", "aot")
+
+
+def bytecode_cache() -> None:
+    """Let this process and every process it starts keep compiled bytecode
+    under ``build/pycache``.  The card's machine sets
+    ``PYTHONDONTWRITEBYTECODE``, so each fresh interpreter otherwise
+    compiles torch, its compiler stack and the port from source again:
+    18.6 s to import them on the H100's machine, paid by every fit, rank
+    and server this script starts."""
+    import os
+
+    prefix = REPO / "build" / "pycache"
+    prefix.mkdir(parents=True, exist_ok=True)
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = str(prefix)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(prefix)
+
+
+def later_phases(torch, ca, phases: set, aot_job, Predictor, InferenceService,
+                 make_server, ServeClient) -> dict:
+    """Phases 12-18 (those in ``phases``), while 18a's build ``aot_job``
+    compiles in the background; returns their paths' launch counts."""
+    paths = {}
+    if "devdata" in phases:
+        paths.update(phase_devdata(torch, ca))
+    if "sessions" in phases:
+        paths.update(phase_sessions(torch, ca, Predictor, InferenceService,
+                                    make_server, ServeClient))
+    if "head_knobs" in phases:
+        paths.update(phase_head_knobs(torch, ca, Predictor))
+    if "host_data" in phases:
+        paths.update(phase_host_data(torch, ca, Predictor))
+    if "swap" in phases:
+        paths.update(phase_swap(torch, ca, Predictor, InferenceService))
+    if "quantize" in phases:
+        paths.update(phase_quantize(torch, ca, Predictor, InferenceService))
+    if "aot" in phases:
+        paths.update(phase_aot(torch, ca, Predictor, aot_job))
+    return paths
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -6335,6 +6871,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"chip_smoke: no distributedpytorch_tpu_torch beside {REPO}",
               file=sys.stderr)
         return 2
+    bytecode_cache()
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6399,19 +6936,14 @@ def main(argv: list[str] | None = None) -> int:
         paths.update(phase_trainer(torch, ca))
     if "telemetry" in phases:
         paths.update(phase_telemetry(torch, ca, Predictor, InferenceService, make_server))
-    if "devdata" in phases:
-        paths.update(phase_devdata(torch, ca))
-    if "sessions" in phases:
-        paths.update(phase_sessions(torch, ca, Predictor, InferenceService,
-                                    make_server, ServeClient))
-    if "head_knobs" in phases:
-        paths.update(phase_head_knobs(torch, ca, Predictor))
-    if "host_data" in phases:
-        paths.update(phase_host_data(torch, ca, Predictor))
-    if "swap" in phases:
-        paths.update(phase_swap(torch, ca, Predictor, InferenceService))
-    if "quantize" in phases:
-        paths.update(phase_quantize(torch, ca, Predictor, InferenceService))
+    # phase 18's build compiles in the background from here on
+    aot_job = aot_build_start() if "aot" in phases else None
+    try:
+        paths.update(later_phases(torch, ca, phases, aot_job, Predictor,
+                                  InferenceService, make_server, ServeClient))
+    finally:
+        if aot_job is not None:
+            aot_build_stop(aot_job)
     for path, launches in paths.items():
         if not all(launches[k] > 0 for k in TPU_KERNELS
                    if k not in PATHS_WITHOUT.get(path, ())):

@@ -17,12 +17,15 @@ The seams woven into the port's real code paths (not shadow copies):
   (``serve.swap.load_swap_predictor``; payload = the state dict, a
   ``nan`` fault is a poisoned checkpoint);
 * ``device/put``          — the device prefetcher, before it places a
-  host batch (``parallel.mesh``; payload = the batch).
+  host batch (``parallel.mesh``; payload = the batch);
+* ``serve/aot_load``      — an AOT cache entry's raw bytes before their
+  checksum (``serve.aot.AotCache.load``; payload = a uint8 view, a
+  ``bitflip`` fault is bit rot the checksum must catch).
 
 :data:`SITES` keeps the JAX package's whole list, so a plan written for
 it parses here; the sites whose code the port does not have yet
-(``data/packed_read``, ``serve/aot_load``, ``serve/session_append``,
-``serve/route``, ``serve/health_poll``) never fire.
+(``data/packed_read``, ``serve/session_append``, ``serve/route``,
+``serve/health_poll``) never fire.
 
 Disabled is the default and it is ~free: ``fire`` loads one module
 attribute, sees ``None`` and returns.  ``arm()`` installs a

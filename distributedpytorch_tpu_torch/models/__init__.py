@@ -71,7 +71,14 @@ def build_model(name: str = "danet", nclass: int = 1,
     as in the JAX package.  ``guidance_inject`` is DANet's: ``stem`` (the
     backbone takes the whole concat) or ``head`` (the backbone takes the
     RGB channels, the guidance joins at the head; the model then runs
-    ``stage="encode"`` and ``stage="decode"`` apart)."""
+    ``stage="encode"`` and ``stage="decode"`` apart).
+
+    The model keeps these arguments as ``build_args`` (dtypes by name):
+    the architecture an AOT package of it is built for
+    (``serve/aot.cache_fingerprint``)."""
+    build_args = {k: v if v is None or isinstance(v, (str, int, float))
+                  else str(v).removeprefix("torch.")
+                  for k, v in locals().items()}
     if name in UNPORTED_MODELS:
         raise ValueError(f"model {name!r} is not ported "
                          f"({' | '.join(PORTED_MODELS)})")
@@ -148,6 +155,7 @@ def build_model(name: str = "danet", nclass: int = 1,
         set_dropout(model, dropout_rate is None)
     set_cross_replica(model, bn_cross_replica)
     set_fp32_stats(model, bn_fp32_stats)
+    model.build_args = build_args
     return model
 
 __all__ = ["ASPP", "DANet", "DANetHead", "DeepLabV3", "FCN", "FCNHead",

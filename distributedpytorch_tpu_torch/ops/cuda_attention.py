@@ -24,9 +24,28 @@ Every launch runs with its tensors' device made current (:func:`_on_device`):
 the ``ctypes`` entry points launch into the calling thread's current
 device, which under data parallelism need not be the tensor's.
 
+The three launches are operators of their own in the ``dptpu`` namespace
+(``torch.ops.dptpu.pam_forward``, ``cam_energy`` and ``cam_apply``, custom
+operators defined through a ``torch.library.Library``), each with a fake
+implementation (``torch.library.register_fake``) that gives only its
+output's shape and dtype.  ``torch.export`` traces them as
+opaque calls, so an exported or AOT-compiled forward
+(``serve/aot.py``) keeps calling the hand-written kernels instead of
+tracing their plain forms into its graph; the real implementation is the
+dispatch above, on the device of the tensors it is given.  The wrappers
+go through an operator only while a tracer holds their inputs
+(:func:`_traced`); on plain tensors they call its implementation
+directly, since the dispatcher's round trip, some tens of microseconds a
+call on the card's host, made the channel kernels host-bound at B = 1.
+The operators are defined with ``Library.define``/``impl`` rather than
+``torch.library.custom_op``, whose kernels are wrapped to disable Dynamo:
+the wrapper imports ``torch._dynamo`` (and through it part of Inductor)
+at its first call, seconds of a warm boot's first package run.
+
 The two attention functions are ``torch.autograd.Function``s, the
-counterparts of the JAX ``custom_vjp``s: the forward is the kernels (the
-plain form on the CPU) and saves its inputs; the backward recomputes
+counterparts of the JAX ``custom_vjp``s, taken when an input requires
+grad (the kernels are called directly otherwise): the forward is the
+kernels (the plain form on the CPU) and saves its inputs; the backward recomputes
 through the plain forms — :func:`.attention.blocked_position_attention`
 with the same key block, :func:`.attention.channel_attention` — and
 returns their vector-Jacobian products.  There is no backward kernel, as
@@ -54,6 +73,13 @@ from .attention import (
     channel_attention,
     channel_energy,
 )
+
+#: the ``dptpu`` operators' library (kept alive for the process)
+_OPS = torch.library.Library("dptpu", "DEF")
+_OPS.define("pam_forward(Tensor q, Tensor k, Tensor v, int block_k, "
+            "float? scale) -> Tensor")
+_OPS.define("cam_energy(Tensor x) -> Tensor")
+_OPS.define("cam_apply(Tensor attn, Tensor x) -> Tensor")
 
 #: launches per kernel wrapper since the last :func:`reset_launches`
 launches: dict[str, int] = {"position_attention": 0, "cam_energy": 0,
@@ -174,7 +200,7 @@ class _PositionAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, block_k, scale):
         ctx.save_for_backward(q, k, v)
         ctx.block_k, ctx.scale = block_k, scale
-        return _pam_forward(q, k, v, block_k, scale)
+        return _pam(q, k, v, block_k, scale)
 
     @staticmethod
     def backward(ctx, grad):
@@ -210,16 +236,47 @@ def flash_position_attention(q: torch.Tensor, k: torch.Tensor,
     block of the plain online-softmax form that the CPU forward and every
     backward run."""
     del block_q
-    return _PositionAttention.apply(q, k, v, block_k, scale)
+    if _needs_grad(q, k, v):
+        return _PositionAttention.apply(q, k, v, block_k, scale)
+    return _pam(q, k, v, block_k, scale)
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd must record the call: grad mode on and an input
+    that requires grad (the autograd function's path)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _traced(*tensors: torch.Tensor) -> bool:
+    """True while a tracer holds the tensors (``torch.export``'s fake and
+    functional tensors, ``torch.compile``): the call must then be the
+    operator's, which the graph keeps."""
+    if torch.compiler.is_compiling():
+        return True
+    for t in tensors:
+        if type(t) is not torch.Tensor:
+            return True
+    return False
+
+
+def _pam(q, k, v, block_k, scale):
+    if _traced(q, k, v):
+        return torch.ops.dptpu.pam_forward(q, k, v, block_k, scale)
+    return _pam_forward(q, k, v, block_k, scale)
+
+
+def _check_pam_shapes(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> None:
+    if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 \
+            or v.shape[:2] != q.shape[:2]:
+        raise ValueError(f"expected q, k (B, N, Ck) and v (B, N, Cv); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
 
 
 def _pam_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  block_k: int, scale: float | None) -> torch.Tensor:
     """The position kernel's launch (the plain form for CPU tensors)."""
-    if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 \
-            or v.shape[:2] != q.shape[:2]:
-        raise ValueError(f"expected q, k (B, N, Ck) and v (B, N, Cv); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _check_pam_shapes(q, k, v)
     if _on_cpu(q, k, v):
         return blocked_position_attention(q, k, v, block_size=block_k,
                                           scale=scale)
@@ -240,6 +297,15 @@ def _pam_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(err, "position-attention")
     _count("position_attention")
     return out
+
+
+_OPS.impl("pam_forward", _pam_forward, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("dptpu::pam_forward", lib=_OPS)
+def _(q, k, v, block_k, scale):
+    _check_pam_shapes(q, k, v)
+    return v.new_empty((q.shape[0], q.shape[1], v.shape[-1]))
 
 
 @functools.lru_cache(maxsize=256)
@@ -307,8 +373,19 @@ def _gram_buffers(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def cam_energy(x: torch.Tensor) -> torch.Tensor:
     """(B, N, C) -> the (B, C, C) float32 channel-attention map."""
+    if _traced(x):
+        return torch.ops.dptpu.cam_energy(x)
+    return _cam_energy(x)
+
+
+def _check_energy_shapes(x: torch.Tensor) -> None:
     if x.dim() != 3:
         raise ValueError(f"expected x (B, N, C), got {tuple(x.shape)}")
+
+
+def _cam_energy(x: torch.Tensor) -> torch.Tensor:
+    """The energy kernel's two launches (the plain form for CPU tensors)."""
+    _check_energy_shapes(x)
     if _on_cpu(x):
         return channel_energy(x)
     partial, attn = _gram_buffers(x)
@@ -320,12 +397,33 @@ def cam_energy(x: torch.Tensor) -> torch.Tensor:
     return attn
 
 
+_OPS.impl("cam_energy", _cam_energy, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("dptpu::cam_energy", lib=_OPS)
+def _(x):
+    _check_energy_shapes(x)
+    return x.new_empty((x.shape[0], x.shape[2], x.shape[2]),
+                       dtype=torch.float32)
+
+
 def cam_apply(attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``out[n, i] = sum_j attn[i, j] * x[n, j]``: (B, C, C) float32 map and
     (B, N, C) tokens -> (B, N, C) in ``x.dtype``."""
+    if _traced(attn, x):
+        return torch.ops.dptpu.cam_apply(attn, x)
+    return _cam_apply(attn, x)
+
+
+def _check_apply_shapes(attn: torch.Tensor, x: torch.Tensor) -> None:
     if x.dim() != 3 or attn.shape != (x.shape[0], x.shape[2], x.shape[2]):
         raise ValueError(f"expected attn (B, C, C) and x (B, N, C); got "
                          f"{tuple(attn.shape)}, {tuple(x.shape)}")
+
+
+def _cam_apply(attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The apply kernel's launch (the plain form for CPU tensors)."""
+    _check_apply_shapes(attn, x)
     if _on_cpu(attn, x):
         return channel_apply(attn, x)
     if attn.dtype != torch.float32:
@@ -343,10 +441,21 @@ def cam_apply(attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+_OPS.impl("cam_apply", _cam_apply, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("dptpu::cam_apply", lib=_OPS)
+def _(attn, x):
+    _check_apply_shapes(attn, x)
+    return torch.empty_like(x)
+
+
 def flash_channel_attention(x: torch.Tensor,
                             block_n: int = 256) -> torch.Tensor:
     """Channel attention, (B, N, C) -> (B, N, C): :func:`cam_energy` then
     :func:`cam_apply`, differentiable through the plain form.  ``block_n``
     is the TPU kernel's row tiling and has no effect here."""
     del block_n
-    return _ChannelAttention.apply(x)
+    if _needs_grad(x):
+        return _ChannelAttention.apply(x)
+    return cam_apply(cam_energy(x), x)

@@ -27,6 +27,11 @@ backbone's features, kept on the device in the compute dtype) and
 click and a session's warm click (cached features, new guidance from
 :meth:`Predictor.prepare_guidance`) run the same two forwards.
 
+A warm boot (``serve/aot.py``) installs compiled programs of exact shapes
+(:meth:`Predictor.install_aot`): ``forward_prepared``, ``encode`` and
+``decode_device`` run the installed program at its shape and the eager
+forward at every other.
+
 ``SemanticPredictor`` serves a ``task=semantic`` run: the image resized
 to the training crop (cubic, clamped), the argmax of the primary logits
 resized back nearest (``resize``), or crop-sized windows at native
@@ -259,6 +264,9 @@ class Predictor:
             self._rgb_stats = (rgb_mean, rgb_std)
             self._guidance_stats = (g_mean, g_std)
         self._feature_shape: tuple[int, ...] | None = None
+        #: per-shape AOT programs (serve/aot.py): empty unless a warm boot
+        #: installed some
+        self._aot: dict = {}
 
     @classmethod
     def fresh(cls, size: int = 512, backbone: str = "resnet101",
@@ -321,14 +329,36 @@ class Predictor:
                              resolution=self.resolution,
                              alpha=self.alpha, guidance=self.guidance)
 
-    def _nchw(self, x) -> torch.Tensor:
-        """(B, H, W, C) or (H, W, C) numpy or tensor -> an NCHW float32
-        tensor on this predictor's device."""
+    def install_aot(self, key: tuple, program) -> None:
+        """Install a compiled program for one shape.
+
+        ``key``: ``("forward", (B, H, W, C))`` for a whole-forward
+        predictor, ``("encode", bucket)`` / ``("decode", bucket)`` for a
+        split one: the keys ``serve.aot.AotCache`` hands the warm boot.
+        Calls at exactly that shape then run ``program`` (a loaded
+        AOTInductor package); every other shape keeps the eager path."""
+        kind = key[0]
+        valid = ({"encode", "decode"} if self.supports_sessions
+                 else {"forward"})
+        if kind not in valid:
+            raise ValueError(
+                f"install_aot: key kind {kind!r} does not match this "
+                f"predictor's programs ({sorted(valid)})")
+        self._aot[key] = program
+
+    @property
+    def aot_programs(self) -> list:
+        """Keys of the installed AOT programs."""
+        return sorted(self._aot, key=str)
+
+    def _nhwc(self, x) -> torch.Tensor:
+        """(B, H, W, C) or (H, W, C) numpy or tensor -> a (B, H, W, C)
+        float32 tensor on this predictor's device."""
         t = x if torch.is_tensor(x) else \
             torch.from_numpy(np.ascontiguousarray(x, np.float32))
         if t.ndim == 3:
             t = t[None]
-        return t.to(self.device, torch.float32).permute(0, 3, 1, 2)
+        return t.to(self.device, torch.float32)
 
     def forward_prepared(self, concat: np.ndarray) -> np.ndarray:
         """(B, H, W, C) prepared crops -> (B, H, W) float32 probabilities of
@@ -340,7 +370,13 @@ class Predictor:
                 concat = concat[None]
             return self.decode(self.encode(concat[..., :-1]),
                                concat[..., -1:])
-        x = _normalize(self._nchw(concat), self.mean, self.std)
+        x = self._nhwc(concat)
+        program = self._aot.get(("forward", tuple(x.shape))) \
+            if self._aot else None
+        if program is not None:
+            with torch.inference_mode():
+                return program(x).cpu().numpy()
+        x = _normalize(x.permute(0, 3, 1, 2), self.mean, self.std)
         with torch.inference_mode():
             logits = self.model(x.to(self.dtype).contiguous())[0]
             probs = torch.sigmoid(logits.float())[:, 0]
@@ -356,7 +392,12 @@ class Predictor:
         backbone's features (B, C_feat, H / os, W / os), in the compute
         dtype, on the device: a session's cache entry."""
         self._need_sessions("encode")
-        x = _normalize(self._nchw(rgb), *self._rgb_stats)
+        x = self._nhwc(rgb)
+        program = self._aot.get(("encode", x.shape[0])) if self._aot else None
+        if program is not None:
+            with torch.inference_mode():
+                return program(x)
+        x = _normalize(x.permute(0, 3, 1, 2), *self._rgb_stats)
         with torch.inference_mode():
             return self.model(x.to(self.dtype).contiguous(), stage="encode")
 
@@ -365,7 +406,13 @@ class Predictor:
         """Encoded ``features`` + (B, H, W, 1) guidance -> (B, H, W) float32
         probabilities of the fused head, left on the device."""
         self._need_sessions("decode")
-        g = _normalize(self._nchw(guidance), *self._guidance_stats)
+        g = self._nhwc(guidance)
+        program = self._aot.get(("decode", features.shape[0])) \
+            if self._aot else None
+        if program is not None:
+            with torch.inference_mode():
+                return program(features, g)
+        g = _normalize(g.permute(0, 3, 1, 2), *self._guidance_stats)
         with torch.inference_mode():
             logits = self.model((features, g.to(self.dtype).contiguous()),
                                 stage="decode", out_size=self.resolution)[0]

@@ -2,9 +2,10 @@
 micro-batcher (``service``), its bucket ladder (``batching``), the
 session feature cache (``sessions``), hot swap with canary generations
 (``swap``), int8 weight quantization of the served model (``quantize``),
-the wire format and client (``client``) and the HTTP front
-(``__main__``)."""
+the AOT program cache (``aot``), the wire format and client (``client``)
+and the HTTP front (``__main__``)."""
 
+from .aot import AotCache, AotCacheError, AotCacheMiss
 from .quantize import (
     QTensor,
     QuantizedPredictor,
@@ -16,6 +17,9 @@ from .quantize import (
 from .swap import PredictorPool, SwapInProgressError
 
 __all__ = [
+    "AotCache",
+    "AotCacheError",
+    "AotCacheMiss",
     "PredictorPool",
     "QTensor",
     "QuantPolicy",

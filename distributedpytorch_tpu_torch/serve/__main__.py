@@ -34,7 +34,15 @@ at most ``--session-lane-depth`` queued requests.  It runs on CUDA unless
 ``--quantize int8`` serves int8 conv weights (``serve/quantize.py``); without
 the flag a ``--run-dir`` run's ``model.quantization`` decides, and
 ``--quantize none`` serves float weights whatever the run says.  The boot
-line's ``quantization`` is the policy's block, or null.
+line's ``quantization`` is the policy's block, or null.  ``--warmup``
+readies every bucket's program before the server listens; with
+``--aot-cache DIR`` it loads them from the AOT cache
+(``python -m distributedpytorch_tpu_torch.serve.aot``, ``serve/aot.py``),
+warming a missing or refused entry eagerly with a loud stderr line.  The
+boot line's ``cold_start`` holds the warm-up's seconds, the programs
+warmed eagerly and loaded, and the cache's outcome (``off``, ``hit``,
+``partial``, ``miss``), or null without ``--warmup``; a stderr line before
+it gives the compiles a ``CompileWatchdog`` counted over the warm-up.
 SIGTERM/SIGINT stop the server, fail the queued requests and exit 0.
 An ``InjectedFaultError`` from an armed ``serve/enqueue`` fault
 (``DPTPU_CHAOS_PLAN``) is not caught, as on the JAX front: that request's
@@ -242,15 +250,28 @@ def boot_record(args, predictor, service: InferenceService, port: int) -> dict:
             "buckets": list(service.buckets),
             "resolution": list(predictor.resolution),
             "sessions": service.sessions_enabled,
-            "quantization": quantization_block(predictor.quant_policy)}
+            "quantization": quantization_block(predictor.quant_policy),
+            "cold_start": cold_start_block(service.last_warmup)}
 
 
-def make_parser() -> argparse.ArgumentParser:
-    """The server's command line."""
-    parser = argparse.ArgumentParser(
-        prog="distributedpytorch_tpu_torch.serve",
-        description="Batched click-to-mask inference over HTTP (PyTorch/CUDA)")
-    src = parser.add_mutually_exclusive_group(required=True)
+def cold_start_block(warm: dict | None) -> dict | None:
+    """The boot line's ``cold_start``: the warm-up's seconds, programs
+    warmed eagerly and loaded, and the cache outcome; null without
+    ``--warmup``."""
+    if warm is None:
+        return None
+    return {k: warm[k] for k in ("warmup_seconds", "programs_compiled",
+                                 "programs_loaded", "aot_cache")}
+
+
+def add_model_source_args(parser: argparse.ArgumentParser,
+                          required: bool = True) -> None:
+    """The served model's flags: its source (``--fresh-init``,
+    ``--state-dict`` or ``--run-dir`` with ``--step``), ``--backbone`` and
+    ``--resolution`` of a state dict, ``--device`` and ``--quantize``; the
+    server's and the AOT cache's command lines share them, and
+    :func:`build_predictor` resolves them."""
+    src = parser.add_mutually_exclusive_group(required=required)
     src.add_argument("--fresh-init", metavar="SIZE:BACKBONE:SEED",
                      help="serve DANet with random weights drawn from SEED "
                           "at SIZE² (e.g. 512:resnet101:0); a fourth field "
@@ -269,6 +290,18 @@ def make_parser() -> argparse.ArgumentParser:
                         help="crop size of --state-dict's DANet")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; cpu only on request)")
+    parser.add_argument("--quantize", choices=("int8", "none"), default=None,
+                        help="int8 weight-only quantization of the served "
+                             "model (serve/quantize); default: the run "
+                             "config's model.quantization, else none")
+
+
+def make_parser() -> argparse.ArgumentParser:
+    """The server's command line."""
+    parser = argparse.ArgumentParser(
+        prog="distributedpytorch_tpu_torch.serve",
+        description="Batched click-to-mask inference over HTTP (PyTorch/CUDA)")
+    add_model_source_args(parser)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8801)
     parser.add_argument("--max-batch", type=int, default=8,
@@ -280,7 +313,17 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--deadline-ms", type=float, default=None,
                         help="default per-request deadline (none = wait)")
     parser.add_argument("--warmup", action="store_true",
-                        help="run every bucket once before taking traffic")
+                        help="ready every bucket's program before taking "
+                             "traffic (eagerly, or from --aot-cache)")
+    parser.add_argument("--aot-cache", metavar="DIR", default=None,
+                        help="with --warmup, load the bucket ladder's AOT "
+                             "packages from DIR (python -m "
+                             "distributedpytorch_tpu_torch.serve.aot); a "
+                             "missing or bad entry warms eagerly, loudly. "
+                             "It boots slower than the eager warm-up and "
+                             "serves no faster, and each package holds its "
+                             "own copy of the weights on the card, outside "
+                             "the allocator's accounting (README)")
     parser.add_argument("--session-budget-mb", type=float, default=256.0,
                         help="device byte budget of the session feature "
                              "cache (split predictors only); LRU evicts "
@@ -295,10 +338,6 @@ def make_parser() -> argparse.ArgumentParser:
                         help="where POST /debug/trace and SIGUSR2 write "
                              "bounded profiler captures (default: "
                              "<run-dir>/serve_trace, or ./serve_trace)")
-    parser.add_argument("--quantize", choices=("int8", "none"), default=None,
-                        help="int8 weight-only quantization of the served "
-                             "model (serve/quantize); default: the run "
-                             "config's model.quantization, else none")
     return parser
 
 
@@ -315,9 +354,15 @@ def main(argv: list[str] | None = None) -> int:
         else args.deadline_ms / 1e3, trace=trace,
         session_budget_bytes=int(args.session_budget_mb * 2**20),
         session_ttl_s=args.session_ttl_s,
-        session_lane_depth=args.session_lane_depth)
+        session_lane_depth=args.session_lane_depth,
+        aot_cache=args.aot_cache)
     if args.warmup:
-        service.warmup()
+        from ..utils.compile_watchdog import CompileWatchdog
+
+        with CompileWatchdog() as wd:
+            service.warmup()
+        print(f"serve/warmup: {wd.total} compiles on the CompileWatchdog "
+              f"{dict(wd.counts)}", file=sys.stderr, flush=True)
     service.start()
     httpd = make_server(service, args.host, args.port)
 

@@ -24,8 +24,7 @@ import threading
 from ..telemetry.registry import MetricsRegistry, get_registry
 from ..utils.profiling import percentile
 
-#: counter slug -> help string (also fixes the exported metric set; the
-#: retrace counter stays 0 until the port has a compile watchdog)
+#: counter slug -> help string (also fixes the exported metric set)
 _COUNTERS = {
     "requests": "requests accepted into the queue",
     "completed": "requests answered with a mask",

@@ -1,7 +1,7 @@
 """The inference service: bounded queue -> micro-batcher -> bucketed forward.
 
 Counterpart of ``distributedpytorch_tpu/serve/service.py`` with its
-sessions and its hot swap, without AOT or the compile watchdog::
+sessions, its hot swap, its AOT warm boot and its retrace tripwire::
 
     client threads --submit()--> bounded queue --drain--> micro-batcher
                                                               |
@@ -38,6 +38,19 @@ sessions and its hot swap, without AOT or the compile watchdog::
   :meth:`InferenceService.rollback` do); a canary's non-finite full batch
   is served again by the active generation, and the worker's 1 Hz sweep
   retires drained generations, whose weights are then freed.
+* :meth:`InferenceService.warmup` readies every bucket's program before
+  traffic: with an ``aot_cache`` (``serve/aot.py``) it loads each
+  program's AOTInductor package and installs it in the predictor, and
+  warms eagerly, with a loud stderr line, whatever the cache cannot give;
+  without one it warms every program eagerly, the port's ordinary path.
+* The retrace tripwire: a :class:`..utils.compile_watchdog.CompileWatchdog`
+  runs on the worker thread for the service's lifetime.  The port's steady
+  state compiles nothing (eager forwards, loaded packages), and the budget
+  is JAX's, one compile per batch shape dispatched that no warm-up
+  readied; a compile beyond it counts ``retrace_failures``, makes the
+  service unhealthy (``health()["unhealthy_reason"]``) and, with
+  ``strict_retrace`` (the default), refuses further requests with
+  :class:`ServiceUnhealthyError`.
 
 Host preprocessing (clicks -> guidance -> crop) runs on the caller's thread
 in :meth:`InferenceService.submit`; the worker owns the forward and the
@@ -52,7 +65,9 @@ driven by the worker, one tick per batch.
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
+import sys
 import threading
 import time
 from concurrent.futures import Future
@@ -83,7 +98,7 @@ class DeadlineExceededError(TimeoutError):
 
 
 class ServiceUnhealthyError(RuntimeError):
-    """The service refused the request (not running)."""
+    """The service refused the request (stopped, or tripped unhealthy)."""
 
 
 class _NonFiniteOutputError(RuntimeError):
@@ -140,7 +155,11 @@ class InferenceService:
     predictor, ``session_budget_bytes`` and ``session_ttl_s`` bound the
     session store and ``session_lane_depth`` one session's queued
     requests.  :meth:`swap`, :meth:`promote` and :meth:`rollback` change
-    the weights in service without stopping it.
+    the weights in service without stopping it.  ``aot_cache`` (a path or
+    a :class:`.aot.AotCache`) is where :meth:`warmup` loads the bucket
+    ladder's compiled programs from; ``strict_retrace=False`` keeps
+    serving after a tripped retrace check (counted and reported
+    unhealthy all the same).
     """
 
     def __init__(self, predictor, max_batch: int = 8, queue_depth: int = 64,
@@ -148,7 +167,8 @@ class InferenceService:
                  default_deadline_s: float | None = None, trace=None,
                  session_budget_bytes: int = 256 << 20,
                  session_ttl_s: float = 600.0,
-                 session_lane_depth: int = 4):
+                 session_lane_depth: int = 4, aot_cache=None,
+                 strict_retrace: bool = True):
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
         if max_wait_s < 0:
@@ -184,6 +204,23 @@ class InferenceService:
         #: dtype, whose head pads a decode to its bucket
         self._feat_pad = None
         self._queue: queue.Queue[_Request] = queue.Queue(maxsize=queue_depth)
+        if isinstance(aot_cache, (str, os.PathLike)):
+            from .aot import AotCache
+
+            aot_cache = AotCache(os.fspath(aot_cache))
+        self._aot_cache = aot_cache
+        #: the last warmup()'s record (None before one ran)
+        self.last_warmup: dict | None = None
+        self.strict_retrace = strict_retrace
+        from ..utils.compile_watchdog import CompileWatchdog
+
+        #: entered on the worker thread for the service's lifetime
+        self._watchdog = CompileWatchdog()
+        #: (kind, bucket, predictor key) of every program dispatched, and
+        #: of every one a warm-up readied
+        self._shapes_dispatched: set[tuple] = set()
+        self._warm_shapes: set[tuple] = set()
+        self._unhealthy: str | None = None
         self._stop = threading.Event()
         #: "new" (accepting, queued until start) -> "running" -> "stopped"
         self._state = "new"
@@ -192,23 +229,137 @@ class InferenceService:
     # ------------------------------------------------------------ lifecycle
 
     def warmup(self) -> dict:
-        """Run every bucket's batch shape once before taking traffic (the
-        first forward at a shape pays cuDNN's algorithm search and, on the
-        card, the kernels' build); a split predictor's forward is its
-        encode and its decode, so both stages warm at each bucket.
-        Returns per-bucket milliseconds."""
-        return self._warm(self.predictor)
+        """Ready every bucket's program before taking traffic, and return
+        (and keep as :attr:`last_warmup`) the record JAX's warm-up gives:
+        ``warmup_seconds``, ``programs_compiled``, ``programs_loaded``,
+        ``aot_cache`` (``off`` without a cache; ``hit`` when every program
+        loaded, ``partial`` when some did, ``miss`` when none did) and
+        ``programs``, one ``{"program", "outcome", "fallback", "ms"}`` a
+        program.  A split predictor has two programs a bucket (encode and
+        decode), a stem predictor one (the whole forward).
+
+        With an ``aot_cache`` each program loads its AOTInductor package
+        (``serve/aot.py``), runs it once and installs it in the predictor
+        (outcome ``load``): no compile.  A program the cache cannot give
+        (a miss: absent, or built for other weights, card, torch, ...; an
+        error: a checksum mismatch, a package that does not load) is warmed
+        eagerly with a loud stderr line naming why, and a fingerprint that
+        cannot be taken disables the cache for the boot, as loudly: a
+        cache never stops a boot.  An eagerly warmed program's outcome is
+        ``eager``, not JAX's ``compile``, since the port's eager forward
+        compiles nothing (its first call at a shape pays cuDNN's algorithm
+        choice and, on the card, the kernels' build); it counts in
+        ``programs_compiled``, as a fresh compile does in JAX's.  The
+        eager forward launches the same kernels: it is the port's ordinary
+        serving path, not a fallback that hides a kernel.  Each program's
+        outcome and milliseconds go to stderr (``serve/warmup: <program>:
+        <outcome> <ms> ms``), and its shape is registered with the retrace
+        tripwire."""
+        self.last_warmup = self._warm(self.predictor)
+        return self.last_warmup
 
     def _warm(self, pred) -> dict:
-        """Each bucket's forward once on ``pred``, on the calling thread."""
-        h, w = pred.resolution
-        out = {}
-        for b in self.buckets:
-            t0 = time.perf_counter()
-            pred.forward_prepared(np.zeros((b, h, w, pred.in_channels),
-                                           np.float32))
-            out[b] = (time.perf_counter() - t0) * 1e3
-        return out
+        """Every program of ``pred``'s ladder, loaded or warmed eagerly, on
+        the calling thread; returns the warm-up record."""
+        from .aot import (
+            AotCacheError,
+            AotCacheMiss,
+            cache_fingerprint,
+            example_inputs,
+            ladder_programs,
+        )
+
+        # a plan armed for the boot (DPTPU_CHAOS_PLAN) reaches serve/aot_load
+        chaos_sites.maybe_arm_from_env()
+        t0 = time.perf_counter()
+        cache = self._aot_cache
+        fingerprint = None
+        if cache is not None:
+            try:
+                fingerprint = cache_fingerprint(pred)
+            except Exception as e:  # fingerprinting never kills a boot
+                print(f"serve/aot: cache disabled for this boot — "
+                      f"fingerprinting failed ({type(e).__name__}: {e})",
+                      file=sys.stderr)
+                cache = None
+        log: list[dict] = []
+        for name, _module, meta, key in ladder_programs(pred, self.buckets):
+            p0 = time.perf_counter()
+            outcome, fallback = "eager", None
+            args = example_inputs(meta, pred.device)
+            if cache is not None:
+                try:
+                    program = cache.load(name, fingerprint)
+                    with torch.inference_mode():
+                        program(*args)
+                    pred.install_aot(key, program)
+                    outcome = "load"
+                except AotCacheMiss as e:
+                    fallback = "miss"
+                    print(f"serve/aot: miss for {name!r}: {e} — warming "
+                          "eagerly", file=sys.stderr)
+                except AotCacheError as e:
+                    fallback = "error"
+                    print(f"serve/aot: REFUSING cache entry {name!r}: {e} "
+                          "— warming eagerly", file=sys.stderr)
+                except Exception as e:  # noqa: BLE001 — the backstop: a
+                    # bad cache is a slower boot, never a dead one
+                    fallback = "error"
+                    print(f"serve/aot: unexpected failure loading {name!r} "
+                          f"({type(e).__name__}: {e}) — warming eagerly",
+                          file=sys.stderr)
+            if outcome == "eager":
+                self._warm_eagerly(pred, key, args)
+            self._warm_shapes.add(self._shape_key(key, pred))
+            ms = (time.perf_counter() - p0) * 1e3
+            log.append({"program": name, "outcome": outcome,
+                        "fallback": fallback, "ms": round(ms, 3)})
+            print(f"serve/warmup: {name}: {outcome} {ms:.1f} ms"
+                  + (f" (cache {fallback})" if fallback else ""),
+                  file=sys.stderr)
+        loaded = sum(1 for e in log if e["outcome"] == "load")
+        compiled = len(log) - loaded
+        if self._aot_cache is None:
+            aot = "off"
+        elif compiled == 0 and loaded:
+            aot = "hit"
+        elif loaded:
+            aot = "partial"
+        else:
+            aot = "miss"
+        return {"warmup_seconds": round(time.perf_counter() - t0, 4),
+                "programs_compiled": compiled,
+                "programs_loaded": loaded,
+                "aot_cache": aot,
+                "programs": log}
+
+    @staticmethod
+    def _warm_eagerly(pred, key: tuple, args: tuple) -> None:
+        """One eager call of the stage ``key`` names, on its zero inputs."""
+        kind = key[0]
+        if kind == "forward":
+            pred.forward_prepared(args[0])
+        elif kind == "encode":
+            pred.encode(args[0])
+        else:
+            pred.decode(*args)
+
+    def _shape_key(self, key: tuple, pred) -> tuple:
+        """The tripwire's key of a program: its kind, its bucket and its
+        predictor (:meth:`_pred_key`)."""
+        kind, shape = key
+        bucket = shape[0] if kind == "forward" else shape
+        return (kind, bucket, self._pred_key(pred))
+
+    @staticmethod
+    def _pred_key(pred) -> int:
+        """A predictor's tag in the tripwire's keys: each generation has its
+        own programs, so an unwarmed swapped-in generation's first
+        dispatches are new shapes, not retraces.  ``id()`` is stable while
+        the pool holds the predictor; a later predictor that reuses a
+        retired one's id inherits one ladder of budget, accepted for the
+        simplicity (as in JAX)."""
+        return id(pred)
 
     def start(self) -> "InferenceService":
         """Start the batcher worker.  Requests submitted before start wait in
@@ -269,13 +420,16 @@ class InferenceService:
         Raises :class:`QueueFullError` at once when the queue is full,
         :class:`SessionLaneFullError` when ``session_id`` already holds
         ``session_lane_depth`` queued requests,
-        :class:`ServiceUnhealthyError` when the service is stopped, and
+        :class:`ServiceUnhealthyError` when the service is stopped or (with
+        ``strict_retrace``) tripped unhealthy, and
         ``ValueError`` for bad inputs, before anything is queued.
         ``session_id`` (a split predictor only) makes the click part of a
         session: the first encodes and caches the crop's features, later
         clicks inside the crop only decode."""
         if self._state == "stopped":
             raise ServiceUnhealthyError("service stopped")
+        if self._unhealthy and self.strict_retrace:
+            raise ServiceUnhealthyError(self._unhealthy)
         if session_id is not None and not self.sessions_enabled:
             raise ValueError(
                 "session_id needs a split predictor (model built with "
@@ -432,7 +586,10 @@ class InferenceService:
         the pool's own decision from the outcomes it observes (a NaN
         checkpoint rolls back on its first poisoned output).  The warm-up
         of the new predictor's buckets runs here, on the calling thread,
-        before any request is routed to it."""
+        before any request is routed to it, through the AOT cache where
+        there is one (a miss unless it was built for these weights), and
+        its programs are registered with the retrace tripwire under its
+        own key."""
         from .swap import SwapInProgressError
 
         if self.sessions_enabled and not getattr(
@@ -484,11 +641,14 @@ class InferenceService:
         return out
 
     def health(self) -> dict:
-        """Liveness and the counters a probe reads."""
+        """Liveness and the counters a probe reads; ``unhealthy_reason`` is
+        the tripped retrace check's message, or None."""
         return {
             "ok": self._state == "running" and (
-                self._worker is not None and self._worker.is_alive()),
+                self._worker is not None and self._worker.is_alive())
+            and self._unhealthy is None,
             "state": self._state,
+            "unhealthy_reason": self._unhealthy,
             "device": str(self.predictor.device),
             "queue_depth": self._queue.qsize(),
             "queue_capacity": self._queue.maxsize,
@@ -499,9 +659,22 @@ class InferenceService:
             "swap": self._pool.snapshot(),
         }
 
+    @property
+    def compile_counts(self) -> dict:
+        """Compiles the worker's lifetime watchdog has seen, by name."""
+        return dict(self._watchdog.counts)
+
     # ------------------------------------------------------------ worker
 
     def _run(self) -> None:
+        # the watchdog counts the compiles of the thread that entered it:
+        # this one, where every dispatch happens
+        with self._watchdog:
+            self._serve()
+        if self.trace is not None:
+            self.trace.close()
+
+    def _serve(self) -> None:
         last_sweep = time.perf_counter()
         while not self._stop.is_set():
             batch = self._gather()
@@ -509,13 +682,14 @@ class InferenceService:
                 # 1 step per batch, 0 on idle polls so the wall-clock
                 # backstop still closes a capture when traffic stops
                 self.trace.tick(1 if batch else 0)
-            if batch:
-                self._process(batch)
             now = time.perf_counter()
             if now - last_sweep > 1.0:
-                # housekeeping between drains: reap abandoned sessions,
-                # retire drained generations (a stateless service that
-                # swaps frees its old weights too)
+                # housekeeping between drains, before the drained batch
+                # runs: reap abandoned sessions, retire drained
+                # generations (a stateless service that swaps frees its
+                # old weights too); a generation a batch's outcome just
+                # drained retires at a later sweep, after its clients
+                # have their answers and can read its state
                 last_sweep = now
                 if self._store is not None:
                     self._store.sweep()
@@ -528,8 +702,8 @@ class InferenceService:
                     # settings are the same: load_swap_predictor inherits
                     # them)
                     self.predictor = self._pool.active_predictor
-        if self.trace is not None:
-            self.trace.close()
+            if batch:
+                self._process(batch)
 
     def _gather(self) -> list[_Request]:
         """Wait up to ``max_wait_s`` after the first request for company,
@@ -596,6 +770,7 @@ class InferenceService:
                 probs, gen_used = self._decode_batch(gen_id, live, bucket)
             else:
                 probs, gen_used = self._full_batch(gen_id, live, bucket)
+            self._check_retrace()
             for i, req in enumerate(live):
                 req.future.set_result(self.predictor.paste_back(
                     probs[i], req.bbox, req.shape_hw))
@@ -626,7 +801,7 @@ class InferenceService:
         padded = batching.pad_to_bucket(
             np.stack([r.concat for r in live]), bucket)
         probs, feats = self._run_full(self._pool.predictor_for(gen_id),
-                                      padded)
+                                      padded, bucket)
         if not np.isfinite(probs[:len(live)]).all():
             active = self._pool.active_generation
             if gen_id == active:
@@ -637,7 +812,7 @@ class InferenceService:
             # serves the same batch finitely: a request with NaN pixels
             # poisons every generation alike
             probs2, feats2 = self._run_full(
-                self._pool.predictor_for(active), padded)
+                self._pool.predictor_for(active), padded, bucket)
             if not np.isfinite(probs2[:len(live)]).all():
                 raise _NonFiniteInputError(
                     "non-finite probabilities from BOTH generations — "
@@ -652,17 +827,24 @@ class InferenceService:
                                 req.shape_hw, gen_id, digest=req.digest)
         return batching.unpad(probs, len(live)), gen_id
 
-    def _run_full(self, pred, padded: np.ndarray):
+    def _run_full(self, pred, padded: np.ndarray, bucket: int):
         """(probabilities, features or None) of one padded bucket.  A
         split predictor runs its two stages here, the same two its
         ``forward_prepared`` runs, so a cold click's mask is the stateless
         one, bit for bit; a cold click's features stay on the device in
         the store (a copy of its lane, so the bucket's batch is not kept
-        alive)."""
+        alive).  The programs are registered with the tripwire after they
+        ran: a dispatch that failed leaves no shape behind."""
+        key = self._pred_key(pred)
         if not pred.supports_sessions:
-            return pred.forward_prepared(padded), None
+            probs = pred.forward_prepared(padded)
+            self._shapes_dispatched.add(("forward", bucket, key))
+            return probs, None
         feats = pred.encode(padded[..., :-1])
-        return pred.decode(feats, padded[..., -1:]), feats
+        probs = pred.decode(feats, padded[..., -1:])
+        self._shapes_dispatched.add(("encode", bucket, key))
+        self._shapes_dispatched.add(("decode", bucket, key))
+        return probs, feats
 
     def _decode_batch(self, gen_id: int, live: list[_Request],
                       bucket: int) -> tuple[np.ndarray, int]:
@@ -685,6 +867,7 @@ class InferenceService:
                 feats = feats + [pad[:n_pad]]
             batch = torch.cat(feats) if len(feats) > 1 else feats[0]
         probs = pred.decode(batch, guidance)
+        self._shapes_dispatched.add(("decode", bucket, self._pred_key(pred)))
         if not np.isfinite(probs[:len(live)]).all():
             # a decode has no image to encode again, so no failover; a
             # poisoned canary is caught at its cold click, so this is a
@@ -704,3 +887,19 @@ class InferenceService:
         action = self._pool.observe(gen_id, ok=ok, nonfinite=nonfinite)
         if action == "rolled_back" and self._store is not None:
             self._store.evict_generation(gen_id)
+
+    def _check_retrace(self) -> None:
+        """One compile per program, ever: more compiles on the worker than
+        programs dispatched that no warm-up readied is a steady-state
+        retrace.  Warmed programs are outside the budget, so that the first
+        compile at a warmed shape trips it.  The port's forwards compile
+        nothing, so the count stays 0 unless something on the serving path
+        starts compiling."""
+        compiles = self._watchdog.total
+        budget = len(self._shapes_dispatched - self._warm_shapes)
+        if compiles > budget:
+            self.metrics.count("retrace_failures")
+            self._unhealthy = (
+                f"steady-state retrace: {compiles} compiles on the serving "
+                f"thread for {budget} cold program shapes (counts: "
+                f"{dict(self._watchdog.counts)})")

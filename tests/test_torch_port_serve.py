@@ -156,7 +156,10 @@ class TestService:
     def test_health_and_warmup(self, predictor):
         svc = InferenceService(predictor, max_batch=2)
         assert svc.health()["ok"] is False
-        assert set(svc.warmup()) == {1, 2}
+        warm = svc.warmup()
+        assert [e["program"] for e in warm["programs"]] == ["forward_b1",
+                                                            "forward_b2"]
+        assert warm["aot_cache"] == "off" and warm["programs_compiled"] == 2
         with svc:
             health = svc.health()
             assert health["ok"] and health["state"] == "running"
